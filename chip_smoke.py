@@ -14,11 +14,15 @@ nothing else of the network or the filesystem.  Phases:
    PyTorch version on the card, on seeded inputs at its path's shapes
    (the serving path's for the router, flash and the ragged trio; the
    training round's for the two LoRA matmuls, plus ragged edges), with
-   the tolerance stated beside each check; kernel, plain and (where one
-   PyTorch call computes the same function, or for the LoRA matmuls the
-   base product alone) library times by CUDA events with the L2 flushed
-   before every call, and each kernel's bound (bytes over 3.35 TB/s or
-   FLOPs over the peak);
+   the tolerance stated beside each check — flash and the LoRA matmuls in
+   bf16 and fp16 (their tensor-core kernels) and float32 (their FMA
+   kernels); flash also checked and timed at the training round's shape,
+   and the expert kernel checked and timed at each tier, beside its
+   bound; kernel, plain and
+   (where one PyTorch call computes the same function, or for the LoRA
+   matmuls the base product alone) library times by CUDA events with the
+   L2 flushed before every call, and each kernel's bound (bytes over
+   3.35 TB/s or FLOPs over the peak);
 3. backward — gradients through the four autograd wrappers of the
    training path (both LoRA matmuls, router, flash) against autograd
    through their plain versions, float32, b != 0;
@@ -141,13 +145,15 @@ def main() -> int:
             total += s.elapsed_time(e)
         return total / REPS
 
-    def close_bf16(got, want, what):
-        """bf16 outputs: one rounding each side -> |d| <= 1e-2·|want| + 1e-2."""
+    def close_16bit(got, want, what):
+        """bf16 / fp16 outputs: one rounding each side, at most an ulp
+        apart -> |d| <= tol·|want| + tol, tol 1e-2 (bf16) or 2e-3 (fp16)."""
+        tol = 2e-3 if got.dtype == torch.float16 else 1e-2
         g, w = got.float(), want.float()
         err = (g - w).abs()
-        ok = bool((err <= 1e-2 * w.abs() + 1e-2).all())
+        ok = bool((err <= tol * w.abs() + tol).all())
         check(ok, f"{what}: max |kernel - plain| {err.max().item():.3e} "
-                  "exceeds 1e-2*|plain| + 1e-2")
+                  f"exceeds {tol:g}*|plain| + {tol:g}")
         return err.max().item()
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -191,18 +197,29 @@ def main() -> int:
            T * E * 2 + 2 * T * E * 4 + E * 4, 0.0, F32_FLOPS)
 
     # ------------------------------------------------ 2b. flash attention
+    # bf16 and fp16 run the tensor-core kernel, float32 the FMA kernel
     B, S, H, D = 2, 256, 16, 128
-    for kv, window in ((16, 0), (4, 0), (16, 64)):
-        q = randn(B, S, H, D)
-        k = randn(B, S, kv, D)
-        v = randn(B, S, kv, D)
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        got = flash_attention(qt, kt, vt, window=window)
-        want = ref.flash_attention_ref(qt, kt, vt, window=window)
-        err = close_bf16(got, want, f"flash KV={kv} window={window}")
-        print(f"flash check KV={kv} window={window}: max_abs_err {err:.3e}")
-        if kv == 16 and window == 0:
-            flash_err, fq, fk, fv = err, qt, kt, vt
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        for kv, window in ((16, 0), (4, 0), (16, 64)):
+            q = randn(B, S, H, D, dtype=dtype)
+            k = randn(B, S, kv, D, dtype=dtype)
+            v = randn(B, S, kv, D, dtype=dtype)
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            got = flash_attention(qt, kt, vt, window=window)
+            want = ref.flash_attention_ref(qt, kt, vt, window=window)
+            what = f"flash {dn} KV={kv} window={window}"
+            if dtype == torch.float32:
+                # fp32 both sides: summation order only
+                err = (got - want).abs().max().item()
+                check(err <= 1e-4, f"{what}: max |kernel - plain| {err:.3e}"
+                                   " > 1e-4")
+            else:
+                err = close_16bit(got, want, what)
+            print(f"flash check {dn} KV={kv} window={window}: max_abs_err "
+                  f"{err:.3e}")
+            if dtype == torch.bfloat16 and kv == 16 and window == 0:
+                flash_err, fq, fk, fv = err, qt, kt, vt
     qc, kc, vc = (t.contiguous() for t in (fq, fk, fv))
     pairs = B * H * S * (S + 1) // 2            # causal band
     record("flash_attention", src + "flash_attention.cu",
@@ -212,6 +229,21 @@ def main() -> int:
            4 * B * H * S * D * 2, 4.0 * D * pairs, BF16_FLOPS,
            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                qc, kc, vc, is_causal=True)))
+    # the training round's shape: B=16 sequences of S=128, 96 calls a round
+    Bt, St = 16, 128
+    qt_, kt_, vt_ = (randn(Bt, St, H, D).transpose(1, 2) for _ in range(3))
+    qtc, ktc, vtc = (t.contiguous() for t in (qt_, kt_, vt_))
+    err = close_16bit(flash_attention(qt_, kt_, vt_),
+                      ref.flash_attention_ref(qt_, kt_, vt_),
+                      "flash bf16 at the training shape")
+    print(f"flash check bf16 B={Bt} S={St}: max_abs_err {err:.3e}")
+    tb_ms, tb_by = bound_ms(4 * Bt * H * St * D * 2,
+                            4.0 * D * Bt * H * St * (St + 1) // 2, BF16_FLOPS)
+    print(f"flash at the training shape (B={Bt} S={St} H={H} D={D} bf16): "
+          f"{time_ms(lambda: flash_attention(qt_, kt_, vt_)):.4f} ms, SDPA "
+          f"{time_ms(lambda: F.scaled_dot_product_attention(qtc, ktc, vtc, is_causal=True)):.4f}"
+          f" ms, bound {tb_ms:.4f} ms by {tb_by}")
+    del qt_, kt_, vt_, qtc, ktc, vtc
 
     # ------------------------------------------------ 2c. ragged trio
     DM, DE, R = 2048, 1024, 20
@@ -239,7 +271,7 @@ def main() -> int:
     for what, args, kw in (("w1", (xs, be, w1), {}),
                            ("w1+lora", (xs, be, w1, la, lb), {"scale": 0.8}),
                            ("w2", (randn(N, DE), be, w2), {})):
-        err = close_bf16(ragged_expert_matmul(*args, **kw),
+        err = close_16bit(ragged_expert_matmul(*args, **kw),
                          ref.ragged_expert_matmul_ref(*args, **kw),
                          f"ragged_expert_matmul {what}")
         print(f"ragged_expert_matmul check {what}: max_abs_err {err:.3e}")
@@ -255,7 +287,7 @@ def main() -> int:
 
     eo = randn(N, DM)
     got = ragged_combine(eo, plan.rows, plan.wrank)
-    err = close_bf16(got, ref.ragged_combine_ref(eo, plan.rows, plan.wrank),
+    err = close_16bit(got, ref.ragged_combine_ref(eo, plan.rows, plan.wrank),
                      "ragged_combine")
     live = plan.rows[plan.wrank > 0]
     record("ragged_combine", src + "ragged_dispatch.cu",
@@ -288,8 +320,9 @@ def main() -> int:
     del w1, w2, la, lb, xs, eo, x
 
     # ------------------------------------------------ 2d. LoRA matmuls
-    # ragged edges (odd M, C = 41, r in {4, 20}, scale != 1) in fp32 and
-    # bf16, then the training round's shapes at OLMoE FULL: the attention
+    # ragged edges (odd M, C = 41, r in {4, 20}, scale != 1) in fp32 (the
+    # FMA kernel), bf16 and fp16 (the tensor-core kernel), then the
+    # training round's shapes at OLMoE FULL: the attention
     # projections (M = 16·128 tokens, K = N = 2048, r = 20) and the expert
     # w1/w3 (2048 -> 1024) and w2 (1024 -> 2048) at k = 8 (C = 328)
     def lora_ops(lead, M, K, N, r, dtype, a_scale=1.0):
@@ -305,10 +338,10 @@ def main() -> int:
             check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
                   f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
             return err
-        return close_bf16(got, want, what)
+        return close_16bit(got, want, what)
 
     lora_errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[1]
         for M, K, N, r, sc in ((37, 100, 77, 4, 1.7), (2047, 2048, 2048, 20,
                                                        0.8),
@@ -358,18 +391,31 @@ def main() -> int:
     # the expert kernel at each tier's capacity (k = 8, 4, 2, 1 at 2048
     # tokens): w1/w3 (2048 -> 1024) and w2 (1024 -> 2048), for the
     # training phase's share estimate
+    def expert_bound(C, K, N, r):
+        return bound_ms(2 * E * (C * K + K * N + K * r + r * N + C * N),
+                        2.0 * E * C * (K * N + K * r + r * N), BF16_FLOPS)
+
     expert_ms = {}
     for kk, C in ((8, 328), (4, 168), (2, 88), (1, 48)):
         t13 = lora_ops((E,), C, DM, DE, R_, torch.bfloat16)
         t2 = lora_ops((E,), C, DE, DM, R_, torch.bfloat16)
+        errs = [close_16bit(lora_matmul_experts(*t, scale=1.25),
+                            ref.lora_matmul_experts_ref(*t, 1.25),
+                            f"lora_matmul_experts bf16 k={kk} C={C} {what}")
+                for what, t in (("w1/w3", t13), ("w2", t2))]
+        print(f"lora_matmul_experts check bf16 k={kk} C={C}: max_abs_err "
+              f"w1/w3 {errs[0]:.3e}, w2 {errs[1]:.3e}")
         expert_ms[kk] = (time_ms(lambda: lora_matmul_experts(*t13,
                                                              scale=1.25)),
                          time_ms(lambda: lora_matmul_experts(*t2,
                                                              scale=1.25)))
         del t13, t2
-    print("lora_matmul_experts ms by tier (k: C, w1/w3, w2): " + ", ".join(
-        f"k={kk}: C={C} {expert_ms[kk][0]:.4f} {expert_ms[kk][1]:.4f}"
-        for kk, C in ((8, 328), (4, 168), (2, 88), (1, 48))))
+    print("lora_matmul_experts ms by tier (k: C, w1/w3 ms (bound), w2 ms "
+          "(bound)): " + ", ".join(
+              f"k={kk}: C={C} {expert_ms[kk][0]:.4f} "
+              f"({expert_bound(C, DM, DE, R_)[0]:.4f}) {expert_ms[kk][1]:.4f} "
+              f"({expert_bound(C, DE, DM, R_)[0]:.4f})"
+              for kk, C in ((8, 328), (4, 168), (2, 88), (1, 48))))
     del flush
     torch.cuda.empty_cache()
 

@@ -59,18 +59,20 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _digest() -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(csrc.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile (if needed) and return the path of the kernel library."""
-    sources = sorted(CSRC.glob("*.cu"))
-    lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+def build(csrc: Path = CSRC) -> Path:
+    """Compile (if needed) and return the path of the kernel library built
+    from the sources in ``csrc`` (this package's, unless an A/B names
+    another build's)."""
+    sources = sorted(csrc.glob("*.cu"))
+    lib_path = BUILD_DIR / f"librepro_torch_kernels-{_digest(csrc)}.so"
     if lib_path.exists():
         BUILD_LOG.update(seconds=0.0, cached=True, ptxas="")
         return lib_path
@@ -122,14 +124,25 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
 
 
+def load(path: Path) -> ctypes.CDLL:
+    """A built kernel library, its C entry points declared."""
+    handle = ctypes.CDLL(str(path))
+    _declare(handle)
+    return handle
+
+
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
+    """The kernel library the wrappers call (built at first use)."""
     global _lib
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        _declare(handle)
-        _lib = handle
+        _lib = load(build())
     return _lib
+
+
+def use(handle: ctypes.CDLL) -> None:
+    """Make the wrappers call ``handle`` (from :func:`load`) from now on."""
+    global _lib
+    _lib = handle
 
 
 def check(name: str, code: int) -> None:

@@ -39,6 +39,24 @@
       return (int)cudaErrorInvalidValue;          \
   }
 
+// The 16-bit types only (the tensor-core route); float32 is the caller's
+// other branch.
+#define RT_DISPATCH_16(code, T, ...)              \
+  switch (code) {                                 \
+    case RT_BF16: {                               \
+      using T = __nv_bfloat16;                    \
+      __VA_ARGS__;                                \
+      break;                                      \
+    }                                             \
+    case RT_F16: {                                \
+      using T = __half;                           \
+      __VA_ARGS__;                                \
+      break;                                      \
+    }                                             \
+    default:                                      \
+      return (int)cudaErrorInvalidValue;          \
+  }
+
 #define RT_NEG_INF (-1e30f)  // the reference's mask value
 
 namespace rt {

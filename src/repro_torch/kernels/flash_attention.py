@@ -4,10 +4,12 @@ The wrapper of ``csrc/flash_attention.cu``, the port of the Pallas kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  Same contract:
 q (B, H, S, D); k, v (B, KV, S, D) -> (B, H, S, D) in q's dtype, fp32
 inside, scale D^-0.5, ``kpos > qpos - window`` when ``window > 0``.  The
-kernel masks its own ragged S edge, so any S works (no block-divisibility
-rule), and it takes strided (batch, head, seq) axes: only the head dim
-must be contiguous, so model-layout views go in without a copy.  CUDA
-tensors only — the plain version is
+dtype picks the kernel: bfloat16 and float16 run the tensor-core kernel
+(mma.sync, P rounded to the input type for P·V), float32 the FMA kernel.
+Both mask their own ragged S edge, so any S works (no block-divisibility
+rule), and take strided (batch, head, seq) axes: only the head dim must
+be contiguous, so model-layout views go in without a copy.  CUDA tensors
+only — the plain version is
 :func:`repro_torch.kernels.ref.flash_attention_ref`.
 """
 from __future__ import annotations

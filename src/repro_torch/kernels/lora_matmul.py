@@ -3,10 +3,13 @@
 The wrappers of ``csrc/lora_matmul.cu``, the port of the Pallas kernels
 ``repro/kernels/lora_matmul.py::lora_matmul`` and ``::lora_matmul_experts``.
 Same contract: fp32 accumulation, one cast to x's dtype, every operand in
-one dtype (float32, bfloat16 or float16).  The kernel masks its own ragged
-M, N, K and C edges, so any shape runs (no block-divisibility rule), and
-the rank r is any value up to :data:`MAX_RANK`.  CUDA tensors only — the
-plain versions are :func:`repro_torch.kernels.ref.lora_matmul_ref` and
+one dtype (float32, bfloat16 or float16).  The dtype picks the kernel:
+bfloat16 and float16 run the tensor-core kernel (wgmma fed by the TMA),
+float32 the FMA kernel, whose full fp32 products the fp32 checks need.
+Both mask their own ragged M, N, K and C edges, so any shape runs (no
+block-divisibility rule), and the rank r is any value up to
+:data:`MAX_RANK`.  CUDA tensors only — the plain versions are
+:func:`repro_torch.kernels.ref.lora_matmul_ref` and
 :func:`repro_torch.kernels.ref.lora_matmul_experts_ref`.
 """
 from __future__ import annotations

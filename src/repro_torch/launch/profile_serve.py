@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,28 @@ def _busy_ms(intervals: List[Tuple[float, float]]) -> float:
     if cur_e is not None:
         total += cur_e - cur_s
     return total / 1e3
+
+
+def device_summary(prof) -> Tuple[int, float, Dict[str, List[float]]]:
+    """(kernel launches, device-busy ms, {kernel name: [ms, count]}) of a
+    finished ``torch.profiler`` window."""
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = _busy_ms([(e.time_range.start, e.time_range.end)
+                     for e in kernels])
+    by_name: Dict[str, List[float]] = {}
+    for e in kernels:
+        by_name.setdefault(e.name, [0.0, 0])
+        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
+        by_name[e.name][1] += 1
+    return len(kernels), busy, by_name
+
+
+def print_rows(by_name: Dict[str, List[float]], n: int, width: int = 100) -> None:
+    """The ``n`` kernel names with the most device time."""
+    for name, (ms, count) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:n]:
+        print(f"  {ms:9.3f} ms {count:6d}x  {name[:width]}")
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
@@ -72,27 +94,17 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         report = engine.run(requests(8, 8))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = _busy_ms([(e.time_range.start, e.time_range.end)
-                     for e in kernels])
-    by_name = {}
-    for e in kernels:
-        by_name.setdefault(e.name, [0.0, 0])
-        by_name[e.name][0] += e.time_range.elapsed_us() / 1e3
-        by_name[e.name][1] += 1
+    n_kernels, busy, by_name = device_summary(prof)
     print(f"{cfg.name} ({cfg.num_layers} layers) on "
           f"{torch.cuda.get_device_name(0)}: window {wall_ms:.1f} ms, device "
           f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}, "
-          f"{len(kernels)} kernel launches")
+          f"{n_kernels} kernel launches")
     s = report.summary()
     print(f"engine: {s['decode_steps']} decode steps, p50 "
           f"{s['decode_step_ms_p50']:.2f} ms; {len(report.prefill_s)} "
           f"prefill calls, p50 {float(np.median(report.prefill_s)) * 1e3:.1f}"
           f" ms")
-    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:args.rows]
-    for name, (ms, n) in rows:
-        print(f"  {ms:9.3f} ms {n:6d}x  {name[:100]}")
+    print_rows(by_name, args.rows)
 
 
 if __name__ == "__main__":

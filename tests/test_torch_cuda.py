@@ -7,8 +7,10 @@ JAX is not installed, without the suite's conftest (which imports JAX):
     PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_cuda.py
 
 Tolerances: routing masks and counts exactly, router weights 1e-6
-(float32); bf16 outputs 1e-2 relative + 1e-2 absolute (one bf16 rounding
-on each side, different fp32 summation order); float32 LoRA matmuls and
+(float32); bf16 outputs 1e-2 relative + 1e-2 absolute and fp16 outputs
+2e-3 + 2e-3 (one rounding on each side, at most an ulp apart — 2^-8 and
+2^-11 relative —, different fp32 summation order; flash also rounds P to
+the input type for P·V); float32 flash, LoRA matmuls and
 gradients 1e-4 (different summation order over K up to 2048); a local
 round on the card against the CPU: losses 1e-4, activation counts
 exactly, adapters within 1e-5 on at least 99.9% of elements and within
@@ -43,9 +45,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _close_bf16(got, want):
-    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
-                               atol=1e-2)
+def _close_16bit(got, want):
+    tol = 2e-3 if got.dtype == torch.float16 else 1e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -59,15 +61,46 @@ def test_cuda_router_matches_plain(cuda, dtype):
     torch.testing.assert_close(w, pw, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("S,H,KV,D,window", [(256, 16, 16, 128, 0),
-                                             (100, 8, 2, 64, 0),
-                                             (77, 4, 4, 32, 16)])
-def test_cuda_flash_matches_plain(cuda, S, H, KV, D, window):
-    q = torch.randn(2, H, S, D, device=cuda, dtype=torch.bfloat16)
-    k = torch.randn(2, KV, S, D, device=cuda, dtype=torch.bfloat16)
-    v = torch.randn(2, KV, S, D, device=cuda, dtype=torch.bfloat16)
-    _close_bf16(t_flash(q, k, v, window=window),
-                tref.flash_attention_ref(q, k, v, window=window))
+_FLASH_CASES = [(256, 16, 16, 128, 0, 0), (100, 8, 2, 64, 0, 0),
+                (77, 4, 4, 32, 16, 0)]
+# the tile edges of the tensor-core kernel (64-query blocks, 64-key tiles)
+_FLASH_CASES += [(S, 8, KV, D, window, 0) for S in (1, 63, 65, 128, 256)
+                 for D in (32, 64, 128) for KV in (8, 2) for window in (0, 16)]
+# pad 1: head stride D + 1, so no row of q, k, v or out is 16-byte aligned
+_FLASH_CASES += [(1, 4, 4, 32, 0, 1), (63, 8, 2, 32, 16, 1),
+                 (65, 8, 2, 128, 0, 1), (128, 8, 8, 64, 16, 1),
+                 (256, 16, 16, 128, 0, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("S,H,KV,D,window,pad", _FLASH_CASES)
+def test_cuda_flash_matches_plain(cuda, dtype, S, H, KV, D, window, pad):
+    """bf16 and fp16 run the mma.sync kernel; q/k/v are transposed views of
+    model-layout (B, S, H, D + pad) buffers and the result goes through
+    ``out=`` into a transposed view of another, as ``backend._Flash``
+    passes them (pad 0).  With pad 1 the kernel takes its element-load
+    path (masked loads, element stores), which must leave the buffers'
+    padding column alone."""
+    q, k, v, out = (torch.randn(2, S, n, D + pad, device=cuda).to(dtype)
+                    for n in (H, KV, KV, H))
+    tail = out[..., D:].clone()
+    qt, kt, vt, ot = (t[..., :D].transpose(1, 2) for t in (q, k, v, out))
+    before = _build.LAUNCHES["flash_attention"]
+    got = t_flash(qt, kt, vt, window=window, out=ot)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(out[..., D:], tail)
+    _close_16bit(ot, tref.flash_attention_ref(qt, kt, vt, window=window))
+
+
+def test_cuda_flash_float32_contiguous(cuda):
+    """float32 runs the FMA kernel, on contiguous (B, H, S, D) operands."""
+    q = torch.randn(2, 8, 100, 64, device=cuda)
+    k = torch.randn(2, 2, 100, 64, device=cuda)
+    v = torch.randn(2, 2, 100, 64, device=cuda)
+    torch.testing.assert_close(t_flash(q, k, v),
+                               tref.flash_attention_ref(q, k, v),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("lora", [False, True])
@@ -82,12 +115,12 @@ def test_cuda_ragged_trio_matches_plain(cuda, lora):
     w = torch.randn(E, D, H, **bf) * D ** -0.5
     extra = (torch.randn(E, D, r, **bf) * D ** -0.5,
              torch.randn(E, r, H, **bf)) if lora else ()
-    _close_bf16(trd.ragged_expert_matmul(xs, plan.block_expert, w, *extra,
+    _close_16bit(trd.ragged_expert_matmul(xs, plan.block_expert, w, *extra,
                                          scale=0.5),
                 tref.ragged_expert_matmul_ref(xs, plan.block_expert, w,
                                               *extra, scale=0.5))
     eo = torch.randn(xs.shape[0], H, **bf)
-    _close_bf16(trd.ragged_combine(eo, plan.rows, plan.wrank),
+    _close_16bit(trd.ragged_combine(eo, plan.rows, plan.wrank),
                 tref.ragged_combine_ref(eo, plan.rows, plan.wrank))
 
 
@@ -141,32 +174,47 @@ def _lora_operands(cuda, lead, M, K, N, r, dtype):
             rn(*lead, K, r, scale=K ** -0.5), rn(*lead, r, N, scale=0.5))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+def _check_lora(got, want):
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close_16bit(got, want)
+
+
+# M in {1, 37, 2047}, r in {1, 4, 20, 64}; K = 100 and N = 77 give rows that
+# are not 16-byte aligned (the element-load path of the tensor-core kernel)
+@pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("M,K,N,r", [(37, 100, 77, 4), (130, 256, 200, 20),
-                                     (1, 5, 3, 64)])
+                                     (1, 5, 3, 64), (1, 64, 256, 1),
+                                     (37, 128, 512, 64), (2047, 256, 384, 20),
+                                     (2047, 100, 77, 4), (37, 2048, 256, 20),
+                                     (1, 100, 77, 20)])
 def test_cuda_lora_matmul_matches_plain(cuda, dtype, M, K, N, r):
     x, w, a, b = _lora_operands(cuda, (), M, K, N, r, dtype)
     before = _build.LAUNCHES["lora_matmul"]
     got = t_lora(x, w, a, b, scale=1.7)
     assert _build.LAUNCHES["lora_matmul"] == before + 1
-    want = tref.lora_matmul_ref(x, w, a, b, 1.7)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    else:
-        _close_bf16(got, want)
+    _check_lora(got, tref.lora_matmul_ref(x, w, a, b, 1.7))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+# C in {1, 41, 48, 168, 328} (one to three 128-row tiles, each with a
+# ragged last tile), r in {1, 4, 20, 64}
+@pytest.mark.parametrize("dtype", _DTYPES)
 @pytest.mark.parametrize("E,C,K,N,r", [(3, 41, 100, 70, 4),
-                                       (2, 64, 128, 256, 20)])
+                                       (2, 64, 128, 256, 20),
+                                       (2, 1, 64, 64, 1), (2, 48, 256, 128, 20),
+                                       (2, 328, 128, 256, 64),
+                                       (3, 41, 100, 77, 20),
+                                       (2, 168, 512, 264, 4)])
 def test_cuda_lora_matmul_experts_matches_plain(cuda, dtype, E, C, K, N, r):
     x, w, a, b = _lora_operands(cuda, (E,), C, K, N, r, dtype)
+    before = _build.LAUNCHES["lora_matmul_experts"]
     got = t_lora_experts(x, w, a, b, scale=0.6)
-    want = tref.lora_matmul_experts_ref(x, w, a, b, 0.6)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    else:
-        _close_bf16(got, want)
+    assert _build.LAUNCHES["lora_matmul_experts"] == before + 1
+    _check_lora(got, tref.lora_matmul_experts_ref(x, w, a, b, 0.6))
 
 
 def test_cuda_lora_wrappers_refuse_what_the_kernel_cannot_take(cuda):
