@@ -14,23 +14,27 @@ nothing else of the network or the filesystem.  Phases:
    PyTorch version on the card, on seeded inputs at its path's shapes
    (the serving path's for the router, flash and the ragged trio; the
    training round's for the two LoRA matmuls, plus ragged edges), with
-   the tolerance stated beside each check — flash and the LoRA matmuls in
-   bf16 and fp16 (their tensor-core kernels) and float32 (their FMA
-   kernels); flash also checked and timed at the training round's shape,
-   and the expert kernel checked and timed at each tier, beside its
-   bound; kernel, plain and
-   (where one PyTorch call computes the same function, or for the LoRA
-   matmuls the base product alone) library times by CUDA events with the
-   L2 flushed before every call, and each kernel's bound (bytes over
-   3.35 TB/s or FLOPs over the peak);
+   the tolerance stated beside each check — flash, the LoRA matmuls and
+   the grouped ragged matmul in bf16 and fp16 (their tensor-core kernels)
+   and float32 (their FMA kernels), the grouped matmul also with a LoRA
+   rank above 64 (its FMA route); flash also checked and timed at the
+   training round's shape, the expert kernel checked and timed at each
+   tier, and the ragged trio checked (bf16, fp16) and timed at the
+   serving path's other shapes — the decode step, each prefill group of
+   phase 4, and a skewed plan — beside the grouped matmul's bound and
+   ``torch._grouped_mm``; kernel, plain and (where one PyTorch call
+   computes the same function, or for the LoRA matmuls the base product
+   alone) library times by CUDA events with the L2 flushed before every
+   call, and each kernel's bound (bytes over 3.35 TB/s or FLOPs over the
+   peak);
 3. backward — gradients through the four autograd wrappers of the
    training path (both LoRA matmuls, router, flash) against autograd
    through their plain versions, float32, b != 0;
 4. serving — OLMoE-1.3B/6.9B FULL (16 layers, bf16, random seeded weights)
    served by ``ServingEngine``: 8 slots at tiers (8,8,4,4,2,2,1,1), 16
-   requests of 128/256-token prompts and 16 new tokens each; the launch
-   counters are zeroed just before and read just after, and every kernel
-   of the path must have launched;
+   requests of 128/256-token prompts and 16 new tokens each, one request
+   per prefill call; the launch counters are zeroed just before and read
+   just after, and every kernel of the path must have launched;
 5. training — one FLAME round on the same FULL weights
    (``build_experiment`` + ``FederatedServer.run_round``): 4 clients at
    k = 8, 4, 2, 1 with learnable rescalers, batch 16 x 128 tokens, Adam;
@@ -268,22 +272,74 @@ def main() -> int:
     la = randn(E, DM, R, scale=DM ** -0.5)
     lb = randn(E, R, DE, scale=0.1)
     be = plan.block_expert
-    for what, args, kw in (("w1", (xs, be, w1), {}),
-                           ("w1+lora", (xs, be, w1, la, lb), {"scale": 0.8}),
-                           ("w2", (randn(N, DE), be, w2), {})):
-        err = close_16bit(ragged_expert_matmul(*args, **kw),
-                         ref.ragged_expert_matmul_ref(*args, **kw),
-                         f"ragged_expert_matmul {what}")
-        print(f"ragged_expert_matmul check {what}: max_abs_err {err:.3e}")
-        if what == "w1":
-            mm_err = err
-    experts_used = int((m_r.sum(0) > 0).sum())
+
+    def matmul_checks():
+        """The grouped matmul at T=256 k=8 in each dtype: bf16 / fp16 run
+        the tensor-core kernel (LoRA r <= 64 included), float32 and a LoRA
+        rank above 64 the FMA kernel.  Returns bf16 w1's error."""
+        h2 = randn(N, DE)
+        errs = {}
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            c = [t.to(dtype) for t in (xs, w1, la, lb, h2, w2)]
+            for what, args, kw in (
+                    ("w1", (c[0], be, c[1]), {}),
+                    ("w1+lora r20", (c[0], be, c[1], c[2], c[3]),
+                     {"scale": 0.8}),
+                    ("w2", (c[4], be, c[5]), {})):
+                got = ragged_expert_matmul(*args, **kw)
+                want = ref.ragged_expert_matmul_ref(*args, **kw)
+                if dtype == torch.float32:
+                    # fp32 both sides: summation order only (K <= 2048)
+                    err = (got - want).abs().max().item()
+                    check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
+                          f"ragged_expert_matmul {dn} {what}: max |kernel - "
+                          f"plain| {err:.3e} > 1e-4·max|plain|")
+                else:
+                    err = close_16bit(got, want,
+                                      f"ragged_expert_matmul {dn} {what}")
+                print(f"ragged_expert_matmul check {dn} {what}: max_abs_err "
+                      f"{err:.3e}")
+                errs[dn, what] = err
+        la80 = randn(E, DM, 80, scale=DM ** -0.5)
+        lb80 = randn(E, 80, DE, scale=0.1)
+        err = close_16bit(
+            ragged_expert_matmul(xs, be, w1, la80, lb80, scale=0.8),
+            ref.ragged_expert_matmul_ref(xs, be, w1, la80, lb80, 0.8),
+            "ragged_expert_matmul bf16 w1+lora r80 (FMA route)")
+        print(f"ragged_expert_matmul check bfloat16 w1+lora r80 (FMA route): "
+              f"max_abs_err {err:.3e}")
+        return errs["bfloat16", "w1"]
+
+    mm_err = matmul_checks()
+
+    def grouped_mm_ms(xs_, be_, w_):
+        """torch._grouped_mm over the same segments (the yardstick: one
+        PyTorch call, no LoRA), or None where this torch lacks it."""
+        bm_ = xs_.shape[0] // be_.shape[0]
+        ends = (torch.cumsum(torch.bincount(be_.long(), minlength=E), 0)
+                * bm_).to(torch.int32)
+        if not hasattr(torch, "_grouped_mm"):
+            return None
+        return time_ms(lambda: torch._grouped_mm(xs_, w_, offs=ends))
+
+    def matmul_cost(pl, K, H):
+        """(bytes, FLOPs) the grouped matmul must move and do: every xs row
+        read and every output row written once, each expert that a row
+        block names (the trailing padding's included) read once, the
+        products of the valid rows."""
+        n_rows = pl.src.shape[0]
+        n_exp = int(torch.unique(pl.block_expert).numel())
+        return ((n_rows * K + n_exp * K * H + n_rows * H) * 2,
+                2.0 * int(pl.valid.sum()) * K * H)
+
+    mm_lib = grouped_mm_ms(xs, be, w1)
     record("ragged_expert_matmul", src + "ragged_dispatch.cu",
            tpu + "ragged_dispatch.py:189", mm_err,
            time_ms(lambda: ragged_expert_matmul(xs, be, w1)),
            time_ms(lambda: ref.ragged_expert_matmul_ref(xs, be, w1)),
-           N * DM * 2 + experts_used * DM * DE * 2 + N * DE * 2,
-           2.0 * n_valid * DM * DE, BF16_FLOPS)
+           *matmul_cost(plan, DM, DE), BF16_FLOPS, library_ms=mm_lib,
+           library_what="torch._grouped_mm, no LoRA")
 
     eo = randn(N, DM)
     got = ragged_combine(eo, plan.rows, plan.wrank)
@@ -296,28 +352,83 @@ def main() -> int:
            time_ms(lambda: ref.ragged_combine_ref(eo, plan.rows, plan.wrank)),
            int(torch.unique(live).numel()) * DM * 2 + T * K_TOP * 8
            + T * DM * 2, 2.0 * live.numel() * DM, F32_FLOPS)
+    del xs, eo, x, la, lb
 
-    # the decode step's shapes: 8 slots at tiers (8,8,4,4,2,2,1,1)
+    # the serving path's other shapes, each with the trio held against its
+    # plain version (bf16 and fp16) and timed (bf16): the decode step (8
+    # slots at tiers 8,8,4,4,2,2,1,1), each prefill group of the serving
+    # phase (one request per call, checked there: T = 128 or 256 prompt
+    # tokens at k = 8, 4, 2, 1), and a skewed plan where every token picks
+    # the same 8 experts (runs of 256 rows, 56 experts empty)
     slot_k = (8, 8, 4, 4, 2, 2, 1, 1)
-    kt_ = torch.tensor(slot_k, device=dev)
-    w_d, m_d, _ = ref.adaptive_topk_router_ref(randn(8, E, scale=0.5), kt_, 8)
-    pd = ragged_plan(m_d, w_d, budget=sum(slot_k), max_k=8)
-    x8 = randn(8, DM)
-    xd = ragged_gather(x8, pd.src, pd.valid)
-    hd_ = randn(pd.src.shape[0], DE)
-    eod = randn(pd.src.shape[0], DM)
-    dec = {
-        "gather": time_ms(lambda: ragged_gather(x8, pd.src, pd.valid)),
-        "matmul_w1": time_ms(lambda: ragged_expert_matmul(
-            xd, pd.block_expert, w1)),
-        "matmul_w2": time_ms(lambda: ragged_expert_matmul(
-            hd_, pd.block_expert, w2)),
-        "combine": time_ms(lambda: ragged_combine(eod, pd.rows, pd.wrank)),
-    }
-    print(f"decode-shape kernel ms (N={pd.src.shape[0]} rows, "
-          f"{pd.block_expert.shape[0]} row blocks): "
-          + ", ".join(f"{k} {v:.4f}" for k, v in dec.items()))
-    del w1, w2, la, lb, xs, eo, x
+    prompt_lens = (128, 256)
+    shapes = [("decode", 8, None)]
+    shapes += [(f"prefill T={L} k={kk}", L, kk) for L in prompt_lens
+               for kk in sorted(set(slot_k), reverse=True)]
+    shapes += [("skewed T=256 k=8", 256, "skewed")]
+
+    def ragged_shape(name, Ts, kk):
+        """The trio at one shape: checked in bf16 and fp16, timed in
+        bf16, one line of kernel ms, bounds and torch._grouped_mm ms."""
+        if kk is None:
+            w_s, m_s, _ = ref.adaptive_topk_router_ref(
+                randn(Ts, E, scale=0.5), torch.tensor(slot_k, device=dev), 8)
+            pl = ragged_plan(m_s, w_s, budget=sum(slot_k), max_k=8)
+            Tk = sum(slot_k)
+        else:
+            lg = randn(Ts, E, scale=0.5)
+            if kk == "skewed":
+                lg = lg[:1].expand(Ts, E).contiguous()
+                kk = 8
+            w_s, m_s, _ = topk_router(lg, kk)
+            pl = ragged_plan(m_s, w_s, budget=Ts * kk, max_k=kk)
+            Tk = Ts * kk
+        n_rows = pl.src.shape[0]
+        xt = randn(Ts, DM)
+        xs_s = ragged_gather(xt, pl.src, pl.valid)
+        check(torch.equal(xs_s, ref.ragged_gather_ref(xt, pl.src, pl.valid)),
+              f"ragged_gather {name} differs from the plain version")
+        hs = randn(n_rows, DE)
+        eos = randn(n_rows, DM)
+        errs = []
+        for dtype in (torch.bfloat16, torch.float16):
+            dn = str(dtype).split(".")[1]
+            for what, xin, wt in (("w1/w3", xs_s, w1), ("w2", hs, w2)):
+                a_ = (xin.to(dtype), pl.block_expert, wt.to(dtype))
+                errs.append(close_16bit(
+                    ragged_expert_matmul(*a_),
+                    ref.ragged_expert_matmul_ref(*a_),
+                    f"ragged_expert_matmul {dn} {what} {name}"))
+            e_ = eos.to(dtype)
+            errs.append(close_16bit(
+                ragged_combine(e_, pl.rows, pl.wrank),
+                ref.ragged_combine_ref(e_, pl.rows, pl.wrank),
+                f"ragged_combine {dn} {name}"))
+        ms = {"gather": time_ms(lambda: ragged_gather(xt, pl.src, pl.valid)),
+              "w1/w3": time_ms(lambda: ragged_expert_matmul(
+                  xs_s, pl.block_expert, w1)),
+              "w2": time_ms(lambda: ragged_expert_matmul(
+                  hs, pl.block_expert, w2)),
+              "combine": time_ms(lambda: ragged_combine(eos, pl.rows,
+                                                        pl.wrank))}
+        lib_ = {"w1/w3": grouped_mm_ms(xs_s, pl.block_expert, w1),
+                "w2": grouped_mm_ms(hs, pl.block_expert, w2)}
+        bnd = {"w1/w3": bound_ms(*matmul_cost(pl, DM, DE), BF16_FLOPS)[0],
+               "w2": bound_ms(*matmul_cost(pl, DE, DM), BF16_FLOPS)[0]}
+        n_exp = int(torch.unique(pl.block_expert).numel())
+        print(f"ragged shape {name} (T·k={Tk}, N={n_rows} rows, "
+              f"{pl.block_expert.shape[0]} row blocks, {n_exp} experts): "
+              f"max_abs_err {max(errs):.3e}; ms: "
+              + ", ".join(
+                  f"{k} {v:.4f}" + (f" (bound {bnd[k]:.4f}, grouped_mm "
+                                    + ("none" if lib_[k] is None else
+                                       f"{lib_[k]:.4f}") + ")"
+                                    if k in bnd else "")
+                  for k, v in ms.items()))
+
+    for name, Ts, kk in shapes:
+        ragged_shape(name, Ts, kk)
+    del w1, w2
 
     # ------------------------------------------------ 2d. LoRA matmuls
     # ragged edges (odd M, C = 41, r in {4, 20}, scale != 1) in fp32 (the
@@ -441,11 +552,11 @@ def main() -> int:
 
     engine = ServingEngine(cfg, params, num_slots=8, slot_len=512,
                            slot_k=slot_k)
-    engine.run(requests(8, (128, 256), 2))          # warm-up (cuBLAS, build)
+    engine.run(requests(8, prompt_lens, 2))         # warm-up (cuBLAS, build)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
-    report = engine.run(requests(16, (128, 256), 16))
+    report = engine.run(requests(16, prompt_lens, 16))
     torch.cuda.synchronize()
     launches = dict(_build.LAUNCHES)
     summ = report.summary()
@@ -462,6 +573,10 @@ def main() -> int:
         else:
             check(n > 0, f"kernel {name} was not launched by the serving run")
     n_prefill, n_decode = len(report.prefill_s), summ["decode_steps"]
+    # every prefill call took one request, so the kernel phase's prefill
+    # shapes (T = 128 or 256 prompt tokens at each tier) were this run's
+    check(n_prefill == summ["n_requests"],
+          f"{n_prefill} prefill calls for {summ['n_requests']} requests")
     print(f"serving: {summ['gen_tokens']} tokens in {summ['wall_s']:.3f} s, "
           f"{summ['gen_tokens_per_s']:.1f} tokens/s, "
           f"TTFT p50 {summ['ttft_p50_ms']:.1f} ms, decode step p50 "

@@ -14,20 +14,53 @@
 // where bf16 tensor cores would become the limit, so it is the expert
 // weights' bytes that bound it.
 //
-// Design (simple and right first):
+// Design:
 //  * gather / combine: one block per output row, 16-byte vector loads when
 //    the row is 16-byte aligned (scalar otherwise), fp32 accumulation in
 //    the combine, no atomics (the combine only gathers).
-//  * matmul: one block of 8 warps per (row block, 128-column tile).  The
-//    block reads block_expert[i] itself, stages its rows (in chunks of 8)
-//    in shared memory as fp32, and each warp walks a strided eighth of K:
-//    lane l loads 4 adjacent weights of one W row (a warp reads 256
-//    contiguous bytes) and keeps an 8x4 fp32 accumulator.  The 8 partial
-//    sums are reduced through shared memory in a fixed order, the optional
-//    LoRA bypass (x@A computed once per chunk into shared memory) is added
-//    as acc + (xa@B)·scale, and the result is cast once.  No tensor cores:
-//    at these row counts the weight bytes, not the FLOPs, bound it.
-#include "common.cuh"
+//  * matmul, bf16 / fp16 — tc::ragged_wgmma_kernel, on the tensor cores
+//    with the wgmma + TMA mainloop of wgmma_gemm.cuh (shared with the LoRA
+//    expert matmul).  A tile is a run of up to BM/bm consecutive row
+//    blocks that share an expert, not one row block: the segments are
+//    expert-major and contiguous, and the trailing padding blocks are one
+//    more run (of expert E-1), so each live tile reads its expert's W
+//    column tile once, and the weight bytes approach the bound (each used
+//    expert's slab once per column tile), where one block per 8 rows read
+//    it once per 8 rows.  The tile table is computed inside the launch:
+//    every block scans block_expert (a max-scan for each run's first block,
+//    a sum-scan of tile starts; ~330 ints at the serving shapes) and takes
+//    tile blockIdx.y, then blockIdx.y + gridDim.y, ...  The grid is
+//    (column tiles, min(nb, ceil(nb·bm/BM) + E)): at most one tile per BM
+//    rows plus one per run, and a plan has at most E runs; blocks past the
+//    real count exit, and more runs (a block_expert that is not
+//    expert-major) are taken in turn, so any block_expert is right.  x
+//    comes as a 2-D box that starts at the run's first row: rows of the
+//    next run that it brings in are computed and discarded, and the
+//    epilogue stores only the run's rows (any other store would race with
+//    the block that owns the next run).  The column tile is the fastest
+//    grid index: the blocks of one tile share its x rows in L2, and the
+//    blocks past the tile count come last.  Two shapes of block, chosen
+//    from N and E on the host (no sync): where the average segment is at
+//    most 16 rows (decode, short prefills) one warpgroup and 128 columns —
+//    64-row tiles pad short runs less, and a narrower column tile puts
+//    twice the blocks (two per SM) in flight on a few experts' slabs;
+//    otherwise two warpgroups and 256 columns.  With LoRA factors (no
+//    serving path passes them) the two-warpgroup block with x·A as a
+//    second m64n64k16 wgmma, r <= 64.
+//  * matmul, float32 and the other 16-bit cases — simt::ragged_matmul_kernel,
+//    on the FMA units: one block of 8 warps per (row block, 128-column
+//    tile).  The block reads block_expert[i] itself, stages its rows (in
+//    chunks of 8) in shared memory as fp32, and each warp walks a strided
+//    eighth of K: lane l loads 4 adjacent weights of one W row (a warp
+//    reads 256 contiguous bytes) and keeps an 8x4 fp32 accumulator.  The 8
+//    partial sums are reduced through shared memory in a fixed order, the
+//    optional LoRA bypass (x@A computed once per chunk into shared memory)
+//    is added as acc + (xa@B)·scale, and the result is cast once.  float32
+//    keeps full fp32 products, which the fp32 end-to-end checks need; the
+//    C entry point sends 16-bit inputs here only where the tensor-core
+//    kernel cannot take them: LoRA rank r > 64, a row block bm that does
+//    not divide 64, or K = 0.
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -87,6 +120,8 @@ __global__ void ragged_combine_kernel(const T* __restrict__ eo, const int* __res
 }
 
 // ------------------------------------------------------------------ matmul
+namespace simt {
+
 constexpr int MM_WARPS = 8;
 constexpr int MM_THREADS = 32 * MM_WARPS;
 constexpr int MM_COLS = 128;  // 32 lanes x 4 adjacent columns
@@ -197,10 +232,160 @@ ragged_matmul_kernel(const T* __restrict__ xs, const int* __restrict__ block_exp
   }
 }
 
-template <typename T>
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}  // namespace simt
+
+namespace tc {
+
+using namespace wg;
+
+// No LoRA: one warpgroup x 128 columns (short segments) or two x 256;
+// LoRA: two x 256, x·A as 64 columns (r <= 64).
+using Narrow = Cfg<1, 128, 0>;
+using Wide = Cfg<2, 256, 0>;
+using WideLora = Cfg<2, 256, 8>;
+constexpr int NARROW_ROWS_PER_EXPERT = 16;  // N <= 16·E: the narrow block
+
+// Tile `t` of the ragged buffer: the runs of consecutive row blocks that
+// share an expert, each cut into tiles of at most TB blocks.  Returns the
+// number of tiles and, for t below it, the tile's first block and its
+// length in blocks (the same in every thread).  One pass over
+// block_expert in chunks of THREADS blocks: a block starts a run where its
+// expert differs from the previous block's, the run's first block is a
+// max-scan of those starts, a block starts a tile where its distance from
+// the run's first block is a multiple of TB, and the tile's index is a
+// sum-scan of the tile starts.
+template <int THREADS>
+__device__ int find_tile(const int* __restrict__ be, int nb, int TB, int t, int& start,
+                         int& len) {
+  constexpr int WARPS = THREADS / 32;
+  __shared__ int part[WARPS];
+  __shared__ int s_start, s_rs, s_cnt;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) s_start = -1;
+  int carry_rs = 0, carry_cnt = 0;
+  for (int c0 = 0; c0 < nb; c0 += THREADS) {
+    const int i = c0 + tid;
+    const bool in = i < nb;
+    const int e = in ? be[i] : 0;
+    const bool run_start = in && (i == 0 || be[i - 1] != e);
+    int v = run_start ? i : -1;  // max-scan: the first block of i's run
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v = max(v, u);
+    }
+    if (lane == 31) part[warp] = v;
+    __syncthreads();
+    for (int q = 0; q < warp; ++q) v = max(v, part[q]);
+    const int rs = max(v, carry_rs);
+    __syncthreads();  // part is reused
+    const bool tile_start = in && (i - rs) % TB == 0;
+    int n = tile_start ? 1 : 0;  // sum-scan: tile starts up to i
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, n, o);
+      if (lane >= o) n += u;
+    }
+    if (lane == 31) part[warp] = n;
+    __syncthreads();
+    for (int q = 0; q < warp; ++q) n += part[q];
+    if (tile_start && carry_cnt + n - 1 == t) s_start = i;
+    if (tid == THREADS - 1) {
+      s_rs = rs;
+      s_cnt = carry_cnt + n;
+    }
+    __syncthreads();
+    carry_rs = s_rs;
+    carry_cnt = s_cnt;
+  }
+  __syncthreads();
+  start = s_start;
+  len = 0;
+  if (start >= 0) {  // the blocks from start on that share its expert, <= TB
+    const int e0 = be[start];
+    for (int b0 = 0; b0 < TB; b0 += 32) {
+      const int l = b0 + lane, j = start + l;
+      const unsigned m = __ballot_sync(0xffffffffu, l < TB && j < nb && be[j] == e0);
+      const int lead = m == 0xffffffffu ? 32 : __ffs(~m) - 1;
+      len += lead;
+      if (lead < 32) break;
+    }
+  }
+  return carry_cnt;
 }
+
+template <typename T, class C, bool ALIGNED>
+__global__ void __launch_bounds__(C::THREADS, 1)
+ragged_wgmma_kernel(const T* __restrict__ xs, const int* __restrict__ be,
+                    const T* __restrict__ w, const T* __restrict__ a,
+                    const T* __restrict__ bmat, T* __restrict__ out, int nb, int bm, int H,
+                    int K, int r, float scale, Strides st,
+                    const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmw) {
+  extern __shared__ __align__(16) unsigned char smem_dyn[];
+  __shared__ __align__(8) unsigned long long full[C::STAGES];  // x/W tile landed
+  init_ring<C::STAGES, ALIGNED>(full);
+  unsigned char* smem = ring_base(smem_dyn);
+  const int TB = C::BM / bm;
+  unsigned it = 0;
+  int start, len;
+  const int tiles = find_tile<C::THREADS>(be, nb, TB, blockIdx.y, start, len);
+  for (int t = blockIdx.y; t < tiles; t += gridDim.y) {
+    if (t != (int)blockIdx.y) find_tile<C::THREADS>(be, nb, TB, t, start, len);
+    const int row0 = start * bm;
+    const Tile tl{be[start], 0, row0, len * bm, (long long)row0 * K, (long long)row0 * H};
+    tile_gemm<T, C, ALIGNED>(tl, blockIdx.x * C::BN, smem, full, it, xs, w, a, bmat, out,
+                             H, K, r, scale, st, &tmx, &tmw);
+  }
+}
+
+template <typename T, class C, bool ALIGNED>
+int launch_cfg(const T* xs, const int* be, const T* w, const T* a, const T* b, T* out,
+               int N, int nb, int K, int H, int E, int r, float scale,
+               cudaStream_t stream) {
+  auto kernel = ragged_wgmma_kernel<T, C, ALIGNED>;
+  CUtensorMap tmx{}, tmw{};  // xs (1, N, K) and W (E, K, H), as boxes
+  if (ALIGNED && !(tensor_map(&tmx, xs, K, N, 1, BK, C::BM) &&
+                   tensor_map(&tmw, w, H, K, E, 64, BK)))
+    return (int)cudaErrorInvalidValue;
+  static bool attr_set = false;  // once per instantiation (one process, one card)
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  const int bm = N / nb, TB = C::BM / bm;
+  long long tiles = (nb + TB - 1) / TB + (long long)E;
+  if (tiles > nb) tiles = nb;
+  if (tiles > 65535) tiles = 65535;  // the blocks then take several tiles each
+  dim3 grid((H + C::BN - 1) / C::BN, (unsigned)tiles);
+  kernel<<<grid, C::THREADS, C::BYTES, stream>>>(
+      xs, be, w, a, b, out, nb, bm, H, K, r, scale,
+      Strides{(long long)K * H, (long long)K * r, (long long)r * H}, tmx, tmw);
+  return (int)cudaGetLastError();
+}
+
+// the block shape from N and E; ALIGNED from the row strides and bases
+template <typename T>
+int launch(const T* xs, const int* be, const T* w, const T* a, const T* b, T* out, int N,
+           int nb, int K, int H, int E, int r, float scale, cudaStream_t stream) {
+  const bool lora = a != nullptr;
+  const bool aligned = K % 8 == 0 && H % 8 == 0 && rt::aligned16(xs) && rt::aligned16(w) &&
+                       (!lora || (r % 2 == 0 && reinterpret_cast<uintptr_t>(a) % 4 == 0));
+  const bool narrow = !lora && (long long)N <= (long long)NARROW_ROWS_PER_EXPERT * E;
+#define RT_RAGGED_CFG(C_, AL_)                                                          \
+  return AL_ ? launch_cfg<T, C_, true>(xs, be, w, a, b, out, N, nb, K, H, E, r, scale, \
+                                       stream)                                         \
+             : launch_cfg<T, C_, false>(xs, be, w, a, b, out, N, nb, K, H, E, r, scale, \
+                                        stream);
+  if (lora) RT_RAGGED_CFG(WideLora, aligned)
+  if (narrow) RT_RAGGED_CFG(Narrow, aligned)
+  RT_RAGGED_CFG(Wide, aligned)
+#undef RT_RAGGED_CFG
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -209,7 +394,7 @@ extern "C" int rt_ragged_gather(const void* x, const int* src, const int* valid,
                                 cudaStream_t stream) {
   if (N == 0 || D == 0) return (int)cudaGetLastError();
   RT_DISPATCH(dtype, T, {
-    const bool vec = (D % rt::Vec<T>::N) == 0 && aligned16<T>(x) && aligned16<T>(out);
+    const bool vec = (D % rt::Vec<T>::N) == 0 && rt::aligned16(x) && rt::aligned16(out);
     const int threads = 256;
     if (vec)
       ragged_gather_kernel<T, true><<<N, threads, 0, stream>>>(
@@ -226,7 +411,7 @@ extern "C" int rt_ragged_combine(const void* eo, const int* rows, const float* w
                                  cudaStream_t stream) {
   if (n_tok == 0 || D == 0) return (int)cudaGetLastError();
   RT_DISPATCH(dtype, T, {
-    const bool vec = (D % rt::Vec<T>::N) == 0 && aligned16<T>(eo) && aligned16<T>(out);
+    const bool vec = (D % rt::Vec<T>::N) == 0 && rt::aligned16(eo) && rt::aligned16(out);
     const int threads = 256;
     if (vec)
       ragged_combine_kernel<T, true><<<n_tok, threads, 0, stream>>>(
@@ -238,26 +423,43 @@ extern "C" int rt_ragged_combine(const void* eo, const int* rows, const float* w
   return (int)cudaGetLastError();
 }
 
-// a/b may be null (no LoRA bypass); r is then ignored.
+// a/b may be null (no LoRA bypass); r is then ignored.  E, w's expert
+// count, comes last, after the stream: an entry point built without it
+// ignores a trailing argument, so launch/ab_kernels.py can call either.
+// Route: bf16 / fp16 run the tensor-core kernel, except a LoRA rank above
+// 64, a row block that does not divide 64 rows, or K = 0, which run the
+// FMA kernel as float32 does.
 extern "C" int rt_ragged_expert_matmul(const void* xs, const int* block_expert,
                                        const void* w, const void* a, const void* b,
                                        void* out, int dtype, int N, int nb, int K,
-                                       int H, int r, float scale, cudaStream_t stream) {
-  if (nb == 0 || N % nb) return (int)cudaErrorInvalidValue;
+                                       int H, int r, float scale, cudaStream_t stream,
+                                       int E) {
+  if (nb == 0 || N % nb || E < 1) return (int)cudaErrorInvalidValue;
   if (N == 0 || H == 0) return (int)cudaGetLastError();
   const int bm = N / nb;
   const bool lora = a != nullptr && b != nullptr;
   if (!lora) r = 0;
-  const size_t smem = (stage_floats(K) + (size_t)RB * r) * sizeof(float);
-  dim3 grid(nb, (H + MM_COLS - 1) / MM_COLS);
+  const bool tensor_cores = dtype != RT_F32 && r <= RT_LORA_MAX_RANK && bm <= 64 &&
+                            64 % bm == 0 && K > 0;
+  if (tensor_cores) {
+    RT_DISPATCH_16(dtype, T, {
+      return tc::launch<T>(static_cast<const T*>(xs), block_expert, static_cast<const T*>(w),
+                           lora ? static_cast<const T*>(a) : nullptr,
+                           lora ? static_cast<const T*>(b) : nullptr, static_cast<T*>(out),
+                           N, nb, K, H, E, r, scale, stream);
+    });
+  }
+  const size_t smem = (simt::stage_floats(K) + (size_t)simt::RB * r) * sizeof(float);
+  dim3 grid(nb, (H + simt::MM_COLS - 1) / simt::MM_COLS);
   RT_DISPATCH(dtype, T, {
     const bool vec = (H % 4) == 0 &&
                      (reinterpret_cast<uintptr_t>(w) % (4 * sizeof(T))) == 0;
-    auto kern = vec ? &ragged_matmul_kernel<T, true> : &ragged_matmul_kernel<T, false>;
+    auto kern = vec ? &simt::ragged_matmul_kernel<T, true>
+                    : &simt::ragged_matmul_kernel<T, false>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    kern<<<grid, MM_THREADS, smem, stream>>>(
+    kern<<<grid, simt::MM_THREADS, smem, stream>>>(
         static_cast<const T*>(xs), block_expert, static_cast<const T*>(w),
         lora ? static_cast<const T*>(a) : nullptr, lora ? static_cast<const T*>(b) : nullptr,
         static_cast<T*>(out), K, H, bm, r, scale);

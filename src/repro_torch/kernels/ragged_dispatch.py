@@ -14,7 +14,8 @@ plain versions live in :mod:`repro_torch.kernels.ref`.
 
 ``BLOCK_M`` stays 8, the reference's value, so the plan's integer arrays
 equal the reference's exactly.  The combined output does not depend on
-it; choosing a Hopper-sized block is a later change.
+it, and the grouped matmul's tensor-core kernel does not tile by it: its
+tiles are runs of row blocks that share an expert.
 """
 from __future__ import annotations
 
@@ -124,7 +125,10 @@ def ragged_expert_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
     block_expert (N // bm,) int32; w (E, K, H); optional per-expert LoRA
     factors a (E, K, r), b (E, r, H).  Row block ``i`` computes
     ``xs_i @ w[be[i]]`` (+ ``(xs_i @ a[e]) @ b[e] * scale``), fp32
-    accumulate, one cast."""
+    accumulate, one cast.  One launch: bf16 / fp16 on the tensor cores,
+    one tile per run of row blocks that share an expert (the tile table is
+    computed inside the kernel); float32, a LoRA rank above 64 or a row
+    block that does not divide 64 on the FMA units."""
     name = "ragged_expert_matmul"
     lora = [t for t in (a, b) if t is not None]
     if len(lora) == 1:
@@ -154,7 +158,7 @@ def ragged_expert_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
         xs.data_ptr(), block_expert.data_ptr(), w.data_ptr(),
         a.data_ptr() if lora else None, b.data_ptr() if lora else None,
         out.data_ptr(), code, N, nb, K, H, r, float(scale),
-        _build.stream_ptr(xs))
+        _build.stream_ptr(xs), E)
     _build.check(name, rc)
     _build.LAUNCHES[name] += 1
     return out

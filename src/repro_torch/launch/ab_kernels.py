@@ -11,12 +11,17 @@ this, other, ... for:
 - serving: ``chip_smoke.py``'s workload (OLMoE-1.3B/6.9B FULL, bf16, 8
   slots at tiers 8,8,4,4,2,2,1,1, 16 requests of 128/256-token prompts,
   16 new tokens each, the same prompts every run), 10 pairs of runs:
-  generated tokens/s and the decode step's p50 per run;
-- the expert kernel: ``lora_matmul_experts`` at each training tier's
+  generated tokens/s, the decode step's p50, the prefill call's p50 and
+  TTFT p50 per run;
+- the grouped ragged expert matmul (``ragged_expert_matmul``, bf16, no
+  LoRA) at the serving path's shapes: the decode step's plan (8 slots at
+  the tiers above) and each prefill group's (T = 128, 256 tokens at k = 8,
+  4, 2, 1), w1/w3 2048 -> 1024 and w2 1024 -> 2048, 5 pairs;
+- the LoRA expert kernel: ``lora_matmul_experts`` at each training tier's
   capacity (k = 8, 4, 2, 1 at 2048 tokens: C = 328, 168, 88, 48; w1/w3
-  2048 -> 1024 and w2 1024 -> 2048, r = 20, bf16), 5 pairs: CUDA-event
-  means of 20 calls, the L2 flushed before each.
+  2048 -> 1024 and w2 1024 -> 2048, r = 20, bf16), 5 pairs.
 
+Kernel times are CUDA-event means of 20 calls, the L2 flushed before each.
 The Python code is the same in both arms, so they differ only in the
 kernels.  Prints one line per run, then a JSON line of the medians per
 arm.  Needs a CUDA device.
@@ -34,8 +39,9 @@ import numpy as np
 import torch
 
 from ..configs import get_config
-from ..kernels import _build
+from ..kernels import _build, ref
 from ..kernels.lora_matmul import lora_matmul_experts
+from ..kernels.ragged_dispatch import ragged_expert_matmul, ragged_plan
 from ..models import model as model_lib
 from ..serving import Request, ServingEngine
 
@@ -62,7 +68,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     dev = torch.device("cuda")
     libs = {"this": _build.load(_build.build()),
             "other": _build.load(_build.build(args.other.resolve()))}
-    results = {arm: {"tokens_per_s": [], "decode_step_ms_p50": []}
+    results = {arm: {"tokens_per_s": [], "decode_step_ms_p50": [],
+                     "prefill_ms_p50": [], "ttft_ms_p50": []}
                for arm in libs}
 
     # ---- serving
@@ -84,25 +91,26 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for arm in _order(SERVE_PAIRS):
         _build.use(libs[arm])
         torch.cuda.synchronize()
-        s = engine.run(requests(16, 16)).summary()
-        results[arm]["tokens_per_s"].append(s["gen_tokens_per_s"])
-        results[arm]["decode_step_ms_p50"].append(s["decode_step_ms_p50"])
+        report = engine.run(requests(16, 16))
+        s = report.summary()
+        prefill_p50 = statistics.median(report.prefill_s) * 1e3
+        res = results[arm]
+        res["tokens_per_s"].append(s["gen_tokens_per_s"])
+        res["decode_step_ms_p50"].append(s["decode_step_ms_p50"])
+        res["prefill_ms_p50"].append(prefill_p50)
+        res["ttft_ms_p50"].append(s["ttft_p50_ms"])
         print(f"serve {arm}: {s['gen_tokens_per_s']:.2f} tokens/s, decode "
-              f"step p50 {s['decode_step_ms_p50']:.3f} ms, TTFT p50 "
-              f"{s['ttft_p50_ms']:.1f} ms", flush=True)
+              f"step p50 {s['decode_step_ms_p50']:.3f} ms, prefill p50 "
+              f"{prefill_p50:.2f} ms, TTFT p50 {s['ttft_p50_ms']:.1f} ms",
+              flush=True)
     del engine, params
     torch.cuda.empty_cache()
 
-    # ---- the expert kernel at each tier
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(torch.bfloat16)
-
-    def ops(C, K, N, r=20, E=64):
-        return (randn(E, C, K), randn(E, K, N, scale=K ** -0.5),
-                randn(E, K, r, scale=K ** -0.5), randn(E, r, N, scale=0.5))
 
     flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
 
@@ -120,17 +128,48 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             total += s.elapsed_time(e)
         return total / REPS
 
-    shapes = {f"k{k}_{name}": ops(C, K, N) for k, C in TIERS
-              for name, K, N in (("w13", 2048, 1024), ("w2", 1024, 2048))}
-    for arm in _order(KERNEL_PAIRS):
-        _build.use(libs[arm])
-        row = {key: time_ms(lambda t=t: lora_matmul_experts(*t, scale=1.25))
-               for key, t in shapes.items()}
-        for key, ms in row.items():
-            results[arm].setdefault(key + "_ms", []).append(ms)
-        print(f"experts {arm}: " + ", ".join(f"{k} {v:.4f}"
-                                             for k, v in row.items()),
-              flush=True)
+    def kernel_pairs(label, calls):
+        for arm in _order(KERNEL_PAIRS):
+            _build.use(libs[arm])
+            row = {key: time_ms(fn) for key, fn in calls.items()}
+            for key, ms in row.items():
+                results[arm].setdefault(key + "_ms", []).append(ms)
+            print(f"{label} {arm}: " + ", ".join(f"{k} {v:.4f}"
+                                                 for k, v in row.items()),
+                  flush=True)
+
+    # ---- the grouped ragged expert matmul at the serving shapes
+    E = cfg.moe.num_experts
+    w13, w2 = randn(E, 2048, 1024, scale=2048 ** -0.5), randn(
+        E, 1024, 2048, scale=1024 ** -0.5)
+    w_, m_, _ = ref.adaptive_topk_router_ref(
+        randn(8, E), torch.tensor(SLOT_K, device=dev), 8)
+    plans = {"decode": ragged_plan(m_, w_, budget=sum(SLOT_K), max_k=8)}
+    for T in (128, 256):
+        for k in (8, 4, 2, 1):
+            w_, m_, _ = ref.topk_router_ref(randn(T, E), k)
+            plans[f"T{T}k{k}"] = ragged_plan(m_, w_, budget=T * k, max_k=k)
+    calls = {}
+    for name, pl in plans.items():
+        n_rows = pl.src.shape[0]
+        for wn, wt in (("w13", w13), ("w2", w2)):
+            xin = randn(n_rows, wt.shape[1])
+            calls[f"ragged_{name}_{wn}"] = (
+                lambda x_=xin, b_=pl.block_expert, w_=wt:
+                ragged_expert_matmul(x_, b_, w_))
+    kernel_pairs("ragged", calls)
+    del calls, plans, w13, w2
+
+    # ---- the LoRA expert kernel at each tier
+    def ops(C, K, N, r=20):
+        return (randn(E, C, K), randn(E, K, N, scale=K ** -0.5),
+                randn(E, K, r, scale=K ** -0.5), randn(E, r, N, scale=0.5))
+
+    kernel_pairs("experts", {
+        f"k{k}_{name}": (lambda t=ops(C, K, N):
+                         lora_matmul_experts(*t, scale=1.25))
+        for k, C in TIERS
+        for name, K, N in (("w13", 2048, 1024), ("w2", 1024, 2048))})
     _build.use(libs["this"])
     print(json.dumps({"ab_medians": {
         arm: {key: statistics.median(vals) for key, vals in res.items()}

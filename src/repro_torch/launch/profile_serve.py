@@ -1,13 +1,17 @@
 """Where a serving step's time goes, on the card: a torch.profiler window.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--layers N]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve
 
-Builds the FULL config (``--layers`` cuts depth) with random seeded
-weights, warms the engine up, then profiles one closed-batch run (8 slots
+Builds the FULL config (16 layers) with random seeded weights, warms the
+engine up, then profiles one closed-batch run (8 slots
 at tiers 8,8,4,4,2,2,1,1; 8 requests of 128/256-token prompts; 8 new
 tokens) and prints: the device time per kernel name (top rows), the total
 device-busy time (union of kernel intervals) against the wall time of the
 window, hence the device's idle share, and the engine's own step times.
+Then one prefill call alone (a 256-token prompt at k = 8, the serving
+path's largest group), median of 5: its wall time (synchronised), the
+host's time until the call returns (enqueue), and its device-busy time —
+a call whose enqueue time is close to its wall time waits on the host.
 Needs a CUDA device.
 """
 from __future__ import annotations
@@ -67,13 +71,12 @@ def print_rows(by_name: Dict[str, List[float]], n: int, width: int = 100) -> Non
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile_serve")
-    ap.add_argument("--layers", type=int, default=16)
     ap.add_argument("--rows", type=int, default=15)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
     dev = torch.device("cuda")
-    cfg = get_config("olmoe-1.3b-6.9b", "full").replace(num_layers=args.layers)
+    cfg = get_config("olmoe-1.3b-6.9b", "full")
     params = model_lib.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     rng = np.random.default_rng(0)
@@ -105,6 +108,42 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
           f"prefill calls, p50 {float(np.median(report.prefill_s)) * 1e3:.1f}"
           f" ms")
     print_rows(by_name, args.rows)
+
+    prefill_split(cfg, params, rng, acts, dev)
+
+
+@torch.inference_mode()
+def prefill_split(cfg, params, rng, acts, dev) -> None:
+    """One prefill call alone (a 256-token prompt at k = 8), median of 5,
+    with and without the profiler: wall time, host enqueue time, device
+    busy time."""
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                             device=dev)
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model_lib.prefill(cfg, params, prompt, k=8, dispatch="ragged")
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, (t1 - t0) * 1e3
+
+    call()                                 # warm-up
+    walls, enqueues, busies = [], [], []
+    for _ in range(5):
+        with torch.profiler.profile(activities=acts) as prof:
+            wall, enq = call()
+        walls.append(wall)
+        enqueues.append(enq)
+        busies.append(device_summary(prof)[1])
+    print(f"prefill call (T=256, k=8) under the profiler, median of 5: "
+          f"wall {np.median(walls):.1f} ms, host enqueue "
+          f"{np.median(enqueues):.1f} ms, device busy "
+          f"{np.median(busies):.1f} ms")
+    walls, enqueues = zip(*(call() for _ in range(5)))
+    print(f"prefill call (T=256, k=8) unprofiled, median of 5: wall "
+          f"{np.median(walls):.1f} ms, host enqueue "
+          f"{np.median(enqueues):.1f} ms")
 
 
 if __name__ == "__main__":

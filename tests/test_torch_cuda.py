@@ -184,6 +184,73 @@ def _check_lora(got, want):
         _close_16bit(got, want)
 
 
+def _ragged_blocks(kind, cuda):
+    """(block_expert, N, E) of one plan shape for the grouped matmul."""
+    E = 16
+    g = torch.Generator().manual_seed(len(kind))
+    if kind in ("plan", "empty", "skewed", "decode"):
+        T, k = {"plan": (64, 4), "empty": (40, 2), "skewed": (200, 2),
+                "decode": (8, 4)}[kind]
+        logits = torch.randn(T, E, generator=g)
+        if kind == "empty":      # experts 2, 9, 11 only: the last is empty
+            logits[:, [2, 9, 11]] += 20.0
+        if kind == "skewed":     # every token the same two experts
+            logits = logits[:1].expand(T, E).contiguous()
+        if kind == "decode":     # per-slot tiers
+            kt = torch.tensor([4, 4, 2, 2, 1, 1, 1, 1])
+            w_, m_, _ = tref.adaptive_topk_router_ref(logits, kt, k)
+            plan = trd.ragged_plan(m_, w_, budget=16, max_k=k)
+        else:
+            w_, m_, _ = tref.topk_router_ref(logits, k)
+            plan = trd.ragged_plan(m_, w_, budget=T * k, max_k=k)
+        be = plan.block_expert
+        return be.to(cuda), plan.src.shape[0], E
+    nb, bm = {"unsorted": (50, 8), "bm1": (300, 1), "bm3": (40, 3)}[kind]
+    be = torch.randint(0, E, (nb,), generator=g, dtype=torch.int32)
+    if kind == "bm1":
+        be = be.sort().values
+    return be.to(cuda), nb * bm, E
+
+
+# plan: runs of a few blocks and the trailing padding run; empty: empty
+# experts, the last among them; skewed: runs of 200 rows (longer than the
+# 128-row tile), N = 528 (not a multiple of 64 or 128); decode: 8 slots at
+# tiers; unsorted: more runs than experts (the blocks take several tiles);
+# bm1: tiles of 64 or 128 one-row blocks; K = 100 / H = 77: rows not
+# 16-byte aligned (element loads); r 80 and bm 3: the FMA route of bf16 /
+# fp16 (LoRA rank above 64, a row block that does not divide 64)
+_RAGGED_CASES = [("plan", 256, 384, 0), ("plan", 256, 384, 4),
+                 ("plan", 256, 384, 20), ("plan", 512, 256, 64),
+                 ("empty", 256, 128, 0), ("skewed", 256, 384, 0),
+                 ("skewed", 128, 256, 20), ("decode", 512, 256, 0),
+                 ("plan", 100, 77, 0), ("plan", 100, 77, 20),
+                 ("unsorted", 128, 128, 0), ("bm1", 64, 128, 0),
+                 ("plan", 128, 128, 80), ("bm3", 64, 64, 0)]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("kind,K,H,r", _RAGGED_CASES)
+def test_cuda_ragged_expert_matmul_matches_plain(cuda, dtype, kind, K, H, r):
+    """bf16 / fp16 run the tensor-core kernel (tiles = runs of row blocks
+    that share an expert, found on the card), float32 the FMA kernel; one
+    launch per call; every row, the padding rows too, equals the plain
+    version."""
+    be, N, E = _ragged_blocks(kind, cuda)
+    g = torch.Generator(device=cuda).manual_seed(K + H + r)
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda)
+                * scale).to(dtype)
+
+    xs, w = rn(N, K), rn(E, K, H, scale=K ** -0.5)
+    extra = (rn(E, K, r, scale=K ** -0.5), rn(E, r, H)) if r else ()
+    before = _build.LAUNCHES["ragged_expert_matmul"]
+    got = trd.ragged_expert_matmul(xs, be, w, *extra, scale=0.7)
+    assert _build.LAUNCHES["ragged_expert_matmul"] == before + 1
+    _check_lora(got, tref.ragged_expert_matmul_ref(xs, be, w, *extra,
+                                                   scale=0.7))
+
+
 # M in {1, 37, 2047}, r in {1, 4, 20, 64}; K = 100 and N = 77 give rows that
 # are not 16-byte aligned (the element-load path of the tensor-core kernel)
 @pytest.mark.parametrize("dtype", _DTYPES)

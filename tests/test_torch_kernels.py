@@ -167,9 +167,51 @@ def test_ragged_gather_matches_reference():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("lora", [False, True])
-def test_ragged_expert_matmul_matches_pallas(lora):
-    plan, a = _plan_inputs(2)
+def _skewed_plan_inputs(kind):
+    """Plans whose runs the grouped matmul's tiles must follow:
+    ``skewed`` — every token picks the same two of four experts, so each
+    of their runs is 80 rows (longer than the tensor-core kernel's 64-row
+    tile) and two experts are empty; ``empty_experts`` — tokens pick only
+    experts 1, 5 and 6 of 8, so the last expert is empty and the trailing
+    padding run stands alone."""
+    D, H, r = 16, 32, 4
+    rng = np.random.default_rng(17)
+    if kind == "skewed":
+        T, E, k = 80, 4, 2
+        logits = np.tile(rng.normal(size=(1, E)), (T, 1)).astype(np.float32)
+    else:
+        T, E, k = 24, 8, 1
+        logits = rng.normal(size=(T, E)).astype(np.float32)
+        logits[:, [1, 5, 6]] += 8.0
+    w, m, _ = jref.topk_router_ref(jnp.asarray(logits), k)
+    plan = jrd.ragged_plan(m, w, budget=T * k, max_k=k)
+    N = plan.src.shape[0]
+    arrays = dict(
+        xs=rng.normal(size=(N, D)).astype(np.float32),
+        w=rng.normal(size=(E, D, H)).astype(np.float32),
+        a=rng.normal(size=(E, D, r)).astype(np.float32),
+        b=rng.normal(size=(E, r, H)).astype(np.float32))
+    return plan, arrays
+
+
+@pytest.mark.parametrize("lora,kind", [
+    pytest.param(False, "random", id="False"),
+    pytest.param(True, "random", id="True"),
+    pytest.param(False, "skewed", id="skewed-False"),
+    pytest.param(True, "skewed", id="skewed-True"),
+    pytest.param(False, "empty_experts", id="empty_experts-False"),
+    pytest.param(True, "empty_experts", id="empty_experts-True")])
+def test_ragged_expert_matmul_matches_pallas(lora, kind):
+    if kind == "random":
+        plan, a = _plan_inputs(2)
+    else:
+        plan, a = _skewed_plan_inputs(kind)
+        be = np.asarray(plan.block_expert)
+        if kind == "skewed":     # two runs of 10 blocks, two empty experts
+            assert np.bincount(be[:20], minlength=4).tolist().count(10) == 2
+        else:                    # expert 7 takes only the trailing padding
+            assert set(be.tolist()) == {1, 5, 6, 7}
+            assert (be[-7:] == 7).all() and 7 not in be[:-7]
     extra = (a["a"], a["b"]) if lora else ()
     want = jrd.ragged_expert_matmul(
         jnp.asarray(a["xs"]), plan.block_expert, jnp.asarray(a["w"]),
