@@ -19,14 +19,16 @@ nothing else of the network or the filesystem.  Phases:
    and float32 (their FMA kernels), the grouped matmul also with a LoRA
    rank above 64 (its FMA route); flash also checked and timed at the
    training round's shape, the expert kernel checked and timed at each
-   tier, and the ragged trio checked (bf16, fp16) and timed at the
-   serving path's other shapes — the decode step, each prefill group of
-   phase 4, and a skewed plan — beside the grouped matmul's bound and
-   ``torch._grouped_mm``; kernel, plain and (where one PyTorch call
-   computes the same function, or for the LoRA matmuls the base product
-   alone) library times by CUDA events with the L2 flushed before every
-   call, and each kernel's bound (bytes over 3.35 TB/s or FLOPs over the
-   peak);
+   tier, and the ragged trio checked (bf16, fp16; the gather and the
+   combine also float32) and timed at the serving path's other shapes —
+   the decode step, each prefill group of phase 4, and a skewed plan —
+   beside each kernel's bound, ``torch._grouped_mm`` for the matmul and
+   ``torch.index_select`` for the gather, and an empty kernel's time
+   (the launch floor); kernel, plain and (where one PyTorch call
+   computes the same function, or a yardstick close to it: the LoRA
+   matmuls' base product, the gather without its zeroing) library
+   times by CUDA events with the L2 flushed before every call, and each
+   kernel's bound (bytes over 3.35 TB/s or FLOPs over the peak);
 3. backward — gradients through the four autograd wrappers of the
    training path (both LoRA matmuls, router, flash) against autograd
    through their plain versions, float32, b != 0;
@@ -160,6 +162,16 @@ def main() -> int:
                   f"exceeds {tol:g}*|plain| + {tol:g}")
         return err.max().item()
 
+    def close_any(got, want, what):
+        """close_16bit for bf16 / fp16; float32 both sides differs in
+        summation order only: |d| <= 1e-4·max(max|plain|, 1)."""
+        if got.dtype != torch.float32:
+            return close_16bit(got, want, what)
+        err = (got - want).abs().max().item()
+        check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
+              f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
+        return err
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -251,6 +263,22 @@ def main() -> int:
 
     # ------------------------------------------------ 2c. ragged trio
     DM, DE, R = 2048, 1024, 20
+
+    def gather_cost(pl):
+        """Bytes the gather must move: each used x row read once, src and
+        valid, every output row written once."""
+        n_rows = pl.src.shape[0]
+        used = int(torch.unique(pl.src[pl.valid.bool()]).numel())
+        return used * DM * 2 + n_rows * 8 + n_rows * DM * 2, 0.0
+
+    def combine_cost(pl):
+        """(bytes, FLOPs) of the combine: each live eo row read once, rows
+        and wrank, every output row written once; a multiply and an add
+        per live rank and column."""
+        live = pl.rows[pl.wrank > 0]
+        return (int(torch.unique(live).numel()) * DM * 2 + pl.rows.numel() * 8
+                + pl.rows.shape[0] * DM * 2, 2.0 * live.numel() * DM)
+
     x = randn(T, DM)
     w_r, m_r, _ = topk_router(randn(T, E, scale=0.5), K_TOP)
     plan = ragged_plan(m_r, w_r, budget=T * K_TOP, max_k=K_TOP)
@@ -259,13 +287,15 @@ def main() -> int:
     xs = ragged_gather(x, plan.src, plan.valid)
     xs_p = ref.ragged_gather_ref(x, plan.src, plan.valid)
     check(torch.equal(xs, xs_p), "ragged_gather differs from the plain version")
-    n_valid = int(plan.valid.sum())
-    used_rows = int(torch.unique(plan.src[plan.valid.bool()]).numel())
+    # yardstick: index_select moves the same bytes but leaves padding rows
+    # as copies of x[0] where the kernel writes x[0]·0
     record("ragged_gather", src + "ragged_dispatch.cu",
            tpu + "ragged_dispatch.py:146", 0.0,
            time_ms(lambda: ragged_gather(x, plan.src, plan.valid)),
            time_ms(lambda: ref.ragged_gather_ref(x, plan.src, plan.valid)),
-           used_rows * DM * 2 + N * 8 + N * DM * 2, 0.0, F32_FLOPS)
+           *gather_cost(plan), F32_FLOPS,
+           library_ms=time_ms(lambda: torch.index_select(x, 0, plan.src)),
+           library_what="torch.index_select, no zeroing of padding rows")
 
     w1 = randn(E, DM, DE, scale=DM ** -0.5)
     w2 = randn(E, DE, DM, scale=DE ** -0.5)
@@ -345,17 +375,21 @@ def main() -> int:
     got = ragged_combine(eo, plan.rows, plan.wrank)
     err = close_16bit(got, ref.ragged_combine_ref(eo, plan.rows, plan.wrank),
                      "ragged_combine")
-    live = plan.rows[plan.wrank > 0]
     record("ragged_combine", src + "ragged_dispatch.cu",
            tpu + "ragged_dispatch.py:248", err,
            time_ms(lambda: ragged_combine(eo, plan.rows, plan.wrank)),
            time_ms(lambda: ref.ragged_combine_ref(eo, plan.rows, plan.wrank)),
-           int(torch.unique(live).numel()) * DM * 2 + T * K_TOP * 8
-           + T * DM * 2, 2.0 * live.numel() * DM, F32_FLOPS)
+           *combine_cost(plan), F32_FLOPS)
     del xs, eo, x, la, lb
 
+    # the floor under any kernel's time: an empty kernel, timed alike
+    floor_ms = time_ms(lambda: _build.empty_launch(flush))
+    print(f"empty kernel (launch floor, timed as the kernels): "
+          f"{floor_ms:.4f} ms")
+
     # the serving path's other shapes, each with the trio held against its
-    # plain version (bf16 and fp16) and timed (bf16): the decode step (8
+    # plain version (the matmul in bf16 and fp16, the gather and the
+    # combine also in float32) and timed (bf16): the decode step (8
     # slots at tiers 8,8,4,4,2,2,1,1), each prefill group of the serving
     # phase (one request per call, checked there: T = 128 or 256 prompt
     # tokens at k = 8, 4, 2, 1), and a skewed plan where every token picks
@@ -368,8 +402,9 @@ def main() -> int:
     shapes += [("skewed T=256 k=8", 256, "skewed")]
 
     def ragged_shape(name, Ts, kk):
-        """The trio at one shape: checked in bf16 and fp16, timed in
-        bf16, one line of kernel ms, bounds and torch._grouped_mm ms."""
+        """The trio at one shape: checked in bf16 and fp16 (the gather
+        and the combine also in float32), timed in bf16, one line of kernel
+        ms, bounds, torch._grouped_mm and torch.index_select ms."""
         if kk is None:
             w_s, m_s, _ = ref.adaptive_topk_router_ref(
                 randn(Ts, E, scale=0.5), torch.tensor(slot_k, device=dev), 8)
@@ -386,21 +421,24 @@ def main() -> int:
         n_rows = pl.src.shape[0]
         xt = randn(Ts, DM)
         xs_s = ragged_gather(xt, pl.src, pl.valid)
-        check(torch.equal(xs_s, ref.ragged_gather_ref(xt, pl.src, pl.valid)),
-              f"ragged_gather {name} differs from the plain version")
         hs = randn(n_rows, DE)
         eos = randn(n_rows, DM)
         errs = []
-        for dtype in (torch.bfloat16, torch.float16):
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
             dn = str(dtype).split(".")[1]
-            for what, xin, wt in (("w1/w3", xs_s, w1), ("w2", hs, w2)):
-                a_ = (xin.to(dtype), pl.block_expert, wt.to(dtype))
-                errs.append(close_16bit(
-                    ragged_expert_matmul(*a_),
-                    ref.ragged_expert_matmul_ref(*a_),
-                    f"ragged_expert_matmul {dn} {what} {name}"))
+            x_ = xt.to(dtype)
+            check(torch.equal(ragged_gather(x_, pl.src, pl.valid),
+                              ref.ragged_gather_ref(x_, pl.src, pl.valid)),
+                  f"ragged_gather {dn} {name} differs from the plain version")
+            if dtype != torch.float32:
+                for what, xin, wt in (("w1/w3", xs_s, w1), ("w2", hs, w2)):
+                    a_ = (xin.to(dtype), pl.block_expert, wt.to(dtype))
+                    errs.append(close_16bit(
+                        ragged_expert_matmul(*a_),
+                        ref.ragged_expert_matmul_ref(*a_),
+                        f"ragged_expert_matmul {dn} {what} {name}"))
             e_ = eos.to(dtype)
-            errs.append(close_16bit(
+            errs.append(close_any(
                 ragged_combine(e_, pl.rows, pl.wrank),
                 ref.ragged_combine_ref(e_, pl.rows, pl.wrank),
                 f"ragged_combine {dn} {name}"))
@@ -412,19 +450,24 @@ def main() -> int:
               "combine": time_ms(lambda: ragged_combine(eos, pl.rows,
                                                         pl.wrank))}
         lib_ = {"w1/w3": grouped_mm_ms(xs_s, pl.block_expert, w1),
-                "w2": grouped_mm_ms(hs, pl.block_expert, w2)}
+                "w2": grouped_mm_ms(hs, pl.block_expert, w2),
+                "gather": time_ms(lambda: torch.index_select(xt, 0, pl.src)),
+                "combine": None}
         bnd = {"w1/w3": bound_ms(*matmul_cost(pl, DM, DE), BF16_FLOPS)[0],
-               "w2": bound_ms(*matmul_cost(pl, DE, DM), BF16_FLOPS)[0]}
+               "w2": bound_ms(*matmul_cost(pl, DE, DM), BF16_FLOPS)[0],
+               "gather": bound_ms(*gather_cost(pl), F32_FLOPS)[0],
+               "combine": bound_ms(*combine_cost(pl), F32_FLOPS)[0]}
+        lib_name = {"w1/w3": "grouped_mm", "w2": "grouped_mm",
+                    "gather": "index_select", "combine": "library"}
         n_exp = int(torch.unique(pl.block_expert).numel())
         print(f"ragged shape {name} (T·k={Tk}, N={n_rows} rows, "
               f"{pl.block_expert.shape[0]} row blocks, {n_exp} experts): "
               f"max_abs_err {max(errs):.3e}; ms: "
               + ", ".join(
-                  f"{k} {v:.4f}" + (f" (bound {bnd[k]:.4f}, grouped_mm "
-                                    + ("none" if lib_[k] is None else
-                                       f"{lib_[k]:.4f}") + ")"
-                                    if k in bnd else "")
-                  for k, v in ms.items()))
+                  f"{k} {v:.4f} (bound {bnd[k]:.4f}, {lib_name[k]} "
+                  + ("none" if lib_[k] is None else f"{lib_[k]:.4f}") + ")"
+                  for k, v in ms.items())
+              + f"; empty kernel {floor_ms:.4f}")
 
     for name, Ts, kk in shapes:
         ragged_shape(name, Ts, kk)
@@ -442,15 +485,6 @@ def main() -> int:
                 randn(*lead, K, r, scale=K ** -0.5, dtype=dtype),
                 randn(*lead, r, N, scale=0.5 * a_scale, dtype=dtype))
 
-    def check_lora(what, got, want):
-        if got.dtype == torch.float32:
-            # fp32 both sides: summation order only (K <= 2048 terms)
-            err = (got - want).abs().max().item()
-            check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
-                  f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
-            return err
-        return close_16bit(got, want, what)
-
     lora_errs = {}
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dn = str(dtype).split(".")[1]
@@ -458,9 +492,9 @@ def main() -> int:
                                                        0.8),
                                (2048, 2048, 2048, 20, 1.25)):
             ops = lora_ops((), M, K, N, r, dtype)
-            err = check_lora(f"lora_matmul {dn} {M}x{K}x{N} r{r}",
-                             lora_matmul(*ops, scale=sc),
-                             ref.lora_matmul_ref(*ops, sc))
+            err = close_any(lora_matmul(*ops, scale=sc),
+                            ref.lora_matmul_ref(*ops, sc),
+                            f"lora_matmul {dn} {M}x{K}x{N} r{r}")
             print(f"lora_matmul check {dn} M={M} K={K} N={N} r={r} "
                   f"scale={sc}: max_abs_err {err:.3e}")
             lora_errs[("lora_matmul", dn, M)] = err
@@ -468,9 +502,9 @@ def main() -> int:
                                    (64, 41, 1024, 2048, 20, 1.25),
                                    (64, 328, 2048, 1024, 20, 1.25)):
             ops = lora_ops((E_,), C, K, N, r, dtype)
-            err = check_lora(f"lora_matmul_experts {dn} E{E_} C{C} {K}->{N}",
-                             lora_matmul_experts(*ops, scale=sc),
-                             ref.lora_matmul_experts_ref(*ops, sc))
+            err = close_any(lora_matmul_experts(*ops, scale=sc),
+                            ref.lora_matmul_experts_ref(*ops, sc),
+                            f"lora_matmul_experts {dn} E{E_} C{C} {K}->{N}")
             print(f"lora_matmul_experts check {dn} E={E_} C={C} K={K} N={N} "
                   f"r={r} scale={sc}: max_abs_err {err:.3e}")
             lora_errs[("lora_matmul_experts", dn, C)] = err

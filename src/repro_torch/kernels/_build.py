@@ -118,9 +118,12 @@ def _declare(lib: ctypes.CDLL) -> None:
                                     I),
         "rt_lora_matmul": (P, P, P, P, P, I, I, I, I, I, F, P),
         "rt_lora_matmul_experts": (P, P, P, P, P, I, I, I, I, I, I, F, P),
+        "rt_empty": (P,),
     }
     for name, argtypes in sigs.items():
-        fn = getattr(lib, name)
+        fn = getattr(lib, name, None)
+        if fn is None:      # an older build (an A/B's other arm)
+            continue
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
 
@@ -144,6 +147,12 @@ def use(handle: ctypes.CDLL) -> None:
     """Make the wrappers call ``handle`` (from :func:`load`) from now on."""
     global _lib
     _lib = handle
+
+
+def empty_launch(t: torch.Tensor) -> None:
+    """Launch a kernel that does nothing on ``t``'s current stream: timed
+    like a kernel, it is the floor under any launch's time."""
+    check("empty", lib().rt_empty(stream_ptr(t)))
 
 
 def check(name: str, code: int) -> None:

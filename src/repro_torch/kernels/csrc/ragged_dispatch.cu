@@ -15,9 +15,33 @@
 // weights' bytes that bound it.
 //
 // Design:
-//  * gather / combine: one block per output row, 16-byte vector loads when
-//    the row is 16-byte aligned (scalar otherwise), fp32 accumulation in
-//    the combine, no atomics (the combine only gathers).
+//  * gather / combine — byrow::, a warp per row.  Both are a dependent chain
+//    (an index, then the row it names) that moves a few KB per row, so their
+//    time is launch and memory latency unless every load of the chain's
+//    second step is in flight at once: with the L2 flushed, each step of the
+//    chain waits a DRAM latency (and a TLB miss), and on the H100 an empty
+//    kernel alone takes longer than the byte bound at every serving shape
+//    (chip_smoke.py prints both). Gather: one warp per output row; lanes 0
+//    and 1 load src[i] and valid[i] in one instruction and a shuffle hands
+//    them to the warp, then each lane issues all of its 16-byte loads of the
+//    row (8 at D = 2048 bf16) before its first store.  Combine: one warp per
+//    (token, column chunk); lanes j and 16 + j load rows[t, j] and
+//    wrank[t, j] in one instruction, shuffles hand them to every lane, and
+//    each lane issues the loads of every rank before the first multiply
+//    (templated on max_k in {1, 2, 4, 8}; other widths take a loop unrolled
+//    by 4), so a k=8 token waits one memory latency, not eight.  The chunk
+//    is 32 vectors at k >= 3 (a decode step of 8 tokens at D = 2048 bf16 is
+//    64 warps), 64 at k = 2 and 128 at k = 1.  Blocks are small: a gather
+//    block is one warp (on the H100 larger blocks read the same with the L2
+//    flushed and slower with it warm, as on the serving path), a combine
+//    block the warps of 4 tokens on one chunk (the grid's y index), so no
+//    warp divides to find its token.
+//    Both compute the reference's arithmetic: gather xs[i] = x[src[i]] ·
+//    valid[i] in the element type (a padding row reads row src[i] = 0 and
+//    multiplies it, so an inf or a NaN there gives the reference's NaN);
+//    combine acc = acc + eo[row]·w in fp32, rank by rank, every rank (weight
+//    0 included), one cast. Unaligned rows take a scalar slice (8 elements 32
+//    apart per lane) through the same kernels.
 //  * matmul, bf16 / fp16 — tc::ragged_wgmma_kernel, on the tensor cores
 //    with the wgmma + TMA mainloop of wgmma_gemm.cuh (shared with the LoRA
 //    expert matmul).  A tile is a run of up to BM/bm consecutive row
@@ -64,60 +88,219 @@
 
 namespace {
 
-// ------------------------------------------------------------------ gather
+// ------------------------------------------------------- gather / combine
+namespace byrow {
+
+constexpr int GATHER_VPL = 8;      // slices a gather lane has in flight
+constexpr int COMBINE_TOKENS = 4;  // warps (tokens) per combine block
+
+// One lane's slice of a row segment that a warp covers: VEC — Vec<T>::N
+// adjacent elements as one 16-byte vector, lanes on adjacent vectors (D is
+// a multiple of Vec<T>::N and the rows 16-byte aligned); scalar — 8
+// elements 32 apart.  Columns at or past D load as zero and are not stored;
+// loads go through the read-only path (the rows are inputs only).
+template <typename T, bool VEC> struct Slice;
+
+template <typename T> struct Slice<T, true> {
+  static constexpr int E = rt::Vec<T>::N;  // elements per lane
+  static constexpr int COLS = 32 * E;      // columns per warp
+  uint4 u;
+  __device__ __forceinline__ void load(const T* row, int c0, int lane, int D) {
+    const int c = c0 + lane * E;
+    u = c < D ? __ldg(reinterpret_cast<const uint4*>(row + c)) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  __device__ __forceinline__ void store(T* row, int c0, int lane, int D) const {
+    const int c = c0 + lane * E;
+    if (c < D) *reinterpret_cast<uint4*>(row + c) = u;
+  }
+  __device__ __forceinline__ void get(float* f) const { rt::unpack<T>(u, f); }
+  __device__ __forceinline__ void set(const float* f) { u = rt::pack<T>(f); }
+};
+
+template <typename T> struct Slice<T, false> {
+  static constexpr int E = 8;
+  static constexpr int COLS = 32 * E;
+  T v[E];
+  __device__ __forceinline__ void load(const T* row, int c0, int lane, int D) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = c0 + e * 32 + lane;
+      v[e] = c < D ? __ldg(row + c) : rt::from_f<T>(0.f);
+    }
+  }
+  __device__ __forceinline__ void store(T* row, int c0, int lane, int D) const {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int c = c0 + e * 32 + lane;
+      if (c < D) row[c] = v[e];
+    }
+  }
+  __device__ __forceinline__ void get(float* f) const {
+#pragma unroll
+    for (int e = 0; e < E; ++e) f[e] = rt::to_f(v[e]);
+  }
+  __device__ __forceinline__ void set(const float* f) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) v[e] = rt::from_f<T>(f[e]);
+  }
+};
+
+// xs[i] = x[src[i]] * valid[i], valid cast to T as the reference casts it;
+// block i, one warp, is row i.
 template <typename T, bool VEC>
-__global__ void ragged_gather_kernel(const T* __restrict__ x, const int* __restrict__ src,
-                                     const int* __restrict__ valid, T* __restrict__ out,
-                                     int D) {
+__global__ void __launch_bounds__(32)
+ragged_gather_kernel(const T* __restrict__ x, const int* __restrict__ src,
+                     const int* __restrict__ valid, T* __restrict__ out, int D) {
+  using S = Slice<T, VEC>;
   const int i = blockIdx.x;
-  const int row = src[i];
-  const bool keep = valid[i] != 0;
-  if (VEC) {
-    const int nv = D / rt::Vec<T>::N;
-    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * D);
-    uint4* orow = reinterpret_cast<uint4*>(out + (size_t)i * D);
-    for (int c = threadIdx.x; c < nv; c += blockDim.x)
-      orow[c] = keep ? xr[c] : make_uint4(0u, 0u, 0u, 0u);
-  } else {
-    const T* xr = x + (size_t)row * D;
-    T* orow = out + (size_t)i * D;
-    for (int c = threadIdx.x; c < D; c += blockDim.x)
-      orow[c] = keep ? xr[c] : rt::from_f<T>(0.f);
+  const int lane = threadIdx.x;
+  // src[i] and valid[i] in one load instruction (lanes 0 and 1), shared by
+  // shuffle, so the row's loads wait for one memory latency
+  const int sv = lane < 2 ? __ldg(lane == 0 ? src + i : valid + i) : 0;
+  const int row = __shfl_sync(0xffffffffu, sv, 0);
+  const float v = rt::to_f(rt::from_f<T>((float)__shfl_sync(0xffffffffu, sv, 1)));
+  const T* xr = x + (size_t)row * D;
+  T* orow = out + (size_t)i * D;
+  for (int c0 = 0; c0 < D; c0 += GATHER_VPL * S::COLS) {
+    S s[GATHER_VPL];
+#pragma unroll
+    for (int q = 0; q < GATHER_VPL; ++q) s[q].load(xr, c0 + q * S::COLS, lane, D);
+    if (v != 1.f) {  // the warp's branch: padding rows (0 · x[src[i]])
+#pragma unroll
+      for (int q = 0; q < GATHER_VPL; ++q) {
+        float f[S::E];
+        s[q].get(f);
+#pragma unroll
+        for (int e = 0; e < S::E; ++e) f[e] *= v;
+        s[q].set(f);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < GATHER_VPL; ++q) s[q].store(orow, c0 + q * S::COLS, lane, D);
   }
 }
 
-// ----------------------------------------------------------------- combine
+// A token's ranks j < n <= 16 in one load instruction: lane j reads
+// rows[j], lane 16 + j the bits of wrank[j]; rank j's row is then lane j's
+// value and its weight lane 16 + j's.
+__device__ __forceinline__ int load_ranks(const int* rows, const float* wrank, int n, int lane) {
+  const int j = lane & 15;
+  const int* p = lane < 16 ? rows + j : reinterpret_cast<const int*>(wrank) + j;
+  return j < n ? __ldg(p) : 0;
+}
+
+__device__ __forceinline__ int rank_row(int rw, int j) { return __shfl_sync(0xffffffffu, rw, j); }
+__device__ __forceinline__ float rank_weight(int rw, int j) {
+  return __int_as_float(__shfl_sync(0xffffffffu, rw, 16 + j));
+}
+
 template <typename T, bool VEC>
-__global__ void ragged_combine_kernel(const T* __restrict__ eo, const int* __restrict__ rows,
-                                      const float* __restrict__ wrank, T* __restrict__ out,
-                                      int D, int max_k) {
-  const int t = blockIdx.x;
+__device__ __forceinline__ void accumulate(float* acc, const Slice<T, VEC>& s, float w) {
+  float f[Slice<T, VEC>::E];
+  s.get(f);
+#pragma unroll
+  for (int e = 0; e < Slice<T, VEC>::E; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(f[e], w));
+}
+
+// Slices a combine lane loads per rank: 4 / KMAX for k = 1 and 2 (4 loads
+// in flight per lane; a bf16 warp covers 1024 columns), else 1.  A k=1 warp
+// over a whole row (8 slices) unpacks 64 values per lane in series and read
+// slower on the H100 than 2 or 4 slices; k=2 read the same at 1, 2 or 4.
+__host__ __device__ constexpr int combine_slices(int kmax) {
+  return kmax == 1 || kmax == 2 ? 4 / kmax : 1;
+}
+
+// out[t] = sum_j wrank[t, j] * eo[rows[t, j]]; warp w of block (b, c) is
+// token COMBINE_TOKENS·b + w, column chunk c (combine_slices(KMAX) ·
+// S::COLS columns).  KMAX = max_k (1, 2, 4 or 8): every rank's slices are
+// loaded before the first product; KMAX = 0: any max_k, 4 ranks at a time.
+// The launch bounds' second argument (one block per SM) leaves ptxas the
+// registers to keep all 8 loads in flight: without it, it issues two and
+// then multiplies.
+template <typename T, bool VEC, int KMAX>
+__global__ void __launch_bounds__(32 * COMBINE_TOKENS, 1)
+ragged_combine_kernel(const T* __restrict__ eo, const int* __restrict__ rows,
+                      const float* __restrict__ wrank, T* __restrict__ out, int n_tok,
+                      int max_k, int D) {
+  using S = Slice<T, VEC>;
+  constexpr int V = combine_slices(KMAX);
+  const int t = blockIdx.x * COMBINE_TOKENS + (threadIdx.x >> 5);
+  if (t >= n_tok) return;
+  const int c0 = blockIdx.y * V * S::COLS;
+  const int lane = threadIdx.x & 31;
   const int* rt_ = rows + (size_t)t * max_k;
   const float* wt = wrank + (size_t)t * max_k;
-  if (VEC) {
-    constexpr int V = rt::Vec<T>::N;
-    const int nv = D / V;
-    for (int c = threadIdx.x; c < nv; c += blockDim.x) {
-      float acc[V], val[V];
+  float acc[V][S::E];
 #pragma unroll
-      for (int e = 0; e < V; ++e) acc[e] = 0.f;
-      for (int j = 0; j < max_k; ++j) {
-        const float w = wt[j];
-        const uint4 u = reinterpret_cast<const uint4*>(eo + (size_t)rt_[j] * D)[c];
-        rt::unpack<T>(u, val);
+  for (int v = 0; v < V; ++v)
 #pragma unroll
-        for (int e = 0; e < V; ++e) acc[e] += val[e] * w;
-      }
-      reinterpret_cast<uint4*>(out + (size_t)t * D)[c] = rt::pack<T>(acc);
+    for (int e = 0; e < S::E; ++e) acc[v][e] = 0.f;
+  if constexpr (KMAX > 0) {
+    const int rw = load_ranks(rt_, wt, KMAX, lane);
+    S s[KMAX][V];
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      const T* row = eo + (size_t)rank_row(rw, j) * D;
+#pragma unroll
+      for (int v = 0; v < V; ++v) s[j][v].load(row, c0 + v * S::COLS, lane, D);
+    }
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      const float w = rank_weight(rw, j);
+#pragma unroll
+      for (int v = 0; v < V; ++v) accumulate(acc[v], s[j][v], w);
     }
   } else {
-    for (int c = threadIdx.x; c < D; c += blockDim.x) {
-      float acc = 0.f;
-      for (int j = 0; j < max_k; ++j) acc += rt::to_f(eo[(size_t)rt_[j] * D + c]) * wt[j];
-      out[(size_t)t * D + c] = rt::from_f<T>(acc);
+    for (int jb = 0; jb < max_k; jb += 16) {
+      const int n = min(16, max_k - jb);
+      const int rw = load_ranks(rt_ + jb, wt + jb, n, lane);
+      for (int j0 = 0; j0 < n; j0 += 4) {
+        S s[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)  // past n: rank n-1 loaded again, not added
+          s[q].load(eo + (size_t)rank_row(rw, min(j0 + q, n - 1)) * D, c0, lane, D);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + q < n) accumulate(acc[0], s[q], rank_weight(rw, j0 + q));
+      }
     }
   }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    S o;
+    o.set(acc[v]);
+    o.store(out + (size_t)t * D, c0 + v * S::COLS, lane, D);
+  }
 }
+
+template <typename T, bool VEC>
+int gather(const T* x, const int* src, const int* valid, T* out, int N, int D,
+           cudaStream_t stream) {
+  ragged_gather_kernel<T, VEC><<<N, 32, 0, stream>>>(x, src, valid, out, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool VEC>
+int combine(const T* eo, const int* rows, const float* wrank, T* out, int n_tok, int max_k,
+            int D, cudaStream_t stream) {
+  const int cols = combine_slices(max_k) * Slice<T, VEC>::COLS;  // a warp's chunk
+  const dim3 grid((n_tok + COMBINE_TOKENS - 1) / COMBINE_TOKENS, (D + cols - 1) / cols);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+#define RT_COMBINE(K_)                                                          \
+  ragged_combine_kernel<T, VEC, K_><<<grid, 32 * COMBINE_TOKENS, 0, stream>>>( \
+      eo, rows, wrank, out, n_tok, max_k, D)
+  switch (max_k) {
+    case 1: RT_COMBINE(1); break;
+    case 2: RT_COMBINE(2); break;
+    case 4: RT_COMBINE(4); break;
+    case 8: RT_COMBINE(8); break;
+    default: RT_COMBINE(0);
+  }
+#undef RT_COMBINE
+  return (int)cudaGetLastError();
+}
+
+}  // namespace byrow
 
 // ------------------------------------------------------------------ matmul
 namespace simt {
@@ -394,14 +577,11 @@ extern "C" int rt_ragged_gather(const void* x, const int* src, const int* valid,
                                 cudaStream_t stream) {
   if (N == 0 || D == 0) return (int)cudaGetLastError();
   RT_DISPATCH(dtype, T, {
+    const T* x_ = static_cast<const T*>(x);
+    T* out_ = static_cast<T*>(out);
     const bool vec = (D % rt::Vec<T>::N) == 0 && rt::aligned16(x) && rt::aligned16(out);
-    const int threads = 256;
-    if (vec)
-      ragged_gather_kernel<T, true><<<N, threads, 0, stream>>>(
-          static_cast<const T*>(x), src, valid, static_cast<T*>(out), D);
-    else
-      ragged_gather_kernel<T, false><<<N, threads, 0, stream>>>(
-          static_cast<const T*>(x), src, valid, static_cast<T*>(out), D);
+    return vec ? byrow::gather<T, true>(x_, src, valid, out_, N, D, stream)
+               : byrow::gather<T, false>(x_, src, valid, out_, N, D, stream);
   });
   return (int)cudaGetLastError();
 }
@@ -411,15 +591,20 @@ extern "C" int rt_ragged_combine(const void* eo, const int* rows, const float* w
                                  cudaStream_t stream) {
   if (n_tok == 0 || D == 0) return (int)cudaGetLastError();
   RT_DISPATCH(dtype, T, {
+    const T* eo_ = static_cast<const T*>(eo);
+    T* out_ = static_cast<T*>(out);
     const bool vec = (D % rt::Vec<T>::N) == 0 && rt::aligned16(eo) && rt::aligned16(out);
-    const int threads = 256;
-    if (vec)
-      ragged_combine_kernel<T, true><<<n_tok, threads, 0, stream>>>(
-          static_cast<const T*>(eo), rows, wrank, static_cast<T*>(out), D, max_k);
-    else
-      ragged_combine_kernel<T, false><<<n_tok, threads, 0, stream>>>(
-          static_cast<const T*>(eo), rows, wrank, static_cast<T*>(out), D, max_k);
+    return vec ? byrow::combine<T, true>(eo_, rows, wrank, out_, n_tok, max_k, D, stream)
+               : byrow::combine<T, false>(eo_, rows, wrank, out_, n_tok, max_k, D, stream);
   });
+  return (int)cudaGetLastError();
+}
+
+// A kernel that does nothing: timed as the floor under any launch.
+__global__ void empty_kernel() {}
+
+extern "C" int rt_empty(cudaStream_t stream) {
+  empty_kernel<<<1, 32, 0, stream>>>();
   return (int)cudaGetLastError();
 }
 

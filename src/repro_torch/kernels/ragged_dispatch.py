@@ -97,7 +97,8 @@ def ragged_plan(mask: torch.Tensor, weights: torch.Tensor, *, budget: int,
 def ragged_gather(x: torch.Tensor, src: torch.Tensor,
                   valid: torch.Tensor) -> torch.Tensor:
     """x: (T, D); src, valid: (N,) int32 -> xs (N, D),
-    ``xs[i] = x[src[i]] * valid[i]``."""
+    ``xs[i] = x[src[i]] * valid[i]`` in x's dtype (a padding row reads and
+    multiplies row ``src[i]``, as the reference does).  One warp per row."""
     name = "ragged_gather"
     _build.require_cuda(name, x, src, valid)
     code = _build.dtype_code(name, x)
@@ -167,7 +168,9 @@ def ragged_expert_matmul(xs: torch.Tensor, block_expert: torch.Tensor,
 def ragged_combine(eo: torch.Tensor, rows: torch.Tensor,
                    wrank: torch.Tensor) -> torch.Tensor:
     """eo: (N, D); rows: (T, max_k) int32; wrank: (T, max_k) f32 ->
-    (T, D), ``out[t] = sum_j wrank[t, j] * eo[rows[t, j]]``."""
+    (T, D), ``out[t] = sum_j wrank[t, j] * eo[rows[t, j]]``: fp32, rank by
+    rank, every rank (weight 0 included), one cast.  One warp per (token,
+    column chunk)."""
     name = "ragged_combine"
     _build.require_cuda(name, eo, rows, wrank)
     code = _build.dtype_code(name, eo)

@@ -17,6 +17,8 @@ this, other, ... for:
   LoRA) at the serving path's shapes: the decode step's plan (8 slots at
   the tiers above) and each prefill group's (T = 128, 256 tokens at k = 8,
   4, 2, 1), w1/w3 2048 -> 1024 and w2 1024 -> 2048, 5 pairs;
+- ``ragged_gather`` and ``ragged_combine`` (bf16, D = 2048) on the same
+  plans, 5 pairs;
 - the LoRA expert kernel: ``lora_matmul_experts`` at each training tier's
   capacity (k = 8, 4, 2, 1 at 2048 tokens: C = 328, 168, 88, 48; w1/w3
   2048 -> 1024 and w2 1024 -> 2048, r = 20, bf16), 5 pairs.
@@ -41,7 +43,8 @@ import torch
 from ..configs import get_config
 from ..kernels import _build, ref
 from ..kernels.lora_matmul import lora_matmul_experts
-from ..kernels.ragged_dispatch import ragged_expert_matmul, ragged_plan
+from ..kernels.ragged_dispatch import (ragged_combine, ragged_expert_matmul,
+                                       ragged_gather, ragged_plan)
 from ..models import model as model_lib
 from ..serving import Request, ServingEngine
 
@@ -158,7 +161,18 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 lambda x_=xin, b_=pl.block_expert, w_=wt:
                 ragged_expert_matmul(x_, b_, w_))
     kernel_pairs("ragged", calls)
-    del calls, plans, w13, w2
+    del calls, w13, w2
+
+    # ---- the gather and the combine on the same plans (D = 2048)
+    calls = {}
+    for name, pl in plans.items():
+        x, eo = randn(pl.rows.shape[0], 2048), randn(pl.src.shape[0], 2048)
+        calls[f"gather_{name}"] = (lambda x_=x, p_=pl:
+                                   ragged_gather(x_, p_.src, p_.valid))
+        calls[f"combine_{name}"] = (lambda e_=eo, p_=pl:
+                                    ragged_combine(e_, p_.rows, p_.wrank))
+    kernel_pairs("gather/combine", calls)
+    del calls, plans
 
     # ---- the LoRA expert kernel at each tier
     def ops(C, K, N, r=20):

@@ -124,6 +124,65 @@ def test_cuda_ragged_trio_matches_plain(cuda, lora):
                 tref.ragged_combine_ref(eo, plan.rows, plan.wrank))
 
 
+# (kind, T, max_k, D).  max_k 1, 2, 4 and 8 take the combine's unrolled
+# kernels, 3 and 40 its loop over ranks (40: three batches of 16); T = 13,
+# 37 and 301 are not multiples of the combine block's 4 tokens, T = 1 is
+# one warp; D = 100 and 77 are not multiples of the 16-byte vector (the
+# scalar slices), D = 24 and 64 fill part of a warp's chunk.  decode: 8
+# slots at tiers (8,8,4,4,2,2,1,0) from adaptive_topk_router_ref, so
+# zero-weight ranks and a k = 0 slot; nonfinite: that plan with inf and NaN
+# in row 0 of x and of eo, which padding rows and zero-weight ranks read
+# and multiply by 0
+_ROW_CASES = [("topk", 64, 1, 256), ("topk", 64, 2, 2048),
+              ("topk", 37, 3, 2048), ("topk", 13, 4, 64),
+              ("topk", 301, 8, 256),
+              ("topk", 256, 8, 2048), ("topk", 1, 8, 2048),
+              ("topk", 20, 8, 100), ("topk", 7, 3, 77), ("topk", 5, 40, 24),
+              ("decode", 8, 8, 2048), ("nonfinite", 8, 8, 2048),
+              ("nonfinite", 8, 8, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kind,T,max_k,D", _ROW_CASES)
+def test_cuda_gather_and_combine_match_plain(cuda, dtype, kind, T, max_k, D):
+    """The gather equals the plain version exactly (NaN where it has NaN),
+    the combine within the 16-bit tolerance (float32 1e-4: the plain sum
+    may take the ranks in another order); one launch per call."""
+    E = 64
+    g = torch.Generator().manual_seed(100 * T + 10 * max_k + D)
+    logits = torch.randn(T, E, generator=g)
+    if kind == "topk":
+        w_, m_, _ = tref.topk_router_ref(logits, max_k)
+        budget = T * max_k
+    else:
+        tiers = torch.tensor([8, 8, 4, 4, 2, 2, 1, 0])
+        w_, m_, _ = tref.adaptive_topk_router_ref(logits, tiers, max_k)
+        budget = int(tiers.sum())
+    plan = trd.ragged_plan(m_.to(cuda), w_.to(cuda), budget=budget,
+                           max_k=max_k)
+    x = torch.randn(T, D, generator=g).to(cuda, dtype)
+    eo = torch.randn(plan.src.shape[0], D, generator=g).to(cuda, dtype)
+    if kind == "nonfinite":
+        for t in (x, eo):
+            t[0, ::2], t[0, 1::2] = float("inf"), float("nan")
+    before = dict(_build.LAUNCHES)
+    xs = trd.ragged_gather(x, plan.src, plan.valid)
+    out = trd.ragged_combine(eo, plan.rows, plan.wrank)
+    for name in ("ragged_gather", "ragged_combine"):
+        assert _build.LAUNCHES[name] == before[name] + 1
+    want_xs = tref.ragged_gather_ref(x, plan.src, plan.valid)
+    want = tref.ragged_combine_ref(eo, plan.rows, plan.wrank)
+    torch.testing.assert_close(xs, want_xs, rtol=0, atol=0, equal_nan=True)
+    tol = {torch.float32: 1e-4, torch.float16: 2e-3}.get(dtype, 1e-2)
+    torch.testing.assert_close(out.float(), want.float(), rtol=tol, atol=tol,
+                               equal_nan=True)
+    if kind == "nonfinite":     # the case reaches what it is about
+        pad = plan.valid == 0
+        assert bool(pad.any()) and bool(xs[pad].isnan().all())
+        assert bool((plan.wrank == 0).any()) and bool(out[7].isnan().all())
+
+
 def test_cuda_plan_matches_cpu_plan(cuda):
     w_, m_, _ = tref.topk_router_ref(torch.randn(40, 8), 3)
     cpu = trd.ragged_plan(m_, w_, budget=120, max_k=3)

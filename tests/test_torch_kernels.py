@@ -230,6 +230,30 @@ def test_ragged_combine_matches_reference():
     close(got, want)
 
 
+@pytest.mark.parametrize("op", ["gather", "combine"])
+def test_ragged_gather_combine_nonfinite_match_reference(op):
+    """inf and NaN in row 0, which padding rows and zero-weight ranks read
+    and multiply by 0: NaN exactly where the JAX reference has NaN."""
+    plan, a = _plan_inputs(4)
+    key = "x" if op == "gather" else "eo"
+    a[key][0, ::2], a[key][0, 1::2] = np.inf, np.nan
+    if op == "gather":
+        assert (np.asarray(plan.valid) == 0).any()
+        want = jref.ragged_gather_ref(jnp.asarray(a["x"]), plan.src,
+                                      plan.valid)
+        got = backend.ragged_gather(t(a["x"]), t(plan.src), t(plan.valid))
+    else:
+        plan = plan._replace(wrank=plan.wrank.at[:, -1].set(0.0),
+                             rows=plan.rows.at[:, -1].set(0))
+        want = jref.ragged_combine_ref(jnp.asarray(a["eo"]), plan.rows,
+                                       plan.wrank)
+        got = backend.ragged_combine(t(a["eo"]), t(plan.rows),
+                                     t(plan.wrank))
+    assert np.isnan(np.asarray(want)).any()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5, equal_nan=True)
+
+
 def test_ragged_rows_matches_reference():
     for budget, E in [(30, 64), (2048, 64), (1, 4), (17, 8)]:
         assert trd.ragged_rows(budget, E) == jrd.ragged_rows(budget, E)
