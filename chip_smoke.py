@@ -12,7 +12,10 @@ nothing else of the network or the filesystem.  Phases:
    (ptxas register/spill report on stderr);
 2. kernels — each of the seven CUDA kernels held against its plain
    PyTorch version on the card, on seeded inputs at its path's shapes
-   (the serving path's for the router, flash and the ragged trio; the
+   (the serving path's for the router, flash and the ragged trio — the
+   router's two entries: a static k at a prefill shape, per-token budgets
+   at the decode step's and at T=256, and rows whose softmax is all NaN;
+   the
    training round's for the two LoRA matmuls, plus ragged edges), with
    the tolerance stated beside each check — flash, the LoRA matmuls and
    the grouped ragged matmul in bf16 and fp16 (their tensor-core kernels)
@@ -26,22 +29,27 @@ nothing else of the network or the filesystem.  Phases:
    ``torch.index_select`` for the gather, and an empty kernel's time
    (the launch floor); kernel, plain and (where one PyTorch call
    computes the same function, or a yardstick close to it: the LoRA
-   matmuls' base product, the gather without its zeroing) library
+   matmuls' base product, the gather without its zeroing; for the
+   router a printed ``torch.topk`` of the softmax, not the same function)
+   library
    times by CUDA events with the L2 flushed before every call, and each
    kernel's bound (bytes over 3.35 TB/s or FLOPs over the peak);
-3. backward — gradients through the four autograd wrappers of the
-   training path (both LoRA matmuls, router, flash) against autograd
-   through their plain versions, float32, b != 0;
+3. backward — gradients through the autograd wrappers (both LoRA
+   matmuls, both router entries, flash) against autograd through their
+   plain versions, float32, b != 0;
 4. serving — OLMoE-1.3B/6.9B FULL (16 layers, bf16, random seeded weights)
    served by ``ServingEngine``: 8 slots at tiers (8,8,4,4,2,2,1,1), 16
    requests of 128/256-token prompts and 16 new tokens each, one request
    per prefill call; the launch counters are zeroed just before and read
-   just after, and every kernel of the path must have launched;
+   just after, and every kernel of the path must have launched: the
+   static router once per layer and prefill call, the per-token-budget
+   router once per layer and decode step;
 5. training — one FLAME round on the same FULL weights
    (``build_experiment`` + ``FederatedServer.run_round``): 4 clients at
    k = 8, 4, 2, 1 with learnable rescalers, batch 16 x 128 tokens, Adam;
    the counters are zeroed just before and read just after: the LoRA
-   matmuls, router and flash must have launched and the ragged trio not;
+   matmuls, router and flash must have launched and the ragged trio and
+   the per-token-budget router not;
 6. end to end — a 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) on the same weights: serving logits (prefill
    plus 4 paged decode steps) and the training loss with the gradient of
@@ -108,7 +116,8 @@ def main() -> int:
                                                      ragged_expert_matmul,
                                                      ragged_gather,
                                                      ragged_plan, ragged_rows)
-    from repro_torch.kernels.topk_router import topk_router
+    from repro_torch.kernels.topk_router import (adaptive_topk_router,
+                                                 topk_router)
     from repro_torch.models import model as model_lib
     from repro_torch.serving import BlockPool, Request, ServingEngine
 
@@ -172,6 +181,11 @@ def main() -> int:
               f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
         return err
 
+    # the floor under any kernel's time: an empty kernel, timed alike
+    floor_ms = time_ms(lambda: _build.empty_launch(flush))
+    print(f"empty kernel (launch floor, timed as the kernels): "
+          f"{floor_ms:.4f} ms")
+
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -198,19 +212,86 @@ def main() -> int:
     tpu = "src/repro/kernels/"
 
     # ------------------------------------------------ 2a. router
+    # masks and counts exactly, fp32 weights within 1e-6 (NaN where the
+    # plain version has NaN); the static entry at T=256 k=8 (a prefill
+    # group), the per-token-budget entry at the decode step's shape (8
+    # slots at tiers 8,8,4,4,2,2,1 and a free slot at 0) and at T=256
     T, E, K_TOP = 256, 64, 8
+    slot_k = (8, 8, 4, 4, 2, 2, 1, 1)
+
+    def router_check(got, want, what):
+        check(torch.equal(got[1], want[1]), f"{what}: mask differs from the "
+              "plain version")
+        check(torch.equal(got[2], want[2]), f"{what}: counts differ from the "
+              "plain version")
+        fin = ~want[0].isnan()
+        same_nan = torch.equal(got[0].isnan(), ~fin)
+        err = ((got[0] - want[0])[fin].abs().max().item()
+               if bool(fin.any()) else 0.0)
+        check(same_nan and err <= 1e-6,
+              f"{what}: weights max err {err:.3e} > 1e-6 or NaN differs")
+        return err
+
+    def router_bytes(n_tok, with_budgets=False):
+        """bf16 logits read, fp32 weights and mask written, counts; the
+        budgets read once."""
+        return (n_tok * E * 2 + 2 * n_tok * E * 4 + E * 4
+                + (4 * n_tok if with_budgets else 0))
+
     logits = randn(T, E, scale=0.5)
-    w_k, m_k, c_k = topk_router(logits, K_TOP)
-    w_p, m_p, c_p = ref.topk_router_ref(logits, K_TOP)
-    check(torch.equal(m_k, m_p), "router mask differs from the plain version")
-    check(torch.equal(c_k, c_p), "router counts differ from the plain version")
-    err = (w_k - w_p).abs().max().item()
-    check(err <= 1e-6, f"router weights: max err {err:.3e} > 1e-6 (fp32)")
+    err = router_check(topk_router(logits, K_TOP),
+                       ref.topk_router_ref(logits, K_TOP), "topk_router")
     record("topk_router", src + "topk_router.cu",
            tpu + "topk_router.py:59", err,
            time_ms(lambda: topk_router(logits, K_TOP)),
            time_ms(lambda: ref.topk_router_ref(logits, K_TOP)),
-           T * E * 2 + 2 * T * E * 4 + E * 4, 0.0, F32_FLOPS)
+           router_bytes(T), 0.0, F32_FLOPS)
+    # a yardstick only: softmax and torch.topk compute neither the
+    # renormalised weights nor the mask and counts
+    print(f"router yardstick (not the same function: no renormalisation, "
+          f"no mask, no counts) torch.topk(torch.softmax(l.float(), -1), 8)"
+          f" at 256x64: {time_ms(lambda: torch.topk(torch.softmax(logits.float(), -1), K_TOP)):.4f} ms")
+
+    k_dec = torch.tensor((8, 8, 4, 4, 2, 2, 1, 0), dtype=torch.int32,
+                         device=dev)
+    k_256 = torch.tensor(slot_k, dtype=torch.int32, device=dev).repeat(T // 8)
+    l_dec = randn(8, E, scale=0.5)
+    for what, lg, kt in (("decode T=8", l_dec, k_dec),
+                         ("T=256", logits, k_256)):
+        err = router_check(adaptive_topk_router(lg, kt, K_TOP),
+                           ref.adaptive_topk_router_ref(lg, kt, K_TOP),
+                           f"adaptive_topk_router {what}")
+        uni = torch.full_like(kt, K_TOP)
+        check(all(torch.equal(a, b) for a, b in zip(
+            adaptive_topk_router(lg, uni, K_TOP), topk_router(lg, K_TOP))),
+              f"adaptive_topk_router {what}: uniform budgets differ from "
+              "the static entry")
+        ms_ = time_ms(lambda: adaptive_topk_router(lg, kt, K_TOP))
+        plain_ = time_ms(lambda: ref.adaptive_topk_router_ref(lg, kt, K_TOP))
+        if what.startswith("decode"):
+            record("adaptive_topk_router", src + "topk_router.cu",
+                   tpu + "topk_router.py:59", err, ms_, plain_,
+                   router_bytes(8, True), 0.0, F32_FLOPS)
+        else:
+            print(f"adaptive_topk_router at {what}: max_abs_err {err:.3e}, "
+                  f"{ms_:.4f} ms (plain {plain_:.4f} ms, bound "
+                  f"{bound_ms(router_bytes(T, True), 0.0, F32_FLOPS)[0]:.4f}"
+                  f" ms)")
+    # rows whose softmax is all NaN (a NaN, a +inf, all -inf) select
+    # expert 0 in every round, as the reference's argmax does
+    bad = randn(T, E, scale=0.5)
+    bad[1, 3], bad[2, 5], bad[3] = float("nan"), float("inf"), float("-inf")
+    router_check(topk_router(bad, K_TOP), ref.topk_router_ref(bad, K_TOP),
+                 "topk_router non-finite rows")
+    router_check(adaptive_topk_router(bad, k_256, K_TOP),
+                 ref.adaptive_topk_router_ref(bad, k_256, K_TOP),
+                 "adaptive_topk_router non-finite rows")
+    check(bool((topk_router(bad, K_TOP)[1][1:4, 0] == K_TOP).all()),
+          "non-finite rows do not select expert 0 in every round")
+    print("router checks: static and per-token-budget entries equal the "
+          "plain versions (decode, T=256, non-finite rows); uniform budgets "
+          "equal the static entry bit for bit")
+    del bad, l_dec
 
     # ------------------------------------------------ 2b. flash attention
     # bf16 and fp16 run the tensor-core kernel, float32 the FMA kernel
@@ -382,11 +463,6 @@ def main() -> int:
            *combine_cost(plan), F32_FLOPS)
     del xs, eo, x, la, lb
 
-    # the floor under any kernel's time: an empty kernel, timed alike
-    floor_ms = time_ms(lambda: _build.empty_launch(flush))
-    print(f"empty kernel (launch floor, timed as the kernels): "
-          f"{floor_ms:.4f} ms")
-
     # the serving path's other shapes, each with the trio held against its
     # plain version (the matmul in bf16 and fp16, the gather and the
     # combine also in float32) and timed (bf16): the decode step (8
@@ -394,7 +470,6 @@ def main() -> int:
     # phase (one request per call, checked there: T = 128 or 256 prompt
     # tokens at k = 8, 4, 2, 1), and a skewed plan where every token picks
     # the same 8 experts (runs of 256 rows, 56 experts empty)
-    slot_k = (8, 8, 4, 4, 2, 2, 1, 1)
     prompt_lens = (128, 256)
     shapes = [("decode", 8, None)]
     shapes += [(f"prefill T={L} k={kk}", L, kk) for L in prompt_lens
@@ -611,6 +686,16 @@ def main() -> int:
     # shapes (T = 128 or 256 prompt tokens at each tier) were this run's
     check(n_prefill == summ["n_requests"],
           f"{n_prefill} prefill calls for {summ['n_requests']} requests")
+    # each MoE layer routes once per call: prefill at its static k, every
+    # decode step at per-slot budgets (no plain router on the card)
+    L = cfg.num_layers
+    check(launches["topk_router"] == L * n_prefill,
+          f"topk_router launched {launches['topk_router']} times for "
+          f"{n_prefill} prefill calls x {L} layers")
+    check(launches["adaptive_topk_router"] == L * n_decode,
+          f"adaptive_topk_router launched "
+          f"{launches['adaptive_topk_router']} times for {n_decode} decode "
+          f"steps x {L} layers")
     print(f"serving: {summ['gen_tokens']} tokens in {summ['wall_s']:.3f} s, "
           f"{summ['gen_tokens_per_s']:.1f} tokens/s, "
           f"TTFT p50 {summ['ttft_p50_ms']:.1f} ms, decode step p50 "
@@ -627,8 +712,9 @@ def main() -> int:
     train_launches = training_phase(torch, cfg, params, dev, check,
                                      expert_ms,
                                      {r["name"]: r["ms"] for r in rows})
-    # launches: rows 1-5 from the serving run (their path), rows 6-7 from
-    # the training round (theirs); both runs' counters are printed
+    # launches: the router's two entries, flash and the ragged trio from
+    # the serving run (their path), the LoRA matmuls from the training
+    # round (theirs); both runs' counters are printed
     for row in rows:
         row["launches"] = (train_launches if row["name"].startswith("lora")
                            else launches)[row["name"]]
@@ -694,6 +780,9 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
         return (rn(*lead, M, K), rn(*lead, K, N, scale=K ** -0.5),
                 rn(*lead, K, r, scale=K ** -0.5), rn(*lead, r, N, scale=0.1))
 
+    k_tok = torch.tensor((8, 8, 4, 4, 2, 2, 1, 0), dtype=torch.int32,
+                         device=dev).repeat(32)
+
     def flash_plain(q, k, v):
         return ref.flash_attention_ref(*(t.transpose(1, 2) for t in
                                          (q, k, v))).transpose(1, 2)
@@ -709,6 +798,10 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
         "topk_router": ((rn(256, 64),),
                         lambda l: backend.router(l, 8)[0],
                         lambda l: ref.topk_router_ref(l, 8)[0]),
+        "adaptive_topk_router": (
+            (rn(256, 64),),
+            lambda l: backend.adaptive_router(l, k_tok, 8)[0],
+            lambda l: ref.adaptive_topk_router_ref(l, k_tok, 8)[0]),
         "flash_attention": ((rn(2, 128, 16, 128), rn(2, 128, 16, 128),
                              rn(2, 128, 16, 128)),
                             lambda q, k, v: backend.flash_attention(q, k, v),
@@ -809,7 +902,8 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
     for name in ("lora_matmul", "lora_matmul_experts", "topk_router",
                  "flash_attention"):
         check(launches[name] > 0, f"training round launched no {name}")
-    for name in ("ragged_gather", "ragged_expert_matmul", "ragged_combine"):
+    for name in ("ragged_gather", "ragged_expert_matmul", "ragged_combine",
+                 "adaptive_topk_router"):
         check(launches[name] == 0, f"training round launched {name}")
     del exp, server
     return launches

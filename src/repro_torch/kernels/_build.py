@@ -31,9 +31,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas", "-v")
 
-KERNELS = ("topk_router", "flash_attention", "ragged_gather",
-           "ragged_expert_matmul", "ragged_combine", "lora_matmul",
-           "lora_matmul_experts")
+KERNELS = ("topk_router", "adaptive_topk_router", "flash_attention",
+           "ragged_gather", "ragged_expert_matmul", "ragged_combine",
+           "lora_matmul", "lora_matmul_experts")
 LAUNCHES: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 # element-type codes of csrc/common.cuh
@@ -111,6 +111,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sigs = {
         "rt_topk_router": (P, I, P, P, P, I, I, I, P),
+        "rt_adaptive_topk_router": (P, I, P, P, P, P, I, I, I, P),
         "rt_flash_attention": (P, P, P, P, I, P, I, I, I, I, I, F, I, I, P),
         "rt_ragged_gather": (P, P, P, P, I, I, I, P),
         "rt_ragged_combine": (P, P, P, P, I, I, I, I, P),

@@ -15,8 +15,8 @@ jnp path to avoid near-1-wide Pallas grids) has no counterpart: the CUDA
 kernels mask their own ragged edges, so every shape runs the kernel.
 
 Differentiability.  The ops on the training path — ``lora_matmul``,
-``lora_matmul_experts``, ``router`` and ``flash_attention`` — are
-``torch.autograd.Function``s, as the reference's are ``jax.custom_vjp``s:
+``lora_matmul_experts``, ``router`` and ``flash_attention`` — and the
+per-token-budget ``adaptive_router`` are ``torch.autograd.Function``s, as the reference's are ``jax.custom_vjp``s:
 the forward is the kernel (or, on the CPU, the plain version); the
 backward is reference math, as on the TPU, which has no backward kernels:
 
@@ -25,8 +25,9 @@ backward is reference math, as on the TPU, which has no backward kernels:
   Only the gradients autograd asks for are formed — the frozen base
   weight's ``dW`` (an fp32 copy of a stacked expert leaf is 512 MB at
   OLMoE FULL) is skipped unless the weight requires grad;
-* the router and flash attention: the vjp of the plain version, recomputed
-  from the saved inputs.  The router's mask and counts carry no gradient.
+* the two routers and flash attention: the vjp of the plain version,
+  recomputed from the saved inputs.  The routers' mask and counts (and
+  ``k_tok``) carry no gradient.
 
 Without autograd (serving, ``torch.no_grad``) the Functions cost nothing
 beyond the forward.  The ragged trio serves inference only; its backward
@@ -43,6 +44,7 @@ from .lora_matmul import lora_matmul_experts as _lora_experts_cuda
 from .ragged_dispatch import ragged_combine as _combine_cuda
 from .ragged_dispatch import ragged_expert_matmul as _mm_cuda
 from .ragged_dispatch import ragged_gather as _gather_cuda
+from .topk_router import adaptive_topk_router as _adaptive_router_cuda
 from .topk_router import topk_router as _router_cuda
 
 _F32 = torch.float32
@@ -176,6 +178,37 @@ def router(logits: torch.Tensor, k: int):
     """logits (T, E) -> (weights (T, E) f32, mask (T, E) f32, counts (E,)).
     Differentiable in ``weights``; mask and counts carry no gradient."""
     return _Router.apply(logits, int(k))
+
+
+class _AdaptiveRouter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, k_tok, max_k):
+        ctx.max_k = max_k
+        ctx.save_for_backward(logits, k_tok)
+        if _on_cuda(logits):
+            out = _adaptive_router_cuda(logits.contiguous(),
+                                        k_tok.to(torch.int32).contiguous(),
+                                        max_k)
+        else:
+            out = ref.adaptive_topk_router_ref(logits, k_tok, max_k)
+        ctx.mark_non_differentiable(out[1], out[2])
+        return out
+
+    @staticmethod
+    def backward(ctx, g_weights, _g_mask, _g_counts):
+        logits, k_tok = ctx.saved_tensors
+        max_k = ctx.max_k
+        (dl,) = _vjp(lambda l: ref.adaptive_topk_router_ref(l, k_tok,
+                                                            max_k)[0],
+                     (logits,), (g_weights,))
+        return dl, None, None
+
+
+def adaptive_router(logits: torch.Tensor, k_tok: torch.Tensor, max_k: int):
+    """Per-token budgets: token ``t`` takes its top ``min(max(k_tok[t], 0),
+    max_k)`` experts (0 deselects it).  Same outputs and gradient rule as
+    :func:`router`; uniform ``k_tok == max_k`` is :func:`router` exactly."""
+    return _AdaptiveRouter.apply(logits, k_tok, int(max_k))
 
 
 # ==========================================================================

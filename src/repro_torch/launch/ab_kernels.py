@@ -12,7 +12,13 @@ this, other, ... for:
   slots at tiers 8,8,4,4,2,2,1,1, 16 requests of 128/256-token prompts,
   16 new tokens each, the same prompts every run), 10 pairs of runs:
   generated tokens/s, the decode step's p50, the prefill call's p50 and
-  TTFT p50 per run;
+  TTFT p50 per run.  Only where the other build has every C entry point
+  the serving path calls (a build without ``rt_adaptive_topk_router``
+  cannot serve this Python; ``launch/ab_serve.py`` alternates whole
+  checkouts instead);
+- the router's static entry (``topk_router``, bf16 logits, E = 64) at
+  each prefill group's shape (T = 128, 256 tokens at k = 8, 4, 2, 1),
+  5 pairs;
 - the grouped ragged expert matmul (``ragged_expert_matmul``, bf16, no
   LoRA) at the serving path's shapes: the decode step's plan (8 slots at
   the tiers above) and each prefill group's (T = 128, 256 tokens at k = 8,
@@ -45,6 +51,7 @@ from ..kernels import _build, ref
 from ..kernels.lora_matmul import lora_matmul_experts
 from ..kernels.ragged_dispatch import (ragged_combine, ragged_expert_matmul,
                                        ragged_gather, ragged_plan)
+from ..kernels.topk_router import topk_router
 from ..models import model as model_lib
 from ..serving import Request, ServingEngine
 
@@ -59,24 +66,8 @@ def _order(pairs: int):
         yield from (("other", "this") if i % 2 == 0 else ("this", "other"))
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
-    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.ab_kernels")
-    ap.add_argument("--other", required=True, type=Path,
-                    help="the other build's kernels/csrc directory")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("ab_kernels needs a CUDA device")
-    if not sorted(args.other.glob("*.cu")):
-        raise SystemExit(f"--other {args.other}: no .cu sources")
-    dev = torch.device("cuda")
-    libs = {"this": _build.load(_build.build()),
-            "other": _build.load(_build.build(args.other.resolve()))}
-    results = {arm: {"tokens_per_s": [], "decode_step_ms_p50": [],
-                     "prefill_ms_p50": [], "ttft_ms_p50": []}
-               for arm in libs}
-
-    # ---- serving
-    cfg = get_config("olmoe-1.3b-6.9b", "full")
+def serving_pairs(cfg, dev, libs, results) -> None:
+    """The serving workload, alternating the two libraries run by run."""
     params = model_lib.init_params(
         cfg, torch.Generator(device=dev).manual_seed(0), dev)
     engine = ServingEngine(cfg, params, num_slots=8, slot_len=512,
@@ -97,17 +88,39 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         report = engine.run(requests(16, 16))
         s = report.summary()
         prefill_p50 = statistics.median(report.prefill_s) * 1e3
-        res = results[arm]
-        res["tokens_per_s"].append(s["gen_tokens_per_s"])
-        res["decode_step_ms_p50"].append(s["decode_step_ms_p50"])
-        res["prefill_ms_p50"].append(prefill_p50)
-        res["ttft_ms_p50"].append(s["ttft_p50_ms"])
+        row = {"tokens_per_s": s["gen_tokens_per_s"],
+               "decode_step_ms_p50": s["decode_step_ms_p50"],
+               "prefill_ms_p50": prefill_p50,
+               "ttft_ms_p50": s["ttft_p50_ms"]}
+        for key, val in row.items():
+            results[arm].setdefault(key, []).append(val)
         print(f"serve {arm}: {s['gen_tokens_per_s']:.2f} tokens/s, decode "
               f"step p50 {s['decode_step_ms_p50']:.3f} ms, prefill p50 "
               f"{prefill_p50:.2f} ms, TTFT p50 {s['ttft_p50_ms']:.1f} ms",
               flush=True)
     del engine, params
     torch.cuda.empty_cache()
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.ab_kernels")
+    ap.add_argument("--other", required=True, type=Path,
+                    help="the other build's kernels/csrc directory")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("ab_kernels needs a CUDA device")
+    if not sorted(args.other.glob("*.cu")):
+        raise SystemExit(f"--other {args.other}: no .cu sources")
+    dev = torch.device("cuda")
+    libs = {"this": _build.load(_build.build()),
+            "other": _build.load(_build.build(args.other.resolve()))}
+    results = {arm: {} for arm in libs}
+    cfg = get_config("olmoe-1.3b-6.9b", "full")
+    if hasattr(libs["other"], "rt_adaptive_topk_router"):
+        serving_pairs(cfg, dev, libs, results)
+    else:       # the decode step calls it: this Python cannot serve there
+        print("serving pairs skipped: the other build lacks "
+              "rt_adaptive_topk_router", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -141,8 +154,14 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                                                  for k, v in row.items()),
                   flush=True)
 
-    # ---- the grouped ragged expert matmul at the serving shapes
     E = cfg.moe.num_experts
+    # ---- the router's static entry at the prefill groups' shapes
+    kernel_pairs("router", {
+        f"router_T{T}k{k}": (lambda l_=randn(T, E, scale=0.5), k_=k:
+                             topk_router(l_, k_))
+        for T in (128, 256) for k in (8, 4, 2, 1)})
+
+    # ---- the grouped ragged expert matmul at the serving shapes
     w13, w2 = randn(E, 2048, 1024, scale=2048 ** -0.5), randn(
         E, 1024, 2048, scale=1024 ** -0.5)
     w_, m_, _ = ref.adaptive_topk_router_ref(

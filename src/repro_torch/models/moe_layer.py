@@ -2,9 +2,10 @@
 ``repro/models/moe_layer.py``).
 
 1. router logits; static-k routing through the router kernel, or per-slot
-   budgets (a ``k`` tuple and/or ``slot_mask``) through the plain
-   :func:`adaptive_topk_router_ref` — per-token budgets have no fused
-   kernel in the reference either;
+   budgets (a ``k`` tuple and/or ``slot_mask``, every decode step) through
+   the same kernel's per-token-budget entry (``adaptive_router``; the
+   reference runs ``adaptive_topk_router_ref`` as plain ops, which XLA
+   fuses under ``jit`` and eager PyTorch would launch one by one);
 2. token dispatch, one of three modes:
 
    * ``"capacity"`` (the default, the training mode) — GShard one-hot
@@ -33,7 +34,6 @@ import torch.nn.functional as F
 
 from ..kernels import backend as kernel_backend
 from ..kernels.ragged_dispatch import ragged_plan
-from ..kernels.ref import adaptive_topk_router_ref
 from .layers import apply_ffn, lora_expert_einsum
 
 _F32 = torch.float32
@@ -175,7 +175,8 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
             per_tok = (slot_mask.reshape(T) if slot_mask.dim() == 2
                        else slot_mask.repeat_interleave(S))
             k_tok = k_tok * per_tok.to(torch.int32)
-        weights, mask, counts = adaptive_topk_router_ref(logits, k_tok, max_k)
+        weights, mask, counts = kernel_backend.adaptive_router(logits, k_tok,
+                                                               max_k)
         budget = S * sum(k_slots)
     else:
         weights, mask, counts = kernel_backend.router(logits, k)

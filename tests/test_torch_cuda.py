@@ -31,6 +31,8 @@ from repro_torch.kernels.flash_attention import flash_attention as t_flash
 from repro_torch.kernels.lora_matmul import lora_matmul as t_lora
 from repro_torch.kernels.lora_matmul import \
     lora_matmul_experts as t_lora_experts
+from repro_torch.kernels.topk_router import \
+    adaptive_topk_router as t_adaptive_router
 from repro_torch.kernels.topk_router import topk_router as t_router
 from repro_torch.models import model as tmodel
 from repro_torch.serving import Request, ServingEngine
@@ -45,20 +47,126 @@ def cuda():
     return torch.device("cuda")
 
 
+_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
 def _close_16bit(got, want):
     tol = 2e-3 if got.dtype == torch.float16 else 1e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_router_matches_plain(cuda, dtype):
-    logits = torch.randn(300, 64, device=cuda).to(dtype)
-    before = _build.LAUNCHES["topk_router"]
-    w, m, c = t_router(logits, 8)
-    assert _build.LAUNCHES["topk_router"] == before + 1
-    pw, pm, pc = tref.topk_router_ref(logits, 8)
+def _check_router(got, want):
+    """Masks and counts exactly, weights within 1e-6; NaN where the plain
+    version has NaN."""
+    w, m, c = got
+    pw, pm, pc = want
     assert torch.equal(m, pm) and torch.equal(c, pc)
-    torch.testing.assert_close(w, pw, rtol=0, atol=1e-6)
+    torch.testing.assert_close(w, pw, rtol=0, atol=1e-6, equal_nan=True)
+
+
+def _budgets(T, max_k, g, device):
+    """Per-token budgets in [0, max_k + 2]: zeros, and values above max_k
+    that the kernel clamps, as the plain version's ``rank < k_tok`` does."""
+    return torch.randint(0, max_k + 3, (T,), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+# E: one to sixteen experts per lane, 33 an odd width (element loads);
+# T: none, one row, the decode step, several blocks, more rows than the
+# grid (each warp loops); k: none to all
+_ROUTER_CASES = [(E, k) for E in (8, 33, 64, 128, 512)
+                 for k in sorted({0, 1, 2, 8, E})]
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("E,k", _ROUTER_CASES)
+def test_cuda_router_matches_plain(cuda, dtype, E, k):
+    """Both entries of the router kernel against their plain versions,
+    one launch per call; uniform budgets equal the static entry bit for
+    bit."""
+    g = torch.Generator().manual_seed(E * 31 + k)
+    for T in (0, 1, 8, 300, 4096):
+        logits = torch.randn(T, E, generator=g).to(cuda, dtype)
+        k_tok = _budgets(T, k, g, cuda)
+        before = dict(_build.LAUNCHES)
+        static = t_router(logits, k)
+        adaptive = t_adaptive_router(logits, k_tok, k)
+        uniform = t_adaptive_router(
+            logits, torch.full((T,), k, dtype=torch.int32, device=cuda), k)
+        assert _build.LAUNCHES["topk_router"] == before["topk_router"] + 1
+        assert (_build.LAUNCHES["adaptive_topk_router"]
+                == before["adaptive_topk_router"] + 2)
+        _check_router(static, tref.topk_router_ref(logits, k))
+        _check_router(adaptive,
+                      tref.adaptive_topk_router_ref(logits, k_tok, k))
+        for a, b in zip(uniform, static):
+            assert torch.equal(a, b), f"T={T}: uniform budgets differ"
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_cuda_routers_tied_and_nonfinite_rows(cuda, dtype):
+    """Rows of equal logits (the lowest indices win), a NaN, a +inf, all
+    -inf (all-NaN softmax: expert 0 in every round, weights NaN),
+    probabilities that underflow to 0 (a chosen expert is chosen again),
+    and finite rows, spread over several blocks; both entries."""
+    E, k, T = 64, 8, 600
+    logits = torch.randn(T, E, generator=torch.Generator().manual_seed(9))
+    logits[6::50] = 0.5                                   # ties
+    logits[1::50, 3] = float("nan")
+    logits[2::50, 60] = float("inf")
+    logits[3::50] = float("-inf")
+    logits[4::50, 10] = float("-inf")
+    logits[5::50] = torch.arange(E) * -300.0              # underflow
+    logits = logits.to(cuda, dtype)
+    k_tok = _budgets(T, k, torch.Generator().manual_seed(10), cuda)
+    static = t_router(logits, k)
+    _check_router(static, tref.topk_router_ref(logits, k))
+    _check_router(t_adaptive_router(logits, k_tok, k),
+                  tref.adaptive_topk_router_ref(logits, k_tok, k))
+    w, m, _ = static
+    assert bool((m[6::50, :k] == 1).all()) and bool((m[6::50, k:] == 0).all())
+    for r in (1, 2, 3):                 # NaN, +inf, all -inf
+        assert bool((m[r::50, 0] == k).all()) and bool(w[r::50].isnan().all())
+    assert bool((m[5::50, 0] == k).all())   # p = (1, 0, ...): 0 chosen again
+
+
+def test_cuda_router_counts_reset_between_calls(cuda):
+    """The count scratch is left zeroed by each call: repeated calls of
+    many blocks, and calls of other widths in between, give equal counts."""
+    g = torch.Generator().manual_seed(11)
+    big = torch.randn(4096, 64, generator=g).to(cuda, torch.bfloat16)
+    wide = torch.randn(2000, 512, generator=g).to(cuda)
+    k_tok = _budgets(4096, 8, g, cuda)
+    want = tref.topk_router_ref(big, 8)[2]
+    want_ad = tref.adaptive_topk_router_ref(big, k_tok, 8)[2]
+    for _ in range(3):
+        assert torch.equal(t_router(big, 8)[2], want)
+        assert torch.equal(t_adaptive_router(big, k_tok, 8)[2], want_ad)
+        t_router(wide, 2)
+        t_router(big[:5], 8)                    # one block: no scratch
+
+
+@pytest.mark.parametrize("T", [8, 4096])
+def test_cuda_router_call_is_one_kernel(cuda, T):
+    """One router call is one device kernel: no memset, no second pass."""
+    logits = torch.randn(T, 64, device=cuda).to(torch.bfloat16)
+    k_tok = torch.full((T,), 4, dtype=torch.int32, device=cuda)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for call in (lambda: t_router(logits, 8),
+                 lambda: t_adaptive_router(logits, k_tok, 8)):
+        # build and load first; the first profiler window of a process can
+        # come back without device events, so a throwaway window precedes
+        # the one that is checked
+        for _ in range(2):
+            call()
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                call()
+                torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(names) == 1 and "router_kernel" in names[0], names
 
 
 _FLASH_CASES = [(256, 16, 16, 128, 0, 0), (100, 8, 2, 64, 0, 0),
@@ -233,9 +341,6 @@ def _lora_operands(cuda, lead, M, K, N, r, dtype):
             rn(*lead, K, r, scale=K ** -0.5), rn(*lead, r, N, scale=0.5))
 
 
-_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
-
-
 def _check_lora(got, want):
     if got.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
@@ -364,7 +469,8 @@ def _grads(fn, inputs, cot):
 
 
 @pytest.mark.parametrize("op", ["lora_matmul", "lora_matmul_experts",
-                                "router", "flash_attention"])
+                                "router", "adaptive_router",
+                                "flash_attention"])
 def test_cuda_autograd_wrappers_match_plain_grads(cuda, op):
     """Gradients through each wrapper (kernel forward) against autograd
     through the plain version on the same card, float32, b != 0."""
@@ -386,6 +492,11 @@ def test_cuda_autograd_wrappers_match_plain_grads(cuda, op):
         inputs = (rn(100, 64),)
         wrap = lambda l: backend.router(l, 8)
         plain = lambda l: tref.topk_router_ref(l, 8)
+    elif op == "adaptive_router":
+        inputs = (rn(100, 64),)
+        k_tok = _budgets(100, 8, torch.Generator().manual_seed(8), cuda)
+        wrap = lambda l: backend.adaptive_router(l, k_tok, 8)
+        plain = lambda l: tref.adaptive_topk_router_ref(l, k_tok, 8)
     else:
         inputs = (rn(2, 50, 8, 64), rn(2, 50, 2, 64), rn(2, 50, 2, 64))
         wrap = lambda q, k, v: backend.flash_attention(q, k, v)
@@ -394,7 +505,8 @@ def test_cuda_autograd_wrappers_match_plain_grads(cuda, op):
             v.transpose(1, 2)).transpose(1, 2)
     ref_out = plain(*inputs)
     cot = rn(*(ref_out[0] if isinstance(ref_out, tuple) else ref_out).shape)
-    kname = "topk_router" if op == "router" else op
+    kname = {"router": "topk_router",
+             "adaptive_router": "adaptive_topk_router"}.get(op, op)
     before = _build.LAUNCHES[kname]
     out_w, grads_w = _grads(wrap, inputs, cot)
     assert _build.LAUNCHES[kname] == before + 1

@@ -12,6 +12,7 @@ card by tests/test_torch_cuda.py.
 import ast
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +29,8 @@ from repro_torch.kernels.flash_attention import flash_attention as t_flash
 from repro_torch.kernels.lora_matmul import lora_matmul as t_lora
 from repro_torch.kernels.lora_matmul import \
     lora_matmul_experts as t_lora_experts
+from repro_torch.kernels.topk_router import \
+    adaptive_topk_router as t_adaptive_router
 from repro_torch.kernels.topk_router import topk_router as t_router
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -77,6 +80,95 @@ def test_adaptive_router_matches_reference(max_k):
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
     close(w, jw, 1e-6)
+
+
+def _budgets(T, max_k, seed):
+    """Per-token budgets with zeros and values above max_k (the kernel
+    clamps to [0, max_k], as the reference's ``rank < k_tok`` does)."""
+    k_tok = np.random.default_rng(seed).integers(0, max_k + 3, T)
+    k_tok[:3] = (0, max_k, max_k + 2)
+    return k_tok.astype(np.int32)
+
+
+@pytest.mark.parametrize("E,max_k", [(8, 3), (60, 8), (64, 8), (64, 1)])
+def test_adaptive_router_wrapper_matches_reference(E, max_k):
+    T = 40
+    logits = _logits(T, E, E + max_k)
+    k_tok = _budgets(T, max_k, E)
+    jw, jm, jc = jref.adaptive_topk_router_ref(
+        jnp.asarray(logits), jnp.asarray(k_tok), max_k)
+    w, m, c = backend.adaptive_router(t(logits), t(k_tok), max_k)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    close(w, jw, 1e-6)
+    assert m[0].sum() == 0 and m[2].sum() == max_k       # 0 and above max_k
+
+
+@pytest.mark.parametrize("T,E,k", [(64, 16, 4), (96, 8, 2), (32, 64, 8)])
+def test_adaptive_router_uniform_budget_is_the_static_router(T, E, k):
+    """Uniform k_tok == k gives the Pallas router's mask and counts
+    (interpret mode) bit for bit and its weights within 1e-6 (XLA's and
+    torch's exp differ in the last bit), and the static wrapper's output
+    bit for bit."""
+    logits = _logits(T, E, T + k)
+    jw, jm, jc = j_router(jnp.asarray(logits), k, block_t=32, interpret=True)
+    w, m, c = backend.adaptive_router(
+        t(logits), torch.full((T,), k, dtype=torch.int32), k)
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+    close(w, jw, 1e-6)
+    for got, want in zip((w, m, c), backend.router(t(logits), k)):
+        assert torch.equal(got, want)
+
+
+def _nonfinite_logits():
+    """Rows with a NaN logit, a +inf logit, all -inf, a -inf among finite
+    values, probabilities that underflow to 0 (so chosen experts tie at 0
+    with the rest), and a finite row."""
+    logits = _logits(6, 8, 3)
+    logits[0, 5] = np.nan
+    logits[1, 2] = np.inf
+    logits[2, :] = -np.inf
+    logits[3, 1] = -np.inf
+    logits[4] = np.arange(8) * -200.0
+    return logits
+
+
+@pytest.mark.parametrize("router", ["static", "adaptive"])
+def test_routers_nonfinite_rows_match_reference(router):
+    """All-NaN softmax rows select expert 0 in every round, weights NaN,
+    as the JAX reference's argmax does."""
+    logits, k = _nonfinite_logits(), 3
+    if router == "static":
+        jout = jref.topk_router_ref(jnp.asarray(logits), k)
+        out = backend.router(t(logits), k)
+    else:
+        k_tok = np.array([3, 2, 3, 1, 3, 0], np.int32)
+        jout = jref.adaptive_topk_router_ref(jnp.asarray(logits),
+                                             jnp.asarray(k_tok), k)
+        out = backend.adaptive_router(t(logits), t(k_tok), k)
+    for got, want in zip(out, jout):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                                   atol=1e-6, equal_nan=True)
+    m = out[1]
+    assert m[0, 0] == 3 and m[0, 1:].eq(0).all()
+    assert m[4, 0] >= 2                  # underflow: expert 0 chosen again
+    assert out[0][:3].isnan().all() and not out[0][3:].isnan().any()
+
+
+def test_adaptive_router_grad_matches_jax_vjp():
+    T, E, max_k = 24, 16, 4
+    logits = _logits(T, E, 21)
+    k_tok = _budgets(T, max_k, 22)
+    cot = np.random.default_rng(23).normal(size=(T, E)).astype(np.float32)
+    _, vjp = jax.vjp(lambda l: jref.adaptive_topk_router_ref(
+        l, jnp.asarray(k_tok), max_k)[0], jnp.asarray(logits))
+    (want,) = vjp(jnp.asarray(cot))
+    lt = t(logits).requires_grad_(True)
+    w, m, c = backend.adaptive_router(lt, t(k_tok), max_k)
+    assert not m.requires_grad and not c.requires_grad
+    (got,) = torch.autograd.grad(w, lt, t(cot))
+    close(got, want, 1e-6)
 
 
 # ---------------------------------------------------------------- flash
@@ -264,6 +356,8 @@ def test_ragged_rows_matches_reference():
 def test_cpu_dispatch_launches_no_kernel():
     before = dict(_build.LAUNCHES)
     backend.router(torch.randn(8, 4), 2)
+    backend.adaptive_router(torch.randn(8, 4),
+                            torch.full((8,), 2, dtype=torch.int32), 2)
     backend.ragged_gather(torch.randn(4, 8), torch.zeros(8, dtype=torch.int32),
                           torch.ones(8, dtype=torch.int32))
     backend.lora_matmul(torch.randn(4, 8), torch.randn(8, 3),
@@ -280,6 +374,7 @@ def _cpu_args():
     q = torch.randn(1, 2, 8, 32)
     return {
         "topk_router": lambda: t_router(f, 2),
+        "adaptive_topk_router": lambda: t_adaptive_router(f, i, 2),
         "flash_attention": lambda: t_flash(q, q, q),
         "ragged_gather": lambda: trd.ragged_gather(f, i, i),
         "ragged_expert_matmul": lambda: trd.ragged_expert_matmul(
