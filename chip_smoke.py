@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of FLAME — serving and one federated training
-round — on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
+federated training round, checkpoints and resume, and the three baselines —
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -44,17 +45,34 @@ nothing else of the network or the filesystem.  Phases:
    just after, and every kernel of the path must have launched: the
    static router once per layer and prefill call, the per-token-budget
    router once per layer and decode step;
-5. training — one FLAME round on the same FULL weights
-   (``build_experiment`` + ``FederatedServer.run_round``): 4 clients at
-   k = 8, 4, 2, 1 with learnable rescalers, batch 16 x 128 tokens, Adam;
-   the counters are zeroed just before and read just after: the LoRA
-   matmuls, router and flash must have launched and the ragged trio and
-   the per-token-budget router not;
+5. training — the reference's default FLAME round on the same FULL
+   weights (``build_experiment`` + ``FederatedServer.run_round``, the
+   batched cohort engine and host driver): 8 clients, two each at
+   k = 8, 4, 2, 1 (four cohorts of two) with learnable rescalers, batch
+   16 x 128 tokens, Adam; the counters are zeroed just before and read
+   just after: the LoRA matmuls, router and flash must have launched and
+   the ragged trio and the per-token-budget router not.  The start state
+   is checkpointed (save and load timed, file size printed), and the
+   looped engine, restored from it, runs the same round: participants,
+   activation counts and launches equal, losses, rescalers and the
+   aggregate within the tolerances stated there; then each engine once
+   more from the checkpoint (looped, batched), for round times in the
+   order batched, looped, looped, batched;
 6. end to end — a 2-layer full-width model on the card (kernels) and on
    the CPU (plain versions) on the same weights: serving logits (prefill
    plus 4 paged decode steps) and the training loss with the gradient of
    every trainable leaf, compared in float32 and bf16;
-7. summary — a ``{"kernels": [...]}`` line, then the last line
+7. resume — on the 2-layer full-width model, 2 default-engine rounds
+   straight through against 1 round, ``save_checkpoint``, a fresh
+   server's ``run(resume_from=...)``: the same participants and round
+   index, state within one bf16 ulp;
+8. baselines — one default-engine round each of ``trivial``, ``hlora``
+   and ``flexlora`` on that model: finite losses, the server rank's
+   shapes, trivial's zero components above r_min, FlexLoRA's product
+   against the rank-r truncation of the mean ΔW;
+9. round memory — a FLAME round's memory above its start on both
+   engines at 8, 32 and 64 clients on that model (losses within 1e-6);
+10. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -757,7 +775,16 @@ def main() -> int:
 
     train_e2e_phase(torch, cfg2, dev, check)
 
-    # ------------------------------------------------ 7. summary
+    # ------------------------------------------------ 7-9. resume, baselines,
+    #                                                    round memory
+    p2 = model_lib.init_params(cfg2, torch.Generator(device=dev).manual_seed(7),
+                               dev)
+    resume_phase(torch, cfg2, p2, dev, check)
+    baselines_phase(torch, cfg2, p2, dev, check)
+    memory_phase(torch, cfg2, p2, dev, check)
+    del p2
+
+    # ------------------------------------------------ 10. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -826,18 +853,28 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
 
 
 def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
-    """One FLAME round at OLMoE FULL on the card through the port's entry
-    points; returns the round's launch counts."""
+    """The reference's default FLAME round (batched cohort engine, host
+    driver) at OLMoE FULL on the card through the port's entry points,
+    held against the looped engine from the same start; returns the
+    batched round's launch counts."""
+    import dataclasses
+
     from repro_torch.configs import FederatedConfig, TrainConfig
     from repro_torch.data.synthetic import DataConfig
     from repro_torch.federated import client as client_lib
+    from repro_torch.federated.cohort import build_cohorts
+    from repro_torch.federated.server import FederatedServer
     from repro_torch.federated.simulation import build_experiment
     from repro_torch.kernels import _build
 
-    fed = FederatedConfig(num_clients=4, rounds=1, method="flame",
-                          round_engine="looped", rescaler="learnable")
+    # the reference's defaults: round_engine="batched", cohort_backend=
+    # "vmap", round_driver="host"; 8 clients, two per budget tier
+    fed = FederatedConfig(num_clients=8, rounds=1, method="flame",
+                          rescaler="learnable")
+    check((fed.round_engine, fed.cohort_backend, fed.round_driver)
+          == ("batched", "vmap", "host"), "FederatedConfig defaults moved")
     tc = TrainConfig()
-    data = DataConfig(vocab_size=512, n_examples=160, seq_len=128)
+    data = DataConfig(vocab_size=512, n_examples=320, seq_len=128)
     t0 = time.perf_counter()
     exp = build_experiment(cfg, fed=fed, tc=tc, data=data,
                            base_params=params, device=dev)
@@ -846,6 +883,11 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
     print(f"training: build_experiment {time.perf_counter() - t0:.1f} s; "
           f"clients (k, examples): "
           + ", ".join(f"({c.k}, {c.dataset_size})" for c in server.clients))
+    cohorts = build_cohorts(server.clients, tc, rank_of=server._dist_rank)
+    print("training cohorts (k: members): " + ", ".join(
+        f"{co.k}: {co.members}" for co in cohorts))
+    check(sorted(len(co.members) for co in cohorts) == [2, 2, 2, 2],
+          "the 8 clients do not form four cohorts of two")
     # warm-up off the clock: one step of a 2-row batch (cuBLAS handles and
     # workspaces of the fp32 backward products)
     c0 = server.clients[0]
@@ -854,30 +896,41 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
         cfg, params, {"lora": server.global_lora, "rescaler": c0.rescaler},
         plan.tokens[:1, :2], plan.labels[:1, :2], plan.mask[:1, :2],
         plan.valid[:1], k=8, tc=tc, rescaler_trainable=True)
+
+    # the start state, checkpointed at FULL (its save is timed here and its
+    # load below, where it starts the looped engine from the same state)
+    ckpt = ROOT / "build" / "chip_smoke" / "start.npz"
+    start_lora = _clone(server.global_lora)
     resc0 = [c.rescaler["pos0"].clone() for c in server.clients]
+    t0 = time.perf_counter()
+    server.save_checkpoint(str(ckpt))
+    save_s = time.perf_counter() - t0
     plans = [client_lib.make_batch_plan(c, tc, fed.seed * 1000)
              for c in server.clients]
     steps = [p.n_steps for p in plans]
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launches()
-    t0 = time.perf_counter()
-    res = server.run_round(0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = dict(_build.LAUNCHES)
-
     n_steps = sum(steps)
     tokens = sum(int(p.valid.sum()) * p.tokens.shape[1] * p.tokens.shape[2]
                  for p in plans)
+
+    def timed_round(srv, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = srv.run_round(0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        print(f"training round, {what}: {n_steps} steps in {dt:.3f} s, "
+              f"{dt / n_steps:.3f} s/step, {tokens / dt:.1f} tokens/s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        print(f"training launches, {what}: {json.dumps(launches)}")
+        return res, dt, launches
+
+    res, dt, launches = timed_round(server, "batched engine (default)")
     for c, n, loss in zip(server.clients, steps, res.client_losses):
         print(f"training client {c.client_id}: k={c.k} steps={n} "
               f"mean loss {loss:.4f}")
-    print(f"training round: {n_steps} steps in {dt:.3f} s, "
-          f"{dt / n_steps:.3f} s/step, {tokens / dt:.1f} tokens/s, peak "
-          f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    print(f"training launches: {json.dumps(launches)}")
     # the expert kernel's share of the round, from the tier timings of the
     # kernel phase: per step, 16 layers x (w1 + w3 + w2)
     n_layers = cfg.num_layers
@@ -888,11 +941,89 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
           f"({expert_s / dt:.1%} of the round), lora_matmul ~{attn_s:.3f} s "
           f"({attn_s / dt:.1%}), from kernel-phase times x launches")
 
+    def fresh(engine):
+        """A server on ``engine`` restored from the start checkpoint, with
+        its own client states."""
+        srv = FederatedServer(
+            cfg, params, None,
+            [dataclasses.replace(c, rescaler=None) for c in server.clients],
+            dataclasses.replace(fed, round_engine=engine), tc)
+        check(srv.restore_checkpoint(str(ckpt)) == 0,
+              "the start checkpoint does not resume at round 0")
+        return srv
+
+    # the looped engine from the same start
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    looped = fresh("looped")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size = ckpt.stat().st_size
+    print(f"checkpoint at FULL: {size / 2 ** 20:.1f} MiB "
+          f"({ckpt.name}, global LoRA + 8 rescalers), save {save_s:.3f} s, "
+          f"load onto the card {load_s:.3f} s")
+    check(all(torch.equal(a, b) for (_, a), (_, b) in
+              zip(_paths(looped.global_lora), _paths(start_lora))),
+          "the FULL checkpoint did not restore the global LoRA bit for bit")
+    check(all(torch.equal(c.rescaler["pos0"], r) for c, r in
+              zip(looped.clients, resc0)),
+          "the FULL checkpoint did not restore the rescalers bit for bit")
+    lres, ldt, llaunches = timed_round(looped, "looped engine")
+    # the first round on the card pays for allocator growth and first-seen
+    # GEMM shapes: the same round twice more from the checkpoint, looped
+    # then batched, so each engine runs once first and once last
+    repeat = {}
+    for engine in ("looped", "batched"):
+        srv = fresh(engine)
+        repeat[engine] = timed_round(srv, f"{engine} engine, repeat")[1]
+        del srv
+    print(f"training round times, batched / looped / looped / batched: "
+          f"{dt:.3f} / {ldt:.3f} / {repeat['looped']:.3f} / "
+          f"{repeat['batched']:.3f} s; means batched "
+          f"{(dt + repeat['batched']) / 2:.3f} s, looped "
+          f"{(ldt + repeat['looped']) / 2:.3f} s")
+    ckpt.unlink()
+    ckpt.with_name(ckpt.name + ".meta.json").unlink()
+
+    # batched against looped: the same kernels in the same order on the
+    # same inputs, so participants and activation counts are equal and
+    # each client's run equal; only the mean loss's division (fp32 vs
+    # float64) and the aggregation's summation order differ: losses within
+    # 1e-6 relative, rescalers within 1e-6, aggregated bf16 adapters within
+    # one bf16 ulp (2^-8 relative) of each element
+    check(res.participating == lres.participating == list(range(8)),
+          "batched and looped rounds differ in participants")
+    check(all(np.array_equal(a["pos0"], b["pos0"]) for a, b in
+              zip(res.client_freqs, lres.client_freqs)),
+          "batched and looped rounds differ in activation counts")
+    check(launches == llaunches,
+          f"batched and looped rounds differ in launches: {llaunches}")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(res.client_losses, lres.client_losses))
+    resc_err = max((a.rescaler["pos0"] - b.rescaler["pos0"]).abs().max()
+                   .item() for a, b in zip(server.clients, looped.clients))
+    over, n_diff, n_all, max_d = 0, 0, 0, 0.0
+    for (_, a), (_, b) in zip(_paths(server.global_lora),
+                              _paths(looped.global_lora)):
+        d = (a.float() - b.float()).abs()
+        over += int((d > 2.0 ** -8 * b.float().abs()).sum())
+        n_diff += int((d > 0).sum())
+        n_all += d.numel()
+        max_d = max(max_d, d.max().item())
+    print(f"training batched vs looped: round time {dt:.3f} vs {ldt:.3f} s; "
+          f"losses max rel diff {loss_rel:.3e}, rescalers max |d| "
+          f"{resc_err:.3e}, aggregated adapters: {n_diff} of {n_all} "
+          f"elements differ (max |d| {max_d:.3e}), {over} beyond one bf16 "
+          f"ulp")
+    check(loss_rel <= 1e-6, "batched and looped losses differ by > 1e-6")
+    check(resc_err <= 1e-6, "batched and looped rescalers differ by > 1e-6")
+    check(over == 0, "batched and looped aggregates differ by more than "
+          "one bf16 ulp")
+
     check(all(np.isfinite(res.client_losses)),
           f"training losses not all finite: {res.client_losses}")
-    check(res.participating == [0, 1, 2, 3], "all four clients take part")
-    check(sorted(c.k for c in server.clients) == [1, 2, 4, 8],
-          "client budgets are not k = 8, 4, 2, 1")
+    check(sorted(c.k for c in server.clients) == [1, 1, 2, 2, 4, 4, 8, 8],
+          "client budgets are not k = 8, 4, 2, 1, two each")
     b_moved = any(bool(leaf.abs().max() > 0) for path, leaf in
                   _paths(server.global_lora) if path[-1] == "b")
     check(b_moved, "no global LoRA b leaf moved off zero")
@@ -905,8 +1036,212 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
     for name in ("ragged_gather", "ragged_expert_matmul", "ragged_combine",
                  "adaptive_topk_router"):
         check(launches[name] == 0, f"training round launched {name}")
-    del exp, server
+    del exp, server, looped, start_lora
     return launches
+
+
+def _two_layer_experiment(cfg2, params, dev, num_clients=8, **fed_kw):
+    """An experiment on the 2-layer full-width model: ``num_clients``
+    clients (8 by default), a corpus of 20 examples of 64 tokens per
+    client, batch 8."""
+    from repro_torch.configs import FederatedConfig, TrainConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.federated.simulation import build_experiment
+    return build_experiment(
+        cfg2, fed=FederatedConfig(num_clients=num_clients, **fed_kw),
+        tc=TrainConfig(batch_size=8),
+        data=DataConfig(vocab_size=512, n_examples=20 * num_clients,
+                        seq_len=64),
+        base_params=params, device=dev)
+
+
+def resume_phase(torch, cfg2, params, dev, check) -> None:
+    """Two default-engine rounds straight through against one round, a
+    checkpoint, a fresh server's restore and the second round (8 clients,
+    participation 0.5).  The resumed round replays the participant stream
+    and restores the state bit for bit, so it runs the same ops on the
+    same inputs: the same participants and round index, and the global
+    LoRA and rescalers within one bf16 ulp (2^-8 relative) of the straight
+    run's."""
+    ckpt = ROOT / "build" / "chip_smoke" / "resume.npz"
+    kw = dict(rounds=2, participation=0.5)
+    t0 = time.perf_counter()
+    straight = _two_layer_experiment(cfg2, params, dev, **kw)
+    full = straight.server.run()
+    first = _two_layer_experiment(cfg2, params, dev, **kw)
+    first.server.run_round(0)
+    first.server.save_checkpoint(str(ckpt))
+    resumed = _two_layer_experiment(cfg2, params, dev, **kw)
+    rest = resumed.server.run(resume_from=str(ckpt))
+    torch.cuda.synchronize()
+    ckpt.unlink()
+    ckpt.with_name(ckpt.name + ".meta.json").unlink()
+    check([r.round_idx for r in rest] == [1], "the resumed run did not "
+          "start at round 1")
+    check(rest[0].participating == full[1].participating,
+          "resumed and straight runs sample different participants")
+    worst = 0.0
+    pairs = list(zip(_paths(resumed.server.global_lora),
+                     _paths(straight.server.global_lora)))
+    pairs += [(((), a.rescaler["pos0"]), ((), b.rescaler["pos0"]))
+              for a, b in zip(resumed.server.clients, straight.server.clients)]
+    for (_, a), (_, b) in pairs:
+        d = (a.float() - b.float()).abs()
+        worst = max(worst, (d / (b.float().abs() + 1e-12)).max().item()
+                    if bool((d > 0).any()) else 0.0)
+    print(f"resume: participants {full[0].participating} then "
+          f"{rest[0].participating}, losses straight "
+          f"{np.round(full[1].client_losses, 6).tolist()} resumed "
+          f"{np.round(rest[0].client_losses, 6).tolist()}, state max rel "
+          f"diff {worst:.3e} ({time.perf_counter() - t0:.1f} s)")
+    check(worst <= 2.0 ** -8, "resumed state differs from the straight run "
+          "by more than one bf16 ulp")
+
+
+def baselines_phase(torch, cfg2, params, dev, check) -> None:
+    """One default-engine round of each baseline on the 2-layer
+    full-width model.  Checks: finite losses; the global tree keeps the
+    server rank's shapes; trivial's components above r_min are zero;
+    FlexLoRA's scale·A·B equals the rank-r truncation (fp32 SVD) of the
+    size-weighted mean ΔW of the clients' trained adapters within 2e-2
+    relative Frobenius error per leaf (the clients' factors, the ΔW_i,
+    their mean and the refactored A, B are each rounded to bf16, ~4e-3
+    relative apiece)."""
+    for method in ("trivial", "hlora", "flexlora"):
+        exp = _two_layer_experiment(cfg2, params, dev, rounds=1,
+                                    method=method)
+        srv = exp.server
+        shapes = [leaf.shape for _, leaf in _paths(srv.global_lora)]
+        seen = {}
+        aggregate = srv._aggregate
+
+        def capture(loras, freqs, sizes, parts):
+            seen.update(loras=loras, sizes=sizes)
+            return aggregate(loras, freqs, sizes, parts)
+
+        srv._aggregate = capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = srv.run_round(0)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        check(all(np.isfinite(res.client_losses)),
+              f"{method}: losses not all finite {res.client_losses}")
+        check([leaf.shape for _, leaf in _paths(srv.global_lora)] == shapes,
+              f"{method}: the global tree lost the server rank's shapes")
+        check(all(bool(torch.isfinite(leaf).all())
+                  for _, leaf in _paths(srv.global_lora)),
+              f"{method}: non-finite global adapter")
+        ranks = sorted({c.rank for c in srv.clients})
+        extra = ""
+        if method == "trivial":
+            r_min = ranks[0]
+            for path, leaf in _paths(srv.global_lora):
+                tail = (leaf[..., r_min:] if path[-1] == "a"
+                        else leaf[..., r_min:, :])
+                check(float(tail.abs().max()) == 0.0,
+                      f"trivial: {'/'.join(path)} nonzero above r_min")
+            extra = f", components above r_min={r_min} zero"
+        if method == "flexlora":
+            errs = _flexlora_errors(torch, srv, seen["loras"], seen["sizes"])
+            extra = (f", scale·A·B vs rank-{ranks[-1]} truncation of the "
+                     f"mean ΔW: rel Frobenius err max {max(errs):.3e} over "
+                     f"{len(errs)} leaves")
+            check(max(errs) <= 2e-2, "flexlora: scale·A·B differs from the "
+                  "truncated mean ΔW by more than 2e-2")
+        print(f"baseline {method}: ranks {ranks}, {len(res.participating)} "
+              f"clients, mean loss {np.mean(res.client_losses):.4f}, round "
+              f"{dt:.3f} s{extra}")
+        del exp, srv, seen
+
+
+def memory_phase(torch, cfg2, params, dev, check) -> None:
+    """The memory a FLAME round takes above its start, on both engines, as
+    the participant count grows (2-layer full-width model, 8, 32 and 64
+    clients, all participating, four budget cohorts), and what it still
+    holds once it has returned (the new global adapter).  The looped engine
+    keeps every participant's trained adapters until it aggregates; the
+    batched engine keeps one cohort's (stacked in, stacked out) plus the
+    fp32 streaming accumulator.  Both engines run the same steps, so the
+    losses must agree within 1e-6 relative."""
+    import gc
+
+    from repro_torch.federated.cohort import build_cohorts
+    tree_mib = None
+    for n in (8, 32, 64):
+        peak, left, loss = {}, {}, {}
+        for engine in ("looped", "batched"):
+            exp = _two_layer_experiment(cfg2, params, dev, num_clients=n,
+                                        rounds=1, round_engine=engine)
+            srv = exp.server
+            if tree_mib is None:
+                tree_mib = sum(leaf.numel() * leaf.element_size() for _, leaf
+                               in _paths(srv.global_lora)) / 2 ** 20
+            # what an earlier phase left in reference cycles is freed
+            # first, so it is neither in the base nor freed mid-round
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = srv.run_round(0)
+            torch.cuda.synchronize()
+            peak[engine] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            left[engine] = (torch.cuda.memory_allocated() - base) / 2 ** 20
+            loss[engine] = res.client_losses
+            cohorts = build_cohorts(srv.clients, srv.tc,
+                                    rank_of=srv._dist_rank)
+            del exp, srv
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(loss["batched"], loss["looped"]))
+        print(f"round memory, {n} clients in cohorts of "
+              f"{sorted(len(co.members) for co in cohorts)} (adapter tree "
+              f"{tree_mib:.1f} MiB bf16): peak above the round's start "
+              f"looped {peak['looped']:.1f} MiB, batched "
+              f"{peak['batched']:.1f} MiB; held after it looped "
+              f"{left['looped']:.1f} MiB, batched {left['batched']:.1f} MiB; "
+              f"losses max rel diff {rel:.3e}")
+        check(all(np.isfinite(loss["batched"])),
+              f"round memory, {n} clients: losses not all finite")
+        check(rel <= 1e-6, f"round memory, {n} clients: batched and looped "
+              "losses differ by > 1e-6")
+
+
+def _flexlora_errors(torch, srv, loras, sizes):
+    """Per adapter pair: ‖scale·A·B − T_r(ΔW̄)‖_F / ‖T_r(ΔW̄)‖_F, where ΔW̄
+    is the size-weighted mean of the clients' scale·A_i·B_i in fp32 and
+    T_r its best rank-r approximation (r = the server rank)."""
+    scale = srv.cfg.lora.scale
+    r = max(c.rank for c in srv.clients)
+    w = torch.tensor(sizes, dtype=torch.float32)
+    w = (w / w.sum()).tolist()
+    out = []
+
+    def pairs(tree):
+        return {p[:-1]: None for p, _ in _paths(tree)}
+
+    def get(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
+
+    for path in pairs(srv.global_lora):
+        g = get(srv.global_lora, path)
+        mean = sum(wi * torch.matmul(get(l, path)["a"].float(),
+                                     get(l, path)["b"].float()) * scale
+                   for wi, l in zip(w, loras))
+        u, s_, vt = torch.linalg.svd(mean, full_matrices=False)
+        trunc = torch.matmul(u[..., :r] * s_[..., None, :r], vt[..., :r, :])
+        got = torch.matmul(g["a"].float(), g["b"].float()) * scale
+        out.append(((got - trunc).norm() / trunc.norm().clamp_min(1e-30))
+                   .item())
+        del mean, u, s_, vt, trunc, got
+    return out
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
 
 
 def train_e2e_phase(torch, cfg2, dev, check) -> None:

@@ -189,10 +189,13 @@ class TrainConfig:
 @dataclass(frozen=True)
 class FederatedConfig:
     """Server-side orchestration hyper-parameters, the reference's fields
-    and defaults.  The port runs ``method="flame"`` on
-    ``round_engine="looped"`` with ``round_driver="host"``; the other
-    values (the reference's default ``"batched"`` engine included) are
-    refused by ``FederatedServer`` until their ROADMAP item lands."""
+    and defaults.  The port runs every method on both round engines
+    (``cohort_backend`` "vmap" and "map" both run a cohort's members in
+    turn) with ``round_driver="host"``; ``FederatedServer`` refuses
+    ``round_driver="device"`` until its ROADMAP item lands, and
+    ``checkpoint_every`` belongs to that driver (the host driver writes a
+    checkpoint after every round; the port's launcher refuses any other
+    value than 1)."""
 
     num_clients: int = 4
     rounds: int = 2

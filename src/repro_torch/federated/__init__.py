@@ -1,2 +1,3 @@
 """FLAME's federated training round (port of ``repro/federated``): clients,
-the host round driver and experiment assembly."""
+budget cohorts, the host round driver for all four methods, and
+experiment assembly."""

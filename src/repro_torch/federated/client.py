@@ -1,5 +1,6 @@
 """Client-side local training, one federated participant (port of
-``repro/federated/client.py``, the looped path).
+``repro/federated/client.py``: the looped path and the batched cohort
+path).
 
 A client owns a data shard, an expert budget k_i and a rescaler s_i, and
 runs ``local_epochs`` of Adam over its shard each round (paper A2.2: Adam,
@@ -14,12 +15,13 @@ gradient is formed for them), global-norm clipping and Adam.  An invalid
 (padding) step is not computed at all: it would be discarded whole —
 trainable tree, Adam state and step counter, counts and loss — so
 skipping it is the same result.  Running sums stay on the device; the host
-reads them once per client.
+reads them once per client.  :func:`cohort_update` runs a cohort of
+clients on stacked plans (:func:`stack_plans`), one member after another.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +119,33 @@ def pad_plan(plan: BatchPlan, n_steps: int) -> BatchPlan:
                                            np.zeros((extra,), np.float32)]))
 
 
+def empty_plan(like: BatchPlan) -> BatchPlan:
+    """An all-invalid plan with ``like``'s shapes: a cohort slot with no
+    real participant.  ``local_update`` returns its inputs untouched with
+    zero counts and tokens, and a dataset size of 0 keeps it out of the
+    aggregate."""
+    return BatchPlan(tokens=np.zeros_like(like.tokens),
+                     labels=np.zeros_like(like.labels),
+                     mask=np.zeros_like(like.mask),
+                     valid=np.zeros_like(like.valid))
+
+
+def stack_plans(plans: Sequence[BatchPlan]) -> BatchPlan:
+    """Stack per-client plans to (C, n_steps, B, S) for
+    :func:`cohort_update`, padding shorter plans with invalid steps.  All
+    plans must share a batch size (the cohort builder groups by it)."""
+    sizes = {p.batch_size for p in plans}
+    if len(sizes) > 1:
+        raise ValueError(f"cannot stack plans with mixed batch sizes {sizes}"
+                         " — cohort grouping should have split these")
+    n = max(p.n_steps for p in plans)
+    padded = [pad_plan(p, n) for p in plans]
+    return BatchPlan(tokens=np.stack([p.tokens for p in padded]),
+                     labels=np.stack([p.labels for p in padded]),
+                     mask=np.stack([p.mask for p in padded]),
+                     valid=np.stack([p.valid for p in padded]))
+
+
 # ==========================================================================
 # the local-training program (one client)
 # ==========================================================================
@@ -191,6 +220,39 @@ def local_update(cfg, params: PyTree, trainable: PyTree, tokens, labels,
         loss_acc = loss_acc + loss
         n_acc = n_acc + 1.0
     return tr, counts_acc, tok_acc, loss_acc, n_acc
+
+
+# ==========================================================================
+# batched cohort execution
+# ==========================================================================
+
+def cohort_update(cfg, params: PyTree, stacked_trainable: PyTree, tokens,
+                  labels, mask, valid, *, k: int, tc: TrainConfig,
+                  rescaler_trainable: bool, backend: str = "vmap"):
+    """:func:`local_update` for a whole cohort, on stacked inputs.
+
+    ``stacked_trainable``: a trainable tree with a leading client axis C
+    (``lora.stack_adapters``); ``tokens``…``valid``: a stacked
+    :class:`BatchPlan` (C, n_steps, ...).  The kernels are ``ctypes``
+    calls, which ``torch.func.vmap`` cannot batch, so both ``backend``
+    values run ``local_update`` once per member, in order, on its slice
+    of the inputs: the reference's ``"map"`` semantics (one
+    single-client program, members in turn).
+
+    Returns stacked ``(trainable, count_sums {pos: (C, n_periods, E)},
+    token_counts (C,), loss_sums (C,), n_valid (C,))``."""
+    if backend not in ("vmap", "map"):
+        raise ValueError(f"unknown cohort backend {backend!r}")
+    members = lora_lib.unstack_adapters(stacked_trainable, len(valid))
+    outs = [local_update(cfg, params, tr_j, tokens[j], labels[j], mask[j],
+                         valid[j], k=k, tc=tc,
+                         rescaler_trainable=rescaler_trainable)
+            for j, tr_j in enumerate(members)]
+    tr, counts = (lora_lib.stack_adapters([o[i] for o in outs])
+                  for i in (0, 1))
+    tok, loss_sum, n_valid = (torch.stack([o[i] for o in outs])
+                              for i in (2, 3, 4))
+    return tr, counts, tok, loss_sum, n_valid
 
 
 # ==========================================================================

@@ -1,19 +1,33 @@
 """Server-side federated orchestration (port of
-``repro/federated/server.py``: FLAME on the looped engine, host driver).
+``repro/federated/server.py``: the four methods, both round engines, the
+host driver, checkpoints and round telemetry).
 
-One round: sample participants (the reference's numpy stream), send each
-the full-rank global LoRA, run its local training at budget k_i
-(:func:`client.local_train`), then merge with FLAME's activation-aware
-rule (Eq. 6–7, :func:`aggregation.flame_aggregate`), keeping the previous
-global adapter for any expert nobody activated.
+Methods:
 
-Not ported yet, and refused with ``NotImplementedError`` naming the
-ROADMAP item: the batched cohort engine (``round_engine="batched"``, the
-reference's default, with streaming ``flame_acc_*`` aggregation), the
-device round driver, the baselines ``trivial``/``hlora``/``flexlora``,
-checkpoints (``checkpoint/io.py``) and the tracer / metrics registry.
-``RoundResult.activation_drift`` stays ``None`` until ``obs/expert_load``
-is ported.
+* ``flame`` — distribute the full-rank global LoRA; clients train at their
+  budgets k_i; aggregate with Eq. 6–7 (activation-aware).
+* ``trivial`` — every client trains the globally smallest rank; FedAvg.
+* ``hlora`` — distribute rank-truncated adapters per client budget;
+  sparsity-weighted aggregation over rank components.
+* ``flexlora`` — clients train truncated adapters; the server averages
+  ΔW = s·A·B and SVD-refactors back to the server rank.
+
+Round engines (``fed.round_engine``):
+
+* ``"batched"`` (the default) — participants are grouped into budget
+  cohorts (:mod:`.cohort`) and each cohort trains through one
+  ``client.cohort_update`` call on stacked inputs.  For FLAME each
+  cohort's stacked adapters and activation frequencies stream into a
+  running accumulator (``aggregation.flame_acc_*``) as soon as the cohort
+  finishes, so the server holds one cohort's trees at a time.
+* ``"looped"`` — one ``client.local_train`` per participant, the
+  reference oracle the batched engine is tested against.
+
+Every round runs on the host driver (``run`` iterates :meth:`run_round`).
+The reference's device driver (``round_driver="device"``, one ``lax.scan``
+program per checkpoint segment) and its span tracer (``tracer``,
+``run(trace_to=...)``) are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,10 +35,17 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..checkpoint import io as ckpt_io
 from ..configs.base import FederatedConfig, TrainConfig
 from ..core import aggregation as agg
+from ..core import lora as lora_lib
+from ..obs.expert_load import ActivationDriftTracker
+from ..obs.metrics import MetricsRegistry
+from ..tree import leaves, tree_map
 from . import client as client_lib
+from .cohort import build_cohorts
 
 PyTree = Any
 
@@ -33,8 +54,8 @@ FLAME_BUDGET_K = {"b1": 8, "b2": 4, "b3": 2, "b4": 1}
 MOE_BUDGET_RANKS = {"b1": 20, "b2": 12, "b3": 8, "b4": 6}
 DENSE_BUDGET_RANKS = {"b1": 40, "b2": 24, "b3": 16, "b4": 12}
 
-_LATER = ("comes with the federated-engines item of the ROADMAP (queue "
-          "item 1's remainder)")
+_LATER = ("is not ported yet: it comes with the ROADMAP's \"Round telemetry "
+          "and the device driver\" item (Modules to port)")
 
 
 @dataclass
@@ -43,35 +64,30 @@ class RoundResult:
     client_losses: List[float]
     client_freqs: List[Dict[str, np.ndarray]]
     participating: List[int]
-    # per-position activation telemetry: None until obs/expert_load is ported
+    # per-MoE-position activation telemetry for the round:
+    # {pos: {"entropy": [per period], "entropy_mean": f, "l1_drift": f|None}}
+    # — l1_drift is None on the first observed round (nothing to diff)
     activation_drift: Optional[Dict[str, Dict[str, Any]]] = None
 
 
-def _require_ported(fed: FederatedConfig) -> None:
-    asked = [f"{name}={value!r}" for name, value, ok in (
-        ("method", fed.method, fed.method == "flame"),
-        ("round_engine", fed.round_engine, fed.round_engine == "looped"),
-        ("round_driver", fed.round_driver, fed.round_driver == "host"),
-    ) if not ok]
-    if asked:
-        raise NotImplementedError(
-            f"FederatedServer {', '.join(asked)}: the port runs "
-            f"method='flame', round_engine='looped', round_driver='host'; "
-            f"the rest {_LATER}")
-
-
 class FederatedServer:
-    """Holds the global LoRA state and runs communication rounds."""
+    """Holds the global LoRA state and runs communication rounds.
+
+    ``metrics`` (optional): per-round counters and gauges (round count,
+    mean client loss, participants, per-position activation entropy and
+    L1 drift).  The drift itself is always computed and stored on
+    :class:`RoundResult`."""
 
     def __init__(self, cfg, params: PyTree, global_lora: PyTree,
                  clients: Sequence[client_lib.ClientState],
                  fed: FederatedConfig, tc: TrainConfig,
-                 tracer=None, metrics=None):
-        _require_ported(fed)
-        if tracer is not None or metrics is not None:
+                 tracer=None, metrics: Optional[MetricsRegistry] = None):
+        if fed.round_driver != "host":
             raise NotImplementedError(
-                f"FederatedServer tracer/metrics: the port's telemetry "
-                f"{_LATER}")
+                f"FederatedServer round_driver={fed.round_driver!r} {_LATER}"
+                "; the port runs round_driver='host'")
+        if tracer is not None:
+            raise NotImplementedError(f"FederatedServer tracer {_LATER}")
         self.cfg = cfg
         self.params = params
         self.global_lora = global_lora
@@ -80,7 +96,60 @@ class FederatedServer:
         self.tc = tc
         self.history: List[RoundResult] = []
         self._rng = np.random.default_rng(fed.seed + 999)
+        self._round_offset = 0        # rounds completed before a resume
+        self._drift = ActivationDriftTracker()
+        self._metrics = metrics
 
+    @property
+    def device(self) -> torch.device:
+        return next(leaves(self.params)).device
+
+    # ----------------------------------------------------------- distribution
+    def _dist_rank(self, c: client_lib.ClientState) -> int:
+        """Rank of the adapter distributed to client ``c``: the shape the
+        cohort builder groups by."""
+        m = self.fed.method
+        if m == "flame":
+            return max(cl.rank for cl in self.clients)   # full rank, always
+        if m == "trivial":
+            return min(cl.rank for cl in self.clients)
+        if m in ("hlora", "flexlora"):
+            return c.rank
+        raise ValueError(f"unknown method {m!r}")
+
+    def _distribute(self, c: client_lib.ClientState) -> PyTree:
+        m = self.fed.method
+        if m == "flame":
+            return self.global_lora
+        if m in ("trivial", "hlora", "flexlora"):
+            return lora_lib.truncate_rank(self.global_lora,
+                                          self._dist_rank(c))
+        raise ValueError(f"unknown method {m!r}")
+
+    # ------------------------------------------------------------ aggregation
+    def _aggregate(self, loras, freqs, sizes: List[float],
+                   parts: List[int]) -> PyTree:
+        """``loras``/``freqs``: per-participant lists."""
+        m = self.fed.method
+        r_full = max(cl.rank for cl in self.clients)
+        if m == "flame":
+            # prev_lora: an expert nobody activated this round keeps the
+            # previous global adapter instead of collapsing to zero
+            return agg.flame_aggregate(loras, freqs, sizes,
+                                       self.fed.temperature,
+                                       prev_lora=self.global_lora)
+        if m == "trivial":
+            # the uniformly small global, padded back to server-rank storage
+            return lora_lib.pad_rank(agg.fedavg(loras, sizes), r_full)
+        if m == "hlora":
+            ranks = [self.clients[i].rank for i in parts]
+            return agg.hlora_aggregate(loras, ranks, sizes, r_full)
+        if m == "flexlora":
+            return agg.flexlora_aggregate(loras, sizes, r_full,
+                                          self.cfg.lora.scale)
+        raise ValueError(f"unknown method {m!r}")
+
+    # ----------------------------------------------------------------- rounds
     def _sample_participants(self) -> List[int]:
         n = len(self.clients)
         n_part = max(1, int(round(self.fed.participation * n)))
@@ -88,37 +157,195 @@ class FederatedServer:
                       .tolist())
 
     def run_round(self, round_idx: int) -> RoundResult:
-        """One FLAME round on the looped engine: local_train per
-        participant, then activation-aware aggregation."""
+        if self.fed.round_engine == "looped":
+            res = self._run_round_looped(round_idx)
+        else:
+            res = self._run_round_batched(round_idx)
+        res.activation_drift = self._round_drift(res)
+        self._emit_round_metrics(res)
+        return res
+
+    def _emit_round_metrics(self, res: RoundResult) -> None:
+        if self._metrics is None:
+            return
+        self._metrics.counter("fed.rounds").inc()
+        finite = [l for l in res.client_losses if np.isfinite(l)]
+        if finite:
+            self._metrics.gauge("fed.round.mean_loss").set(
+                float(np.mean(finite)))
+        self._metrics.gauge("fed.participants").set(len(res.participating))
+        self._drift.publish(self._metrics, res.activation_drift)
+
+    def _round_drift(self, res: RoundResult) -> Dict[str, Dict[str, Any]]:
+        """The unweighted mean of the participants' activation frequencies
+        per MoE position (aggregation weighs by dataset size; telemetry
+        tracks what the cohort as a whole routed), through the drift
+        tracker: entropy per period and L1 drift against the last round."""
+        freqs = [f for f in res.client_freqs if f]
+        if not freqs:
+            return {}
+        mean = {pos: np.mean([np.asarray(f[pos], np.float64)
+                              for f in freqs], axis=0)
+                for pos in freqs[0]}
+        return self._drift.update(mean)
+
+    def _run_round_looped(self, round_idx: int) -> RoundResult:
+        """One ``local_train`` per participant, then aggregation."""
         parts = self._sample_participants()
         loras, freqs, sizes, losses = [], [], [], []
         for i in parts:
             c = self.clients[i]
             trained, f, _, info = client_lib.local_train(
-                self.cfg, self.params, self.global_lora, c, self.tc,
+                self.cfg, self.params, self._distribute(c), c, self.tc,
                 round_seed=self.fed.seed * 1000 + round_idx)
             loras.append(trained)
             freqs.append(f)
             sizes.append(float(c.dataset_size))
             losses.append(info["mean_loss"])
-        # prev_lora: an expert nobody activated this round keeps the
-        # previous global adapter instead of collapsing to zero
-        self.global_lora = agg.flame_aggregate(
-            loras, freqs, sizes, self.fed.temperature,
-            prev_lora=self.global_lora)
+        self.global_lora = self._aggregate(loras, freqs, sizes, parts)
         res = RoundResult(round_idx, losses, freqs, parts)
         self.history.append(res)
         return res
+
+    def _run_round_batched(self, round_idx: int) -> RoundResult:
+        """One ``cohort_update`` per budget cohort.  FLAME streams each
+        cohort's stacked outputs into the running accumulator, so the
+        round holds one cohort plus one fp32 adapter tree; the baselines
+        collect per-participant trees for their aggregation rules."""
+        parts = self._sample_participants()
+        round_seed = self.fed.seed * 1000 + round_idx
+        part_clients = [self.clients[i] for i in parts]
+        sizes = [float(c.dataset_size) for c in part_clients]
+        cohorts = build_cohorts(part_clients, self.tc,
+                                rank_of=self._dist_rank)
+        flame = self.fed.method == "flame"
+
+        # per-participant results, keyed by position in `parts`
+        loras_by_pos: Dict[int, PyTree] = {}
+        freqs_by_pos: Dict[int, Dict[str, np.ndarray]] = {}
+        losses_by_pos: Dict[int, float] = {}
+        flame_acc = agg.flame_acc_init(self.global_lora) if flame else None
+
+        for co in cohorts:
+            members = [part_clients[i] for i in co.members]
+            stacked_tr = lora_lib.stack_adapters(
+                [lora_lib.make_trainable(self._distribute(c), c.rescaler)
+                 for c in members])
+            plan = client_lib.stack_plans(
+                [client_lib.make_batch_plan(c, self.tc, round_seed)
+                 for c in members])
+            out_tr, counts, tok, loss_sum, n_valid = \
+                client_lib.cohort_update(
+                    self.cfg, self.params, stacked_tr, plan.tokens,
+                    plan.labels, plan.mask, plan.valid, k=co.k, tc=self.tc,
+                    rescaler_trainable=(co.key[4] == "learnable"),
+                    backend=self.fed.cohort_backend)
+            del stacked_tr
+
+            # stacked activation frequencies {pos: (C, n_periods, E)}
+            denom = torch.clamp(tok, min=1.0)[:, None, None]
+            freqs = {pos: c / denom for pos, c in counts.items()}
+
+            if "rescaler" in out_tr:
+                for c, r in zip(members, lora_lib.unstack_adapters(
+                        out_tr["rescaler"], len(members))):
+                    c.rescaler = tree_map(torch.clone, r)   # s_i stays local
+
+            # nan (not 0.0) for a zero-valid-step client, as local_train
+            n_valid_np = n_valid.cpu().numpy()
+            loss_means = np.where(
+                n_valid_np > 0,
+                loss_sum.cpu().numpy() / np.maximum(n_valid_np, 1.0),
+                np.nan)
+            for j, pos in enumerate(co.members):
+                losses_by_pos[pos] = float(loss_means[j])
+                freqs_by_pos[pos] = {p: f[j].cpu().numpy()
+                                     for p, f in freqs.items()}
+
+            if flame:
+                flame_acc = agg.flame_acc_update(
+                    flame_acc, out_tr["lora"], freqs,
+                    [sizes[pos] for pos in co.members],
+                    self.fed.temperature)
+            else:
+                for pos, tree in zip(co.members, lora_lib.unstack_adapters(
+                        out_tr["lora"], len(members))):
+                    loras_by_pos[pos] = tree
+            del out_tr
+
+        n = len(parts)
+        if flame:
+            self.global_lora = agg.flame_acc_finalize(
+                flame_acc, prev_lora=self.global_lora)
+        else:
+            self.global_lora = self._aggregate(
+                [loras_by_pos[i] for i in range(n)],
+                [freqs_by_pos[i] for i in range(n)], sizes, parts)
+        res = RoundResult(round_idx, [losses_by_pos[i] for i in range(n)],
+                          [freqs_by_pos[i] for i in range(n)], parts)
+        self.history.append(res)
+        return res
+
+    # ------------------------------------------------------------ checkpoints
+    def save_checkpoint(self, path: str) -> None:
+        """Persist the round-resumable state: the global LoRA, every
+        client's local rescaler s_i, and the next round index."""
+        ckpt_io.save(path, {"global_lora": self.global_lora,
+                            "rescalers": [c.rescaler for c in self.clients]},
+                     meta={"round_idx": self._round_offset + len(self.history),
+                           "method": self.fed.method,
+                           "num_clients": len(self.clients)})
+
+    def restore_checkpoint(self, path: str) -> int:
+        """Load a checkpoint onto the params' device; returns the round to
+        resume from.  The participant-sampling RNG is replayed past the
+        completed rounds, so a resumed run samples the cohorts a straight
+        run would."""
+        tree, meta = ckpt_io.load(path)
+        if (meta is None or "num_clients" not in meta
+                or not isinstance(tree, dict) or "global_lora" not in tree):
+            raise ValueError(
+                f"{path} is not a FederatedServer checkpoint (legacy or "
+                "foreign format) — re-create it with save_checkpoint / "
+                "run(checkpoint_to=...)")
+        if meta["num_clients"] != len(self.clients):
+            raise ValueError(f"{path}: {meta['num_clients']} clients, the "
+                             f"server has {len(self.clients)}")
+        if meta["method"] != self.fed.method:
+            raise ValueError(f"{path}: method {meta['method']!r}, the "
+                             f"server runs {self.fed.method!r}")
+        device = self.device
+        self.global_lora = ckpt_io.to_device(tree["global_lora"], device)
+        for c, r in zip(self.clients, tree["rescalers"]):
+            c.rescaler = ckpt_io.to_device(r, device)
+        start = int(meta["round_idx"])
+        self._round_offset = start
+        for _ in range(start):
+            self._sample_participants()
+        return start
 
     def run(self, resume_from: Optional[str] = None,
             checkpoint_to: Optional[str] = None,
             metrics_to: Optional[str] = None,
             trace_to: Optional[str] = None) -> List[RoundResult]:
-        """Run every round on the host driver."""
-        if resume_from or checkpoint_to:
-            raise NotImplementedError(
-                f"FederatedServer.run checkpoints (checkpoint/io.py) {_LATER}")
-        if metrics_to or trace_to:
-            raise NotImplementedError(
-                f"FederatedServer.run metrics/trace output {_LATER}")
-        return [self.run_round(r) for r in range(self.fed.rounds)]
+        """Run the remaining rounds on the host driver.
+
+        ``resume_from``: a checkpoint written by :meth:`save_checkpoint`
+        (or a previous ``run(checkpoint_to=...)``): loads the global LoRA,
+        rescalers and round index, and continues from there.
+        ``checkpoint_to``: write a checkpoint after every round.
+        ``metrics_to``: a registry snapshot (JSON) written when the rounds
+        finish, a registry being created when the server has none."""
+        if trace_to:
+            raise NotImplementedError(f"FederatedServer.run trace_to {_LATER}")
+        if metrics_to and self._metrics is None:
+            self._metrics = MetricsRegistry()
+        start = self.restore_checkpoint(resume_from) if resume_from else 0
+        out = []
+        for r in range(start, self.fed.rounds):
+            out.append(self.run_round(r))
+            if checkpoint_to:
+                self.save_checkpoint(checkpoint_to)
+        if metrics_to:
+            self._metrics.dump(metrics_to)
+        return out

@@ -4,8 +4,10 @@
 Builds the base model (or takes a given one), the global LoRA, the
 Dirichlet-partitioned synthetic corpus and one budgeted client per shard,
 then the :class:`FederatedServer`; :func:`run_experiment` runs every round
-and evaluates the global adapter.  Budgets are assigned round-robin
-β1..β4 (the paper's uniform heterogeneous setting) unless pinned.
+(any method, either round engine) and evaluates the global adapter.
+Budgets are assigned round-robin β1..β4 (the paper's uniform heterogeneous
+setting) unless pinned; clients of one tier share k_i and rank, so a
+round's participants form at most four cohorts for the batched engine.
 """
 from __future__ import annotations
 
@@ -93,11 +95,13 @@ def build_experiment(cfg, *, fed: FederatedConfig, tc: TrainConfig,
                       budgets=budgets)
 
 
-def run_experiment(exp: Experiment, *, eval_k: Optional[int] = None
-                   ) -> Dict[str, float]:
-    """Run all rounds, then evaluate the global adapter at ``eval_k``
-    experts (default: the server's top_k)."""
-    exp.server.run()
+def run_experiment(exp: Experiment, *, eval_k: Optional[int] = None,
+                   resume_from: Optional[str] = None,
+                   checkpoint_to: Optional[str] = None) -> Dict[str, float]:
+    """Run all rounds (``FederatedServer.run``, which takes the checkpoint
+    arguments), then evaluate the global adapter at ``eval_k`` experts
+    (default: the server's top_k)."""
+    exp.server.run(resume_from=resume_from, checkpoint_to=checkpoint_to)
     cfg = exp.cfg
     k = eval_k or (cfg.moe.top_k if cfg.moe.enabled else 0)
     trainable = {"lora": exp.server.global_lora}

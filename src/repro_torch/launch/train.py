@@ -2,8 +2,10 @@
 
 ``--federated`` assembles an experiment (``build_experiment``: base model,
 global LoRA, Dirichlet-partitioned synthetic corpus, budgeted clients)
-and runs every round of FLAME on the looped engine and the host driver,
-then evaluates the global adapter.  It runs on the CUDA kernels unless
+and runs every round of FLAME on the reference's default engine (batched
+cohorts) and the host driver, then evaluates the global adapter.
+``--checkpoint-to`` writes a resumable checkpoint after every round and
+``--resume-from`` continues from one.  It runs on the CUDA kernels unless
 given ``--device cpu`` (their plain versions).  ``--variant`` defaults to
 the reduced smoke config, as the reference's launcher does; the data
 vocabulary is the model's, capped at 512 tokens (a full-width model keeps
@@ -11,11 +13,11 @@ its 50,304-wide embedding and head: the synthetic corpus builds a dense
 vocab x vocab transition matrix per cluster, ~10 GB at full width).
 
   PYTHONPATH=src python -m repro_torch.launch.train --federated \\
-      --device cpu --clients 4 --rounds 2
+      --device cpu --clients 4 --rounds 2 --checkpoint-to build/fed.ckpt
 
 The reference launcher's other modes — ``--local`` and the production
-mesh step — and its device driver and checkpoints come with later slices
-of the port and are refused with a message naming the slice.
+mesh step — and its device round driver come with later slices of the
+port and are refused with a message naming the slice.
 """
 from __future__ import annotations
 
@@ -31,17 +33,15 @@ from ..configs import FederatedConfig, TrainConfig, get_config
 from ..data.synthetic import DataConfig
 from ..federated.simulation import build_experiment, run_experiment
 
-_ENGINES = "the federated-engines item of the ROADMAP"
+_MULTI_CHIP = "the multi-chip slice (the sharded train step)"
 LATER_FLAGS = {
-    "--local": "the multi-chip slice (the sharded train step)",
-    "--shape": "the multi-chip slice (the sharded train step)",
-    "--multi-pod": "the multi-chip slice (the sharded train step)",
-    "--steps": "the multi-chip slice (the sharded train step)",
-    "--round-driver": _ENGINES + " (the device round driver)",
-    "--checkpoint-every": _ENGINES + " (the device round driver)",
-    "--checkpoint-to": _ENGINES + " (checkpoint/io.py)",
-    "--resume-from": _ENGINES + " (checkpoint/io.py)",
+    "--local": _MULTI_CHIP,
+    "--shape": _MULTI_CHIP,
+    "--multi-pod": _MULTI_CHIP,
+    "--steps": _MULTI_CHIP,
 }
+_DEVICE_DRIVER = ("the device round driver: the ROADMAP's \"Round "
+                  "telemetry and the device driver\" item")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,6 +58,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k", type=int, default=None,
                     help="evaluation expert budget (default: top_k)")
+    ap.add_argument("--round-driver", default="host",
+                    choices=("host", "device"),
+                    help="host = per-round Python loop (device: not ported)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="rounds per checkpoint; the host driver writes "
+                         "one after every round, so only 1 (other values "
+                         "need the device driver: not ported)")
+    ap.add_argument("--checkpoint-to", default=None,
+                    help="write a resumable checkpoint after every round")
+    ap.add_argument("--resume-from", default=None,
+                    help="continue from a checkpoint")
     return ap
 
 
@@ -75,7 +86,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     args = build_parser().parse_args(argv)
     if not args.federated:
         raise SystemExit("only --federated is ported; the sharded train "
-                         f"step comes with {LATER_FLAGS['--local']}")
+                         f"step comes with {_MULTI_CHIP}")
+    if args.round_driver == "device":
+        raise SystemExit("--round-driver device: not ported yet, it comes "
+                         f"with {_DEVICE_DRIVER}")
+    if args.checkpoint_every != 1:
+        raise SystemExit("--checkpoint-every other than 1: not ported yet, "
+                         f"it comes with {_DEVICE_DRIVER}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
@@ -83,17 +100,22 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     cfg = get_config(args.arch, args.variant)
     fed = FederatedConfig(num_clients=args.clients, rounds=args.rounds,
-                          participation=args.participation, seed=args.seed,
-                          round_engine="looped")
+                          participation=args.participation,
+                          round_driver=args.round_driver,
+                          checkpoint_every=args.checkpoint_every,
+                          seed=args.seed)
     tc = TrainConfig(batch_size=8, local_epochs=1)
     data = DataConfig(vocab_size=min(cfg.vocab_size, 512),
                       n_examples=max(args.clients * 8, 64),
                       seq_len=64, n_clusters=4)
     print(f"{cfg.name} on {device}: {args.clients} clients, "
-          f"{args.rounds} rounds, method flame, looped engine, host driver")
+          f"{args.rounds} rounds, method flame, {fed.round_engine} engine, "
+          f"{fed.round_driver} driver")
     exp = build_experiment(cfg, fed=fed, tc=tc, data=data, device=device)
     t0 = time.perf_counter()
-    metrics = run_experiment(exp, eval_k=args.k)
+    metrics = run_experiment(exp, eval_k=args.k,
+                             resume_from=args.resume_from,
+                             checkpoint_to=args.checkpoint_to)
     dt = time.perf_counter() - t0
     for res in exp.server.history:
         finite = [l for l in res.client_losses if np.isfinite(l)]
@@ -103,6 +125,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print(f"val_loss {metrics['val_loss']:.4f}, test_loss "
           f"{metrics['test_loss']:.4f}, score {metrics['score']:.2f} "
           f"({dt:.2f} s for {metrics['rounds']} rounds and evaluation)")
+    if args.checkpoint_to:
+        print(f"checkpoint: {args.checkpoint_to}")
     print("done")
 
 

@@ -1,1 +1,3 @@
-"""Observability of the port: the serving report's step histograms."""
+"""Observability of the port: the metrics registry (the serving report's
+histograms, the federated round's counters and gauges) and expert-load /
+activation-drift telemetry."""

@@ -1,19 +1,52 @@
-"""Fixed-bucket histogram with interpolated percentiles.
+"""Metrics registry: counters, gauges, fixed-bucket histograms.
 
-A copy of the ``Histogram`` of ``repro/obs/metrics.py`` (pure Python), the
-one instrument the serving report uses; the metrics registry, tracer and
-expert telemetry come with a later slice of the port.
+A copy of ``repro/obs/metrics.py`` (pure Python).  A histogram observe is
+one ``bisect`` plus three adds.  ``MetricsRegistry.snapshot()`` returns a
+nested plain dict that is JSON-safe by construction (non-finite values
+become ``None``), and ``dump`` writes it.  Components that keep their own
+counters register a *source*, a callback run at snapshot time.
 """
 from __future__ import annotations
 
+import json
 import math
 from bisect import bisect_left
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 
 def _finite(x: float) -> Optional[float]:
     x = float(x)
     return x if math.isfinite(x) else None
+
+
+class Counter:
+    """Monotonic count. ``inc`` only; reset by replacing the object."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def inc(self, n: float = 1.0) -> None:
+        self.value += n
+
+    def snapshot(self) -> dict:
+        return {"type": "counter", "value": _finite(self.value)}
+
+
+class Gauge:
+    """Last-write-wins level (queue depth, blocks in use, ...)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+    def snapshot(self) -> dict:
+        return {"type": "gauge", "value": _finite(self.value)}
 
 
 def exp_buckets(lo: float, hi: float, factor: float = 1.15,
@@ -102,3 +135,53 @@ class Histogram:
             "p99": _finite(self.percentile(99) or 0.0) if self.count else None,
             "buckets": buckets,
         }
+
+
+class MetricsRegistry:
+    """Name → metric map with get-or-create accessors.
+
+    ``counter/gauge/histogram`` return the instrument already registered
+    under a name (and raise if the name is bound to another kind);
+    ``register`` binds an externally owned instrument."""
+
+    def __init__(self) -> None:
+        self._metrics: Dict[str, object] = {}
+        self._sources: List[Callable[["MetricsRegistry"], None]] = []
+
+    def _get(self, name: str, cls, *args):
+        m = self._metrics.get(name)
+        if m is None:
+            m = cls(*args)
+            self._metrics[name] = m
+        elif not isinstance(m, cls):
+            raise TypeError(f"metric {name!r} is {type(m).__name__}, "
+                            f"not {cls.__name__}")
+        return m
+
+    def counter(self, name: str) -> Counter:
+        return self._get(name, Counter)
+
+    def gauge(self, name: str) -> Gauge:
+        return self._get(name, Gauge)
+
+    def histogram(self, name: str,
+                  bounds: Sequence[float] = DEFAULT_MS_BUCKETS) -> Histogram:
+        return self._get(name, Histogram, bounds)
+
+    def register(self, name: str, metric) -> None:
+        """Bind (or rebind) ``name`` to an externally owned instrument."""
+        self._metrics[name] = metric
+
+    def add_source(self, fn: Callable[["MetricsRegistry"], None]) -> None:
+        """``fn(registry)`` runs at every ``snapshot()``."""
+        self._sources.append(fn)
+
+    def snapshot(self) -> Dict[str, dict]:
+        for fn in self._sources:
+            fn(self)
+        return {name: m.snapshot()
+                for name, m in sorted(self._metrics.items())}
+
+    def dump(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.snapshot(), f, indent=1, allow_nan=False)

@@ -27,3 +27,25 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
         return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
                 for key in tree}
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Tree, path: tuple = ()) -> Tree:
+    """``fn(path, leaf)`` on every leaf, ``path`` the tuple of keys from
+    the root.  Leaf rules that look other trees up by path use this rather
+    than a nested recursive function: such a function refers to itself
+    through its closure, a reference cycle that keeps every tree it
+    closes over alive (on the card, its memory) until Python's cyclic
+    collector runs."""
+    if isinstance(tree, dict):
+        return {key: tree_map_with_path(fn, tree[key], path + (key,))
+                for key in tree}
+    return fn(path, tree)
+
+
+def subtree(tree: Tree, path: tuple) -> Tree:
+    """The node at ``path``, or None where the path leaves the tree."""
+    for key in path:
+        if not isinstance(tree, dict) or key not in tree:
+            return None
+        tree = tree[key]
+    return tree

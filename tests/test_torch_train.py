@@ -469,7 +469,8 @@ def test_train_launcher_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--federated", "--round-driver", "device"], "device round driver"),
-    (["--federated", "--checkpoint-to", "x"], "checkpoint"),
+    (["--federated", "--checkpoint-every", "2"], "device round driver"),
+    (["--federated", "--shape", "train_4k"], "multi-chip"),
     (["--local"], "multi-chip"),
 ])
 def test_train_launcher_rejects_later_slice_flags(argv, match):
@@ -479,9 +480,14 @@ def test_train_launcher_rejects_later_slice_flags(argv, match):
 
 def test_server_refuses_unported_engines():
     from repro_torch.federated.server import FederatedServer
-    for kw in (dict(), dict(round_engine="looped", method="hlora"),
-               dict(round_engine="looped", round_driver="device")):
+
+    def server(tracer=None, **kw):
+        return FederatedServer(TCFG, TPARAMS, {}, [],
+                               tconfigs.FederatedConfig(**kw),
+                               tconfigs.TrainConfig(), tracer=tracer)
+
+    for make in (lambda: server(round_driver="device"),
+                 lambda: server(tracer=object()),
+                 lambda: server().run(trace_to="trace.json")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            FederatedServer(TCFG, TPARAMS, {}, [],
-                            tconfigs.FederatedConfig(**kw),
-                            tconfigs.TrainConfig())
+            make()
