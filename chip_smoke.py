@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
-federated training round, checkpoints and resume, and the three baselines —
-on one NVIDIA GPU.
+federated training round, checkpoints and resume, the three baselines and
+the serving engine's traffic layer — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -72,7 +72,32 @@ nothing else of the network or the filesystem.  Phases:
    against the rank-r truncation of the mean ΔW;
 9. round memory — a FLAME round's memory above its start on both
    engines at 8, 32 and 64 clients on that model (losses within 1e-6);
-10. summary — a ``{"kernels": [...]}`` line, then the last line
+10. traffic — the serving engine's traffic layer: (a) OLMoE FULL with the
+   serving phase's weights, 8 slots x 512 tokens at tiers
+   (8,8,4,4,2,2,1,1), prefix cache (suffix-only prefill), per-tier TTFT
+   targets (EDF) and preemption, with a tracer, a metrics registry and
+   expert telemetry, on 24 requests of 192/320-token prompts that open
+   with one of two 128-token system prompts (16 new tokens): a closed
+   batch (launch counts zeroed just before and read just after: every
+   serving kernel carried traffic, one router launch per layer and engine
+   call), then Poisson arrivals at half its request rate; against a cold
+   engine: prefix hits, fewer prompt tokens prefilled, the first token of
+   every hit request, the suffix step's logits against a cold prefill
+   (every row within 1e-3), a valid Chrome trace with every request's
+   lifecycle, the metrics snapshot, expert counts that sum to the
+   decode steps' budgets, pool invariants and every block freed;
+   tokens/s with the observability off measures its overhead; then the
+   suffix step's kernels at its shapes, every layer: three suffix groups
+   of two rows through the engine's suffix call (flash over T = 192 and
+   320 laid-out rows with zero prefix queries, a masked group on the
+   per-token router), each wrapper call against its plain version and
+   each layer's suffix attention against the plain
+   ``verify_attention``; (b) forced preemption at FULL width (two
+   slots, a 32-block pool): the swap's bytes and milliseconds, both
+   requests' tokens equal to their solo runs; (c) a 2-layer full-width
+   float32 model: the traffic engine token for token against the cold
+   engine, and the suffix step's kernels checked as in (a);
+11. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -160,16 +185,19 @@ def main() -> int:
     # caches, as on the path: every layer brings new weights) and keeps the
     # device busy (~0.3 ms) while the host enqueues the call, so the events
     # bracket the call's device time and not the host's launch latency
-    flush = torch.empty(2 ** 28, dtype=torch.float32, device=dev)
+    # (held through the kernel phase; later phases take it back per call)
+    flush = [torch.empty(2 ** 28, dtype=torch.float32, device=dev)]
 
     def time_ms(fn) -> float:
         """Mean device ms of one call over REPS calls, L2 flushed before
         each."""
+        buf = flush[0] if flush else torch.empty(
+            2 ** 28, dtype=torch.float32, device=dev)
         fn()
         torch.cuda.synchronize()
         total = 0.0
         for _ in range(REPS):
-            flush.zero_()
+            buf.zero_()
             s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             s.record()
             fn()
@@ -200,7 +228,7 @@ def main() -> int:
         return err
 
     # the floor under any kernel's time: an empty kernel, timed alike
-    floor_ms = time_ms(lambda: _build.empty_launch(flush))
+    floor_ms = time_ms(lambda: _build.empty_launch(flush[0]))
     print(f"empty kernel (launch floor, timed as the kernels): "
           f"{floor_ms:.4f} ms")
 
@@ -654,7 +682,7 @@ def main() -> int:
               f"({expert_bound(C, DM, DE, R_)[0]:.4f}) {expert_ms[kk][1]:.4f} "
               f"({expert_bound(C, DE, DM, R_)[0]:.4f})"
               for kk, C in ((8, 328), (4, 168), (2, 88), (1, 48))))
-    del flush
+    flush.clear()
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 3. backward wrappers
@@ -736,7 +764,6 @@ def main() -> int:
     for row in rows:
         row["launches"] = (train_launches if row["name"].startswith("lora")
                            else launches)[row["name"]]
-    del params
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 6. end to end vs CPU
@@ -783,8 +810,43 @@ def main() -> int:
     baselines_phase(torch, cfg2, p2, dev, check)
     memory_phase(torch, cfg2, p2, dev, check)
     del p2
+    torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 10. summary
+    # ------------------------------------------------ 10. traffic
+    t0 = time.perf_counter()
+    kc = {"close": close_any, "router": router_check, "time_ms": time_ms}
+    traffic_launches, n_prefill, n_decode = traffic_phase(
+        torch, cfg, params, dev, check, kc)
+    # the serving path's kernels carried the traffic: flash for every
+    # prefill call (cold, and suffix over the attached pages), the static
+    # router for prefill, the per-token-budget router for decode (and for
+    # suffix groups whose rows differ in length), and the ragged trio;
+    # every layer attended and routed once per engine call
+    for name, n in traffic_launches.items():
+        if name.startswith("lora"):
+            check(n == 0, f"the traffic run launched {name}")
+        else:
+            check(n > 0, f"kernel {name} was not launched by the traffic run")
+    check(traffic_launches["flash_attention"] == L * n_prefill,
+          f"traffic: flash_attention launched "
+          f"{traffic_launches['flash_attention']} times for {n_prefill} "
+          f"prefill calls (cold and suffix) x {L} layers")
+    check(traffic_launches["topk_router"]
+          + traffic_launches["adaptive_topk_router"]
+          == L * (n_prefill + n_decode),
+          f"traffic: {traffic_launches['topk_router']} static + "
+          f"{traffic_launches['adaptive_topk_router']} per-token router "
+          f"launches for {n_prefill} prefill calls and {n_decode} decode "
+          f"steps x {L} layers")
+    for row in rows:
+        row["traffic_launches"] = traffic_launches[row["name"]]
+    preemption_phase(torch, cfg, params, dev, check)
+    del params
+    torch.cuda.empty_cache()
+    traffic_fp32_phase(torch, cfg2, dev, check, kc)
+    print(f"traffic phase: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 11. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1204,6 +1266,552 @@ def memory_phase(torch, cfg2, params, dev, check) -> None:
               f"round memory, {n} clients: losses not all finite")
         check(rel <= 1e-6, f"round memory, {n} clients: batched and looped "
               "losses differ by > 1e-6")
+
+
+TRAFFIC_SLOTS = (8, 8, 4, 4, 2, 2, 1, 1)
+TRAFFIC_SLO_MS = {8: 200.0, 4: 400.0, 2: 1000.0, 1: 5000.0}
+
+
+def _traffic_trace(cfg, rate=float("inf"), n=24, new=16):
+    """The traffic phase's workload: 192/320-token prompts opening with one
+    of two 128-token system prompts, a quarter of the requests at each of
+    k = 8, 4, 2, 1, seed 0."""
+    from repro_torch.serving import WorkloadConfig, make_trace
+    return make_trace(WorkloadConfig(
+        n_requests=n, rate=rate, prompt_lens=(192, 320), new_tokens=(new,),
+        tier_mix=((8, 0.25), (4, 0.25), (2, 0.25), (1, 0.25)),
+        shared_prefix_len=128, n_shared_prefixes=2, seed=0,
+        vocab_size=cfg.vocab_size))
+
+
+def _hit_rids(reqs):
+    """Requests whose (system prompt, tier) an earlier request of the
+    trace already carried: the ones the tier-salted prefix cache can
+    serve."""
+    seen, hits = set(), []
+    for r in reqs:
+        key = (r.prompt[:128].tobytes(), r.k)
+        if key in seen:
+            hits.append(r.rid)
+        seen.add(key)
+    return hits
+
+
+def _suffix_vs_cold(torch, cfg, params, reqs, dev):
+    """Per (system prompt, tier) group of ``reqs``: the first prompt
+    prefilled cold and written into a prefix-cached pool, then every later
+    prompt of the group prefilled over its suffix against the attached
+    pages, and cold, alone and as a batch of two copies of itself (the
+    same math at another GEMM shape: the floor of shape-dependent
+    rounding).  Returns one dict per follower: the suffix step's last
+    logits against the cold ones (relative L2 error, max |difference|,
+    argmax agreement), the cold top-2 margin, and the same error and
+    agreement for the two cold shapes."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import BlockPool
+    pool = BlockPool(cfg, 2, 512, block_size=16, prefix_cache=True,
+                     device=dev)
+    groups = {}
+    for r in reqs:
+        groups.setdefault((r.prompt[:128].tobytes(), r.k), []).append(r)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    out = []
+    with torch.inference_mode():
+        for (_, k), rs in groups.items():
+            salt = str(k).encode()
+            for i, r in enumerate(rs):
+                L = r.prompt_len
+                full = torch.as_tensor(r.prompt[None], dtype=torch.int64,
+                                       device=dev)
+                cold, piece = model_lib.prefill(cfg, params, full, k=k)
+                s = pool.allocate()
+                pool.reserve(s, L)
+                # attach, then scatter past the matched span (the engine's
+                # order)
+                covered, ready = pool.attach_prefix(s, r.prompt, L, salt)
+                if i == 0:
+                    pool.write([s], piece, [L], starts=[covered])
+                    pool.release(s)          # its blocks stay cached
+                    continue
+                st = min(ready // 16 * 16, L - 1)
+                nb = -(-st // 16)
+                logits, _ = model_lib.prefill_suffix(
+                    cfg, params, full[:, st:], [st], [L - st], pool.cache,
+                    torch.as_tensor(pool.block_table[s:s + 1, :nb],
+                                    device=dev),
+                    page_span=nb * 16, k=k)
+                pool.release(s)
+                pair, _ = model_lib.prefill(cfg, params, full.repeat(2, 1),
+                                            k=k)
+                a, b, c = (t[0, 0].float() for t in (logits, cold, pair))
+                top = b.topk(2).values
+                out.append({
+                    "rid": r.rid, "rel": rel(a, b),
+                    "maxdiff": (a - b).abs().max().item(),
+                    "agree": bool(a.argmax() == b.argmax()),
+                    "margin": (top[0] - top[1]).item(),
+                    "floor_rel": rel(c, b),
+                    "floor_agree": bool(c.argmax() == b.argmax())})
+    return out
+
+
+def _recorded(torch, fn):
+    """``fn()`` with every kernel wrapper of ``repro_torch.kernels.backend``
+    and ``attention.suffix_attention`` recording its calls.  Returns
+    (``fn()``'s result, [(name, args, kwargs, output), ...]); a
+    ``suffix_attention`` call records its row pages (gathered at the call,
+    before the step's write) in place of the pool and block table."""
+    from repro_torch.kernels import backend
+    from repro_torch.models import attention
+    calls, saved = [], []
+
+    def wrap(mod, name, prep=None):
+        orig = getattr(mod, name)
+        saved.append((mod, name, orig))
+
+        def rec(*args, **kw):
+            kept = prep(*args) if prep else args
+            out = orig(*args, **kw)
+            calls.append((name, kept, kw, out))
+            return out
+        setattr(mod, name, rec)
+
+    for name in ("flash_attention", "router", "adaptive_router",
+                 "ragged_gather", "ragged_expert_matmul", "ragged_combine"):
+        wrap(backend, name)
+    wrap(attention, "suffix_attention",
+         lambda q, k, v, kp, vp, tbl, plen, span: (
+             q, k, v, attention.paged_gather(kp, tbl, span),
+             attention.paged_gather(vp, tbl, span), plen))
+    try:
+        return fn(), calls
+    finally:
+        for mod, name, orig in saved:
+            setattr(mod, name, orig)
+
+
+def _suffix_group_kernels(torch, cfg, params, reqs, dev, check, kc, what):
+    """The suffix step's kernels at the shapes the traffic engine gives
+    them, each held against its plain version on the same inputs.
+
+    On a prefix-cached engine of the traffic phase's shape, per group a
+    leader prompt (the trace's first system prompt and a seeded tail) is
+    prefilled cold and written; two followers are then attached and run
+    through the engine's own suffix call (``_prefill_suffix_group``): two
+    192-token prompts at k = 8 (flash over T = 128 + 64 rows), two
+    320-token prompts at k = 4 (T = 128 + 192), and one of each at k = 2,
+    whose padding columns the per-token router sends to no expert.  Every
+    wrapper call of those steps (every layer) is recorded and checked:
+    flash over the laid-out rows (zero queries at the prefix positions)
+    against ``ref.flash_attention_ref``; both routers (mask and counts
+    exact, weights within 1e-6); the gather exact; the grouped matmul and
+    the combine with ``kc["close"]``; and each layer's ``suffix_attention``
+    (the pages, layout and flash) against the plain ``verify_attention``
+    on the same pages, with ``kc["close"]``.  One layer's suffix attention
+    at T = 320 is timed against its flash launch and ``verify_attention``.
+    """
+    from repro_torch.kernels import backend, ref
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving.engine import _tier_salt
+    eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+                        slot_k=TRAFFIC_SLOTS, block_size=16,
+                        prefix_cache=True)
+    pool, bs = eng.pool, 16
+    system = reqs[0].prompt[:128]
+    rng = np.random.default_rng(11)
+
+    def prompt(L):
+        return np.concatenate([system, rng.integers(
+            0, cfg.vocab_size, (L - 128,))]).astype(np.int32)
+
+    def claim(L, toks, k):
+        s = pool.allocate()
+        pool.reserve(s, L + 1)
+        covered, ready = pool.attach_prefix(s, toks, L, _tier_salt(k))
+        return s, covered, ready
+
+    layers = cfg.num_layers
+    for kk, lens, masked in ((8, (192, 192), False), (4, (320, 320), False),
+                             (2, (192, 320), True)):
+        with torch.inference_mode():
+            lead = prompt(192)
+            s0, cov0, _ = claim(192, lead, kk)
+            _, piece = model_lib.prefill(
+                cfg, params, torch.as_tensor(lead[None], dtype=torch.int64,
+                                             device=dev), k=kk)
+            pool.write([s0], piece, [192], starts=[cov0])
+            items = []
+            for i, L in enumerate(lens):
+                r = Request(rid=i, prompt=prompt(L), max_new_tokens=1, k=kk)
+                s, covered, ready = claim(L, r.prompt, kk)
+                check(covered == ready == 128, f"{what} suffix group k={kk}: "
+                      f"{covered} tokens matched, {ready} ready, not 128")
+                items.append((r, s, min(ready // bs * bs, L - 1), covered))
+            _, calls = _recorded(
+                torch, lambda: eng._prefill_suffix_group(items, kk))
+        T = max(lens)            # page_span 128 + the longest suffix
+        names = [c[0] for c in calls]
+        router = "adaptive_router" if masked else "router"
+        for name in ("flash_attention", "suffix_attention", router,
+                     "ragged_gather", "ragged_combine"):
+            check(names.count(name) == layers, f"{what} suffix group k={kk}:"
+                  f" {names.count(name)} {name} calls for {layers} layers")
+        check(names.count("ragged_expert_matmul") == 3 * layers,
+              f"{what} suffix group k={kk}: ragged_expert_matmul calls")
+        worst = {}
+        for name, a, kw, out in calls:
+            tag = f"{what} suffix group k={kk} T={T}: {name}"
+            if name == "flash_attention":
+                check(tuple(a[0].shape[:2]) == (2, T),
+                      f"{tag} at {tuple(a[0].shape)}")
+                q, k, v = (t.transpose(1, 2) for t in a)
+                want = ref.flash_attention_ref(
+                    q, k, v, causal=kw["causal"],
+                    window=kw["window"]).transpose(1, 2)
+                err = kc["close"](out, want, tag)
+            elif name == "suffix_attention":
+                err = kc["close"](out, attention.verify_attention(*a), tag)
+            elif name == "router":
+                err = kc["router"](out, ref.topk_router_ref(*a), tag)
+            elif name == "adaptive_router":
+                err = kc["router"](out, ref.adaptive_topk_router_ref(*a), tag)
+            elif name == "ragged_gather":
+                check(torch.equal(out, ref.ragged_gather_ref(*a)),
+                      f"{tag} differs from the plain version")
+                err = 0.0
+            elif name == "ragged_expert_matmul":
+                err = kc["close"](out, ref.ragged_expert_matmul_ref(*a), tag)
+            else:
+                err = kc["close"](out, ref.ragged_combine_ref(*a), tag)
+            worst[name] = max(worst.get(name, 0.0), err)
+        rows = calls[names.index("ragged_gather")][1][1].shape[0]
+        print(f"traffic {what} suffix group k={kk}, prompts {lens} "
+              f"({'masked, per-token router' if masked else 'static router'}"
+              f"; flash B=2 T={T}, {rows} ragged rows at layer 0), every "
+              f"layer against its plain version, max |kernel - plain|: "
+              + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
+        if T == 320:
+            sa = calls[names.index("suffix_attention")][1]
+            fa = calls[names.index("flash_attention")][1]
+            print(f"traffic {what} suffix attention, one layer at B=2 S=192 "
+                  f"over 128 cached positions: the flash launch over the "
+                  f"laid-out T={T} rows (a cold prefill's shape) "
+                  f"{kc['time_ms'](lambda: backend.flash_attention(*fa)):.4f}"
+                  f" ms; plain verify_attention over the S rows "
+                  f"{kc['time_ms'](lambda: attention.verify_attention(*sa)):.4f}"
+                  f" ms")
+        for s in [s0] + [it[1] for it in items]:
+            pool.release(s)
+    pool.check_invariants()
+    check(pool.blocks_in_use == 0, f"{what} suffix groups: blocks held")
+    del eng
+
+
+def traffic_phase(torch, cfg, params, dev, check, kc):
+    """The serving engine's traffic layer at FULL width (bf16): prefix
+    cache with suffix-only prefill, SLO admission (EDF) and decode
+    preemption, with the tracer, the metrics registry and expert telemetry,
+    on the shared-prefix trace as a closed batch and as Poisson arrivals at
+    half the closed batch's request rate, against a cold engine on the same
+    requests; then the suffix step's kernels against their plain versions
+    at its shapes (:func:`_suffix_group_kernels`).  Returns the kernel
+    launches of the checked closed-batch run (the counts zeroed just
+    before it) and its number of prefill calls and decode steps."""
+    import os
+
+    from repro_torch.kernels import _build
+    from repro_torch.obs import MetricsRegistry, Tracer, validate_chrome_trace
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.workload import percentile
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+
+    def traffic_engine(obs):
+        """The engine, its tracer and its metrics registry (None when
+        ``obs`` is off)."""
+        tracer, reg = (Tracer(), MetricsRegistry()) if obs else (None, None)
+        return ServingEngine(cfg, params, **base, prefix_cache=True,
+                             slo_ms=TRAFFIC_SLO_MS, preemption=True,
+                             tracer=tracer, metrics=reg,
+                             expert_telemetry=obs), tracer, reg
+
+    def check_run(name, eng, rep, n):
+        summ = rep.summary()
+        check(summ["n_requests"] == n and summ["gen_tokens"] == n * 16,
+              f"traffic {name}: {summ['n_requests']} requests, "
+              f"{summ['gen_tokens']} tokens")
+        for c in rep.completions:
+            check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+                  f"traffic {name}: request {c.rid} token ids out of range")
+        eng.pool.check_invariants()
+        check(eng.pool.blocks_in_use == 0,
+              f"traffic {name}: {eng.pool.blocks_in_use} blocks still held")
+        return summ
+
+    def tier_line(rep):
+        by = {}
+        for c in rep.completions:
+            by.setdefault(c.k, []).append(c.ttft * 1e3)
+        return ", ".join(f"k={k}: {percentile(v, 50):.1f}/"
+                         f"{percentile(v, 95):.1f}"
+                         for k, v in sorted(by.items(), reverse=True))
+
+    t_phase = time.perf_counter()
+    reqs = _traffic_trace(cfg)
+    hits = _hit_rids(reqs)
+    cold_eng = ServingEngine(cfg, params, **base)
+    cold = cold_eng.run(_traffic_trace(cfg))
+    check_run("cold", cold_eng, cold, len(reqs))
+    # closed batch, in the order: no observability, observability (the
+    # checked run, launch counts zeroed just before it), no observability
+    off = []
+    for i in range(2):
+        if i == 1:
+            on_eng, tracer, reg = traffic_engine(obs=True)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            on = on_eng.run(_traffic_trace(cfg))
+            torch.cuda.synchronize()
+            launches = dict(_build.LAUNCHES)
+        eng, _, _ = traffic_engine(obs=False)
+        rep = eng.run(_traffic_trace(cfg))
+        off.append(check_run(f"closed, no observability {len(off)}", eng,
+                             rep, len(reqs)))
+        del eng
+    summ = check_run("closed", on_eng, on, len(reqs))
+    n_prefill, n_decode = len(on.prefill_s), summ["decode_steps"]
+
+    # prefix cache: real hits, and fewer prompt tokens prefilled than cold
+    check(on.prefix["hit_tokens"] > 0, "traffic: no prefix-cache hits")
+    check(on.prefill_tokens < cold.prefill_tokens,
+          f"traffic: {on.prefill_tokens} prompt tokens prefilled, cold "
+          f"{cold.prefill_tokens}")
+    ct, tt = cold.tokens_by_rid(), on.tokens_by_rid()
+    first = [int(tt[r][0] == ct[r][0]) for r in hits]
+    same = [int((tt[r] == ct[r]).all()) for r in ct]
+    print(f"traffic prefix cache: {json.dumps(on.prefix)}; prompt tokens "
+          f"prefilled {on.prefill_tokens} (cold {cold.prefill_tokens}); "
+          f"{len(hits)} hit requests, first token equal to cold on "
+          f"{sum(first)}/{len(first)} (differ: rids "
+          f"{[r for r, f in zip(hits, first) if not f]}), all tokens on "
+          f"{sum(same)}/{len(same)}")
+    sv = _suffix_vs_cold(torch, cfg, params, reqs, dev)
+    for d in sv:
+        print(f"traffic suffix vs cold, rid {d['rid']}: rel L2 "
+              f"{d['rel']:.3e}, max |d| {d['maxdiff']:.3e}, argmax "
+              f"{'equal' if d['agree'] else 'differs'}, cold top-2 margin "
+              f"{d['margin']:.3e}; cold B=1 vs B=2: rel L2 "
+              f"{d['floor_rel']:.3e}, argmax "
+              f"{'equal' if d['floor_agree'] else 'differs'}")
+    errs = [d["rel"] for d in sv]
+    print(f"traffic: suffix-prefill last logits vs cold prefill, bf16, "
+          f"{len(sv)} requests: rel L2 median {np.median(errs):.3e} max "
+          f"{max(errs):.3e}, argmax agreement "
+          f"{sum(d['agree'] for d in sv)}/{len(sv)}; cold at two batch "
+          f"shapes: rel L2 median "
+          f"{np.median([d['floor_rel'] for d in sv]):.3e}, argmax agreement "
+          f"{sum(d['floor_agree'] for d in sv)}/{len(sv)}")
+    # the suffix step and the cold prefill run the same kernels with the
+    # same per-row math, and no kernel mixes rows, so a hit request's
+    # first token is the cold run's
+    check(sum(first) == len(first),
+          f"traffic: first tokens of hit requests agree with the cold run "
+          f"on {sum(first)}/{len(first)}")
+    _suffix_group_kernels(torch, cfg, params, reqs, dev, check, kc,
+                          "bf16 FULL")
+    # the engine's trace, written and read back
+    os.makedirs(ROOT / "build" / "chip_smoke", exist_ok=True)
+    path = str(ROOT / "build" / "chip_smoke" / "traffic_trace.json")
+    trace = json.load(open(tracer.dump(path)))
+    errors = validate_chrome_trace(trace)
+    check(errors == [], f"traffic trace invalid: {errors[:3]}")
+    spans = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X" and e["pid"] == 2:
+            spans.setdefault(e["tid"], set()).add(e["name"])
+    for r in reqs:
+        check({"queued", "prefill", "decode"} <= spans.get(r.rid, set()),
+              f"traffic trace: request {r.rid} lacks a lifecycle span")
+    snap = reg.snapshot()
+    for key in ("serving.kv.blocks_peak", "serving.kv.prefix.hit_tokens",
+                "serving.kv.swap_outs", "serving.scheduler.queue_depth",
+                "serving.decode_step_ms", "serving.prefill_ms"):
+        check(key in snap, f"traffic metrics lack {key}")
+    check(snap["serving.decode_step_ms"]["count"] == n_decode,
+          "traffic metrics: decode histogram count")
+    # each layer routed every active slot's k on every decode step
+    want = sum(c.k * (c.n_generated - 1) for c in on.completions)
+    for row in on.expert_load["totals"]["pos0"]:
+        check(sum(row) == want, f"traffic expert load: a layer counts "
+              f"{sum(row)} assignments, the decode steps routed {want}")
+    # bf16: both steps attend through the flash kernel over the same keys
+    # at the same positions, and the pages a suffix reads hold the bits a
+    # cold prefill of the same head writes; only the dense GEMMs see
+    # another row count, which a library may sum in another order.  The
+    # design is bit-exact (0 in every run on the H100), so every row is
+    # bounded, at 1e-3: room for such a reorder, none for a wrong row
+    check(max(errs) <= 1e-3, "traffic: suffix-prefill logits differ from "
+          "the cold prefill by more than 1e-3 relative in some row")
+    pt = on.per_tier()
+    print(f"traffic closed batch: {summ['gen_tokens']} tokens in "
+          f"{summ['wall_s']:.3f} s, {summ['gen_tokens_per_s']:.1f} tokens/s "
+          f"({summ['requests_per_s']:.2f} requests/s), decode step p50 "
+          f"{summ['decode_step_ms_p50']:.2f} ms over {n_decode} steps, "
+          f"{n_prefill} prefill calls (cold {len(cold.prefill_s)}), "
+          f"preemptions {on.preemptions}, TTFT p50/p95 ms {tier_line(on)}, "
+          f"SLO attainment " + ", ".join(
+              f"k={k}: {v['slo_attainment']:.2f}"
+              for k, v in sorted(pt.items(), key=lambda kv: -int(kv[0]))))
+    cs = cold.summary()
+    print(f"traffic cold engine: {cs['gen_tokens_per_s']:.1f} tokens/s, "
+          f"TTFT p50/p95 ms {tier_line(cold)}, decode step p50 "
+          f"{cs['decode_step_ms_p50']:.2f} ms")
+    print(f"traffic observability overhead: {summ['gen_tokens_per_s']:.1f} "
+          f"tokens/s, decode step p50 {summ['decode_step_ms_p50']:.2f} ms "
+          f"with tracer + metrics + expert telemetry; without (runs before "
+          f"and after) " + " / ".join(
+              f"{o['gen_tokens_per_s']:.1f} tokens/s, "
+              f"{o['decode_step_ms_p50']:.2f} ms" for o in off)
+          + f"; {len(trace['traceEvents'])} trace events")
+    print(f"traffic launches: {json.dumps(launches)}")
+    del on_eng, cold_eng
+
+    rate = 0.5 * summ["requests_per_s"]
+    eng, tracer, _ = traffic_engine(obs=True)
+    rep = eng.run(_traffic_trace(cfg, rate=rate))
+    ps = check_run("poisson", eng, rep, len(reqs))
+    check(validate_chrome_trace(tracer.to_dict()) == [],
+          "traffic poisson trace invalid")
+    print(f"traffic poisson at {rate:.3f} requests/s (half the closed "
+          f"batch's): {ps['gen_tokens_per_s']:.1f} tokens/s over "
+          f"{ps['wall_s']:.3f} s, decode step p50 "
+          f"{ps['decode_step_ms_p50']:.2f} ms, preemptions "
+          f"{rep.preemptions}, prefix {json.dumps(rep.prefix)}, TTFT "
+          f"p50/p95 ms {tier_line(rep)}")
+    del eng
+    torch.cuda.empty_cache()
+    print(f"traffic phase (a): {time.perf_counter() - t_phase:.1f} s")
+    return launches, n_prefill, n_decode
+
+
+def preemption_phase(torch, cfg, params, dev, check) -> None:
+    """Forced preemption at FULL width: two slots at k = 8 and 1, and a
+    pool of 32 blocks, so the economy request's reservation (a 64-token
+    prompt and 384 new tokens: 28 blocks) starves a premium arrival 50 ms
+    later whose TTFT target is already missed.  The engine swaps economy
+    out to the host and resumes it; both requests' tokens must equal their
+    solo runs on the same engine settings (the swap is a bit copy, and
+    ragged dispatch keeps rows isolated)."""
+    from repro_torch.serving import Request, ServingEngine
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(5)
+    eco, prm = (rng.integers(0, cfg.vocab_size, (64,)).astype(np.int32)
+                for _ in range(2))
+    kw = dict(num_slots=2, slot_len=512, slot_k=(8, 1), block_size=16,
+              num_blocks=32, preemption=True, slo_ms={8: 0.0, 1: 60000.0})
+
+    def e_req():
+        return Request(rid=0, prompt=eco, max_new_tokens=384, k=1)
+
+    def p_req(t):
+        return Request(rid=1, prompt=prm, max_new_tokens=16, k=8, arrival=t)
+
+    eng = ServingEngine(cfg, params, **kw)
+    timed = {"out": [], "in": [], "blocks": []}
+    swap_out, swap_in = eng.pool.swap_out, eng.pool.swap_in
+
+    def timed_out(slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = swap_out(slot)
+        timed["out"].append((time.perf_counter() - t0) * 1e3)
+        timed["blocks"].append(state["n_blocks"])
+        return state
+
+    def timed_in(slot, state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        swap_in(slot, state)
+        torch.cuda.synchronize()
+        timed["in"].append((time.perf_counter() - t0) * 1e3)
+
+    eng.pool.swap_out, eng.pool.swap_in = timed_out, timed_in
+    rep = eng.run([e_req(), p_req(0.05)])
+    by_rid = {c.rid: c for c in rep.completions}
+    check(rep.preemptions >= 1, "preemption: no request was preempted")
+    check(eng.pool.swap_outs == eng.pool.swap_ins == rep.preemptions,
+          f"preemption: {eng.pool.swap_outs} swap-outs, "
+          f"{eng.pool.swap_ins} swap-ins, {rep.preemptions} preemptions")
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, "preemption: blocks still held")
+    block_bytes = eng.pool.block_bytes()
+    del eng
+    for rid, solo_req in ((0, e_req()), (1, p_req(0.0))):
+        solo = ServingEngine(cfg, params, **kw).run([solo_req])
+        check(solo.preemptions == 0, "preemption: a solo run was preempted")
+        check(bool((solo.completions[0].tokens == by_rid[rid].tokens).all()),
+              f"preemption: request {rid}'s tokens differ from its solo run")
+    mib = [b * block_bytes / 2 ** 20 for b in timed["blocks"]]
+    print(f"preemption: {rep.preemptions} preemption(s), economy preempted "
+          f"{by_rid[0].preemptions} time(s), premium TTFT "
+          f"{by_rid[1].ttft * 1e3:.1f} ms; swapped "
+          + ", ".join(f"{b} blocks = {m:.1f} MiB" for b, m in
+                      zip(timed["blocks"], mib))
+          + f" (block {block_bytes / 2 ** 20:.3f} MiB); swap-out ms "
+          + ", ".join(f"{t:.3f}" for t in timed["out"]) + "; swap-in ms "
+          + ", ".join(f"{t:.3f}" for t in timed["in"])
+          + "; both requests' tokens equal their solo runs "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+
+
+def traffic_fp32_phase(torch, cfg2, dev, check, kc) -> None:
+    """The exact semantics on the card: a 2-layer full-width model in
+    float32, the cold paged engine against the traffic engine (prefix
+    cache, EDF, preemption) on a shared-prefix mixed-tier closed batch:
+    identical greedy tokens for every request; the suffix step's last
+    logits against a cold prefill within 1e-4 relative (only the
+    summation order differs); and the suffix step's kernels against their
+    plain versions (:func:`_suffix_group_kernels`, float32)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import ServingEngine
+    c32 = cfg2.replace(dtype="float32")
+    params = model_lib.init_params(
+        c32, torch.Generator(device=dev).manual_seed(3), dev)
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+    cold_eng = ServingEngine(c32, params, **base)
+    cold = cold_eng.run(_traffic_trace(c32, n=16, new=8))
+    eng = ServingEngine(c32, params, prefix_cache=True, preemption=True,
+                        slo_ms={8: 0.0, 4: 0.0, 2: 60000.0, 1: 60000.0},
+                        **base)
+    warm = eng.run(_traffic_trace(c32, n=16, new=8))
+    ct, wt = cold.tokens_by_rid(), warm.tokens_by_rid()
+    check(sorted(ct) == sorted(wt), "traffic fp32: request sets differ")
+    diff = [r for r in ct if not np.array_equal(ct[r], wt[r])]
+    check(not diff, f"traffic fp32: requests {diff} differ from the cold "
+          "engine")
+    check(warm.prefix["hit_tokens"] > 0, "traffic fp32: no prefix hits")
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, "traffic fp32: blocks still held")
+    sv = _suffix_vs_cold(torch, c32, params,
+                         _traffic_trace(c32, n=16, new=8), dev)
+    errs = [d["rel"] for d in sv]
+    print(f"traffic fp32 (2 layers): {len(ct)} requests token-identical to "
+          f"the cold engine, prefix {json.dumps(warm.prefix)}, preemptions "
+          f"{warm.preemptions}, prompt tokens prefilled "
+          f"{warm.prefill_tokens} (cold {cold.prefill_tokens}); suffix "
+          f"logits vs cold rel L2 max {max(errs):.3e}, argmax agreement "
+          f"{sum(d['agree'] for d in sv)}/{len(sv)}")
+    check(max(errs) <= 1e-4, "traffic fp32: suffix-prefill logits differ "
+          "from the cold prefill by more than 1e-4 relative")
+    _suffix_group_kernels(torch, c32, params,
+                          _traffic_trace(c32, n=16, new=8), dev, check, kc,
+                          "fp32 2-layer")
+    del eng, cold_eng, params
+    torch.cuda.empty_cache()
 
 
 def _flexlora_errors(torch, srv, loras, sizes):

@@ -25,9 +25,14 @@ Round engines (``fed.round_engine``):
 
 Every round runs on the host driver (``run`` iterates :meth:`run_round`).
 The reference's device driver (``round_driver="device"``, one ``lax.scan``
-program per checkpoint segment) and its span tracer (``tracer``,
-``run(trace_to=...)``) are not ported yet and raise
+program per checkpoint segment) is not ported yet and raises
 ``NotImplementedError`` naming the ROADMAP item.
+
+``tracer`` (a :class:`repro_torch.obs.Tracer`) records the reference's
+round spans on the federated track: ``round N`` enclosing ``distribute``
+→ ``local_train`` (looped) or ``cohort_update`` (batched) per client or
+cohort, then ``aggregate``; ``run(trace_to=...)`` writes them as Chrome
+trace-event JSON.  The spans read the host clock and add no device sync.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ from ..core import aggregation as agg
 from ..core import lora as lora_lib
 from ..obs.expert_load import ActivationDriftTracker
 from ..obs.metrics import MetricsRegistry
+from ..obs.trace import NULL_TRACER, PID_FEDERATED, Tracer
 from ..tree import leaves, tree_map
 from . import client as client_lib
 from .cohort import build_cohorts
@@ -54,8 +60,8 @@ FLAME_BUDGET_K = {"b1": 8, "b2": 4, "b3": 2, "b4": 1}
 MOE_BUDGET_RANKS = {"b1": 20, "b2": 12, "b3": 8, "b4": 6}
 DENSE_BUDGET_RANKS = {"b1": 40, "b2": 24, "b3": 16, "b4": 12}
 
-_LATER = ("is not ported yet: it comes with the ROADMAP's \"Round telemetry "
-          "and the device driver\" item (Modules to port)")
+_LATER = ("is not ported yet: it comes with the ROADMAP's \"Device round "
+          "driver\" item (Modules to port)")
 
 
 @dataclass
@@ -73,21 +79,21 @@ class RoundResult:
 class FederatedServer:
     """Holds the global LoRA state and runs communication rounds.
 
-    ``metrics`` (optional): per-round counters and gauges (round count,
-    mean client loss, participants, per-position activation entropy and
-    L1 drift).  The drift itself is always computed and stored on
+    ``tracer``/``metrics`` (optional): per-round spans (see the module
+    docstring) and per-round counters and gauges (round count, mean
+    client loss, participants, per-position activation entropy and L1
+    drift).  The drift itself is always computed and stored on
     :class:`RoundResult`."""
 
     def __init__(self, cfg, params: PyTree, global_lora: PyTree,
                  clients: Sequence[client_lib.ClientState],
                  fed: FederatedConfig, tc: TrainConfig,
-                 tracer=None, metrics: Optional[MetricsRegistry] = None):
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None):
         if fed.round_driver != "host":
             raise NotImplementedError(
                 f"FederatedServer round_driver={fed.round_driver!r} {_LATER}"
                 "; the port runs round_driver='host'")
-        if tracer is not None:
-            raise NotImplementedError(f"FederatedServer tracer {_LATER}")
         self.cfg = cfg
         self.params = params
         self.global_lora = global_lora
@@ -99,6 +105,13 @@ class FederatedServer:
         self._round_offset = 0        # rounds completed before a resume
         self._drift = ActivationDriftTracker()
         self._metrics = metrics
+        self._set_tracer(tracer)
+
+    def _set_tracer(self, tracer: Optional[Tracer]) -> None:
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        if self._tracer.enabled:
+            self._tracer.process_name(PID_FEDERATED, "federated")
+            self._tracer.thread_name(PID_FEDERATED, 0, "rounds")
 
     @property
     def device(self) -> torch.device:
@@ -157,11 +170,18 @@ class FederatedServer:
                       .tolist())
 
     def run_round(self, round_idx: int) -> RoundResult:
+        tr = self._tracer
+        t0 = tr.now()
         if self.fed.round_engine == "looped":
             res = self._run_round_looped(round_idx)
         else:
             res = self._run_round_batched(round_idx)
         res.activation_drift = self._round_drift(res)
+        if tr.enabled:
+            tr.complete(f"round {round_idx}", t0, tr.now(),
+                        pid=PID_FEDERATED, cat="federated",
+                        args={"participants": len(res.participating),
+                              "method": self.fed.method})
         self._emit_round_metrics(res)
         return res
 
@@ -192,17 +212,25 @@ class FederatedServer:
     def _run_round_looped(self, round_idx: int) -> RoundResult:
         """One ``local_train`` per participant, then aggregation."""
         parts = self._sample_participants()
+        tr = self._tracer
         loras, freqs, sizes, losses = [], [], [], []
         for i in parts:
             c = self.clients[i]
-            trained, f, _, info = client_lib.local_train(
-                self.cfg, self.params, self._distribute(c), c, self.tc,
-                round_seed=self.fed.seed * 1000 + round_idx)
+            with tr.span("distribute", pid=PID_FEDERATED, cat="federated",
+                         args={"client": i}):
+                dist = self._distribute(c)
+            with tr.span("local_train", pid=PID_FEDERATED, cat="federated",
+                         args={"client": i, "k": c.k}):
+                trained, f, _, info = client_lib.local_train(
+                    self.cfg, self.params, dist, c, self.tc,
+                    round_seed=self.fed.seed * 1000 + round_idx)
             loras.append(trained)
             freqs.append(f)
             sizes.append(float(c.dataset_size))
             losses.append(info["mean_loss"])
-        self.global_lora = self._aggregate(loras, freqs, sizes, parts)
+        with tr.span("aggregate", pid=PID_FEDERATED, cat="federated",
+                     args={"method": self.fed.method}):
+            self.global_lora = self._aggregate(loras, freqs, sizes, parts)
         res = RoundResult(round_idx, losses, freqs, parts)
         self.history.append(res)
         return res
@@ -226,20 +254,28 @@ class FederatedServer:
         losses_by_pos: Dict[int, float] = {}
         flame_acc = agg.flame_acc_init(self.global_lora) if flame else None
 
-        for co in cohorts:
+        tr = self._tracer
+        for ci, co in enumerate(cohorts):
             members = [part_clients[i] for i in co.members]
-            stacked_tr = lora_lib.stack_adapters(
-                [lora_lib.make_trainable(self._distribute(c), c.rescaler)
-                 for c in members])
-            plan = client_lib.stack_plans(
-                [client_lib.make_batch_plan(c, self.tc, round_seed)
-                 for c in members])
-            out_tr, counts, tok, loss_sum, n_valid = \
-                client_lib.cohort_update(
-                    self.cfg, self.params, stacked_tr, plan.tokens,
-                    plan.labels, plan.mask, plan.valid, k=co.k, tc=self.tc,
-                    rescaler_trainable=(co.key[4] == "learnable"),
-                    backend=self.fed.cohort_backend)
+            with tr.span("distribute", pid=PID_FEDERATED, cat="federated",
+                         args={"cohort": ci, "clients": len(members)}):
+                stacked_tr = lora_lib.stack_adapters(
+                    [lora_lib.make_trainable(self._distribute(c), c.rescaler)
+                     for c in members])
+                plan = client_lib.stack_plans(
+                    [client_lib.make_batch_plan(c, self.tc, round_seed)
+                     for c in members])
+            with tr.span("cohort_update", pid=PID_FEDERATED,
+                         cat="federated",
+                         args={"cohort": ci, "k": co.k,
+                               "clients": len(members)}):
+                out_tr, counts, tok, loss_sum, n_valid = \
+                    client_lib.cohort_update(
+                        self.cfg, self.params, stacked_tr, plan.tokens,
+                        plan.labels, plan.mask, plan.valid, k=co.k,
+                        tc=self.tc,
+                        rescaler_trainable=(co.key[4] == "learnable"),
+                        backend=self.fed.cohort_backend)
             del stacked_tr
 
             # stacked activation frequencies {pos: (C, n_periods, E)}
@@ -274,13 +310,15 @@ class FederatedServer:
             del out_tr
 
         n = len(parts)
-        if flame:
-            self.global_lora = agg.flame_acc_finalize(
-                flame_acc, prev_lora=self.global_lora)
-        else:
-            self.global_lora = self._aggregate(
-                [loras_by_pos[i] for i in range(n)],
-                [freqs_by_pos[i] for i in range(n)], sizes, parts)
+        with tr.span("aggregate", pid=PID_FEDERATED, cat="federated",
+                     args={"method": self.fed.method}):
+            if flame:
+                self.global_lora = agg.flame_acc_finalize(
+                    flame_acc, prev_lora=self.global_lora)
+            else:
+                self.global_lora = self._aggregate(
+                    [loras_by_pos[i] for i in range(n)],
+                    [freqs_by_pos[i] for i in range(n)], sizes, parts)
         res = RoundResult(round_idx, [losses_by_pos[i] for i in range(n)],
                           [freqs_by_pos[i] for i in range(n)], parts)
         self.history.append(res)
@@ -334,12 +372,13 @@ class FederatedServer:
         (or a previous ``run(checkpoint_to=...)``): loads the global LoRA,
         rescalers and round index, and continues from there.
         ``checkpoint_to``: write a checkpoint after every round.
-        ``metrics_to``: a registry snapshot (JSON) written when the rounds
-        finish, a registry being created when the server has none."""
-        if trace_to:
-            raise NotImplementedError(f"FederatedServer.run trace_to {_LATER}")
+        ``metrics_to``/``trace_to``: a registry snapshot (JSON) and a Chrome
+        trace-event file of the round spans, written when the rounds
+        finish; each creates its object when the server has none."""
         if metrics_to and self._metrics is None:
             self._metrics = MetricsRegistry()
+        if trace_to and not self._tracer.enabled:
+            self._set_tracer(Tracer())
         start = self.restore_checkpoint(resume_from) if resume_from else 0
         out = []
         for r in range(start, self.fed.rounds):
@@ -348,4 +387,6 @@ class FederatedServer:
                 self.save_checkpoint(checkpoint_to)
         if metrics_to:
             self._metrics.dump(metrics_to)
+        if trace_to:
+            self._tracer.dump(trace_to)
         return out

@@ -9,9 +9,24 @@ arch's full-size config; the default, like the reference's ``--local``,
 is the reduced smoke config.  Weights are random (seed 0), as is the
 trace (the reference's 8- and 16-token prompts).
 
+Production-traffic knobs, as the reference's: ``--prefix-cache`` (shared
+prompt blocks pay their K/V once, and prefill runs over the unmatched
+suffix), ``--shared-prefix N`` (every prompt opens with one of the
+trace's system prompts), ``--slo-ms K:MS,...`` (per-tier TTFT targets,
+earliest-deadline-first admission) and ``--preemption`` (decode swap-out
+under deadline pressure; needs ``--slo-ms``).  Observability:
+``--trace-out PATH`` (Chrome trace-event JSON of the run; the flight
+recorder dumps to ``PATH.crash.json`` if the engine raises),
+``--metrics-out PATH`` (a metrics-registry snapshot) and
+``--expert-telemetry`` (per-decode-step expert counts in the report).
+
   PYTHONPATH=src python -m repro_torch.launch.serve --local \\
       --variant full --slots 8 --mix 8:0.25,4:0.25,2:0.25,1:0.25 \\
       --requests 16 --new-tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --local --device cpu \\
+      --prefix-cache --shared-prefix 4 --slo-ms 2:50,1:5000 --preemption \\
+      --trace-out build/serve_trace.json \\
+      --metrics-out build/serve_metrics.json --expert-telemetry
 
 Flags of the reference launcher that belong to later slices of the port
 are rejected with a message naming the slice.
@@ -26,6 +41,7 @@ import torch
 
 from ..configs import get_config
 from ..models import model as model_lib
+from ..obs import MetricsRegistry, Tracer
 from ..serving import ServingEngine, WorkloadConfig, make_trace
 
 _EXTRAS = "the serving-extras slice"
@@ -37,13 +53,6 @@ LATER_FLAGS = {
     "--speculate": _EXTRAS + " (speculative decoding)",
     "--window": _EXTRAS + " (speculative decoding)",
     "--draft-k": _EXTRAS + " (speculative decoding)",
-    "--prefix-cache": _EXTRAS + " (prefix caching)",
-    "--shared-prefix": _EXTRAS + " (prefix caching)",
-    "--preemption": _EXTRAS + " (preemption)",
-    "--slo-ms": _EXTRAS + " (SLO admission)",
-    "--trace-out": _EXTRAS + " (tracing)",
-    "--metrics-out": _EXTRAS + " (metrics registry)",
-    "--expert-telemetry": _EXTRAS + " (expert telemetry)",
 }
 
 
@@ -76,6 +85,22 @@ def slot_k_for_mix(mix, num_slots: int):
     return tuple(slot_k)
 
 
+def parse_slo(spec: str):
+    """``"8:150,1:1000"`` -> per-tier TTFT targets {k: ms}; ``""`` -> None.
+    A bare number names no tier, so the K:MS form is required."""
+    if not spec:
+        return None
+    out = {}
+    for part in spec.split(","):
+        try:
+            k, ms = part.split(":")
+            out[int(k)] = float(ms)
+        except ValueError:
+            raise SystemExit(f"--slo-ms: bad entry {part!r} "
+                             "(expected K:MILLISECONDS[,K:MS...])")
+    return out
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
@@ -102,6 +127,33 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--mix", default="",
                     help="tier mix k:frac[,k:frac...]; empty = full top_k")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="content-addressed prompt block sharing with "
+                         "copy-on-write, and suffix-only prefill of matched "
+                         "prompts")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="shared system-prompt tokens at the head of every "
+                         "prompt (exercises --prefix-cache)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="SLO-driven decode preemption: swap the most "
+                         "lenient-deadline request out to host memory when "
+                         "a waiter misses its TTFT target (needs --slo-ms)")
+    ap.add_argument("--slo-ms", default="",
+                    help="per-tier TTFT targets K:MS[,K:MS...]: "
+                         "earliest-deadline-first admission and per-tier "
+                         "SLO attainment in the report")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace-event JSON of the run "
+                         "(request lifecycle + engine-loop spans); arms the "
+                         "flight recorder (PATH.crash.json on an engine "
+                         "exception)")
+    ap.add_argument("--metrics-out", default="",
+                    help="write a metrics-registry JSON snapshot after the "
+                         "run (engine counters, step histograms, pool and "
+                         "scheduler gauges)")
+    ap.add_argument("--expert-telemetry", action="store_true",
+                    help="per-decode-step expert activation counts: "
+                         "gini/entropy and the hot expert in the report")
     return ap
 
 
@@ -143,23 +195,52 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not prompt_lens:
         raise SystemExit(f"--slot-len {args.slot_len} too small for the "
                          "workload's 8-token prompts (need >= 9)")
+    if args.shared_prefix and args.shared_prefix >= min(prompt_lens):
+        raise SystemExit(f"--shared-prefix {args.shared_prefix} must be "
+                         f"shorter than the shortest prompt "
+                         f"({min(prompt_lens)} tokens)")
     wl = WorkloadConfig(
         n_requests=args.requests, rate=args.rate, prompt_lens=prompt_lens,
         new_tokens=(args.new_tokens,), tier_mix=mix,
         vocab_size=cfg.vocab_size, arrival=args.arrival,
-        length_dist=args.length_dist)
+        length_dist=args.length_dist, shared_prefix_len=args.shared_prefix)
+    slo = parse_slo(args.slo_ms)
+    if args.preemption and not slo:
+        raise SystemExit("--preemption needs --slo-ms: victims are chosen "
+                         "by TTFT deadlines")
+    if args.expert_telemetry and not cfg.moe.enabled:
+        raise SystemExit(f"--expert-telemetry needs an MoE arch: "
+                         f"{cfg.name} routes nothing to observe")
+    tracer = (Tracer(flight_path=f"{args.trace_out}.crash.json")
+              if args.trace_out else None)
+    registry = MetricsRegistry() if args.metrics_out else None
     engine = ServingEngine(cfg, params, num_slots=args.slots,
                            slot_len=args.slot_len, slot_k=slot_k,
                            block_size=args.block_size,
-                           num_blocks=args.num_blocks)
+                           num_blocks=args.num_blocks,
+                           prefix_cache=args.prefix_cache,
+                           preemption=args.preemption, slo_ms=slo,
+                           tracer=tracer, metrics=registry,
+                           expert_telemetry=args.expert_telemetry)
+    traffic = [flag for flag, on in
+               (("prefix-cache", args.prefix_cache),
+                ("preemption", args.preemption),
+                (f"slo={args.slo_ms}", bool(slo))) if on]
     print(f"{cfg.name} on {device}: {args.slots} slots × {args.slot_len} "
           f"tokens ({engine.pool.num_blocks} x {engine.pool.block_size}"
           f"-token KV blocks), slot_k={engine.slot_k}, "
-          f"dispatch={engine.dispatch}")
+          f"dispatch={engine.dispatch}"
+          + (f", {' '.join(traffic)}" if traffic else ""))
     report = engine.run(make_trace(wl))
     for key, val in report.summary().items():
         print(f"  {key}: {val:.2f}" if isinstance(val, float)
               else f"  {key}: {val}")
+    if tracer is not None:
+        print(f"trace: {tracer.dump(args.trace_out)} "
+              f"({len(tracer.events)} events — open in Perfetto)")
+    if registry is not None:
+        registry.dump(args.metrics_out)
+        print(f"metrics: {args.metrics_out}")
 
 
 if __name__ == "__main__":

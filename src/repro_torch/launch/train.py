@@ -40,8 +40,8 @@ LATER_FLAGS = {
     "--multi-pod": _MULTI_CHIP,
     "--steps": _MULTI_CHIP,
 }
-_DEVICE_DRIVER = ("the device round driver: the ROADMAP's \"Round "
-                  "telemetry and the device driver\" item")
+_DEVICE_DRIVER = ("the device round driver: the ROADMAP's \"Device round "
+                  "driver\" item")
 
 
 def build_parser() -> argparse.ArgumentParser:

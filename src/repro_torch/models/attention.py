@@ -7,11 +7,20 @@ serving path).
   with optional LoRA adapters on q/k/v/o through ``lora_matmul``;
 * block-paged decode: :func:`paged_decode_write`, :func:`paged_gather` and
   :func:`decode_attention`, plain PyTorch as in the reference (which keeps
-  them outside Pallas too).
+  them outside Pallas too);
+* suffix-only cached prefill (``suffix_readonly``): the suffix rows attend
+  each row's gathered prefix pages plus the in-flight suffix through
+  :func:`suffix_attention`, which runs the flash kernel of the cold
+  prefill on the rows laid out at their absolute positions, and the new
+  K/V come back as a contiguous piece.  (The reference attends the suffix
+  with plain jnp, :func:`verify_attention`; the same math, but at bf16 its
+  fp32 probabilities against the kernel's rounded ones are enough to flip
+  near-tied routing decisions, so a prefix hit would not reproduce the
+  cold prefill's tokens.)
 
-The other branches — slotted decode, speculative verify, suffix-readonly
-prefill, sliding-window ring caches and logit softcap — come with later
-slices and raise ``NotImplementedError``.
+The other branches — slotted decode, speculative verify (the caller
+:func:`verify_attention` is ported for), sliding-window ring caches and
+logit softcap — come with later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -54,6 +63,84 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+def verify_attention(q: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: torch.Tensor, *,
+                     window: int = 0,
+                     logit_softcap: float = 0.0) -> torch.Tensor:
+    """Attention of an S-token window that starts at per-row position
+    ``pos`` against a cache.  q/k_new/v_new: (B,S,H|KV,D), RoPE'd at
+    ``pos + s``; caches: (B,Sc,KV,D); ``pos``: (B,).  Query ``s`` attends
+    cache indices ``< pos`` plus window keys ``t <= s`` (the cache is read
+    before any write, so positions ``>= pos`` never leak in).  Needs a
+    non-wrapping cache: cache index == absolute position."""
+    B, S, H, D = q.shape
+    Sc, KV = k_cache.shape[1], k_cache.shape[2]
+    rep = H // KV
+    scale = D ** -0.5
+    qh = q.reshape(B, S, KV, rep, D).to(_F32)
+    s_old = torch.einsum("bskrd,bckd->bkrsc", qh, k_cache.to(_F32)) * scale
+    s_new = torch.einsum("bskrd,btkd->bkrst", qh, k_new.to(_F32)) * scale
+    s_old = softcap(s_old, logit_softcap)
+    s_new = softcap(s_new, logit_softcap)
+
+    posb = torch.as_tensor(pos, device=q.device).expand(B)
+    steps = torch.arange(S, device=q.device)
+    idx = torch.arange(Sc, device=q.device)
+    valid_old = (idx[None, None, :] < posb[:, None, None]).expand(B, S, Sc)
+    valid_new = (steps[None, None, :] <= steps[None, :, None]).expand(
+        B, S, S)
+    if window > 0:
+        qpos = posb[:, None] + steps[None, :]
+        kpos_new = posb[:, None, None] + steps[None, None, :]
+        lo = qpos[:, :, None] - window
+        valid_old = valid_old & (idx[None, None, :] > lo)
+        valid_new = valid_new & (kpos_new > lo)
+    valid = torch.cat([valid_old, valid_new], dim=-1)            # (B,S,Sc+S)
+    scores = torch.cat([s_old, s_new], dim=-1)
+    scores = torch.where(valid[:, None, None], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = (torch.einsum("bkrsc,bckd->bskrd", p[..., :Sc], v_cache.to(_F32))
+           + torch.einsum("bkrst,btkd->bskrd", p[..., Sc:], v_new.to(_F32)))
+    return out.reshape(B, S, H, D).to(q.dtype)
+
+
+def suffix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     k_pool: torch.Tensor, v_pool: torch.Tensor,
+                     block_table: torch.Tensor, prefix_len: torch.Tensor,
+                     page_span: int) -> torch.Tensor:
+    """Causal attention of S suffix tokens per row over the row's cached
+    prefix and the suffix itself, through the flash kernel.
+
+    q/k/v: (B,S,H|KV,D), RoPE'd at ``prefix_len[b] + s``; ``k_pool``/
+    ``v_pool``: (NB+1, bs, KV, D); ``block_table`` (B, page_span // bs)
+    covers every prefix position (``page_span >= max(prefix_len)``).  Each
+    row is laid out at its absolute positions in a sequence of
+    ``page_span + S``: keys below ``prefix_len[b]`` from its pages, the
+    suffix's keys and queries at ``[prefix_len[b], prefix_len[b] + S)``.
+    Causal masking then gives every suffix query exactly the keys a cold
+    prefill of the whole prompt gives it (anything past the suffix is in
+    its future); the other query rows are discarded."""
+    B, S = q.shape[:2]
+    T = page_span + S
+    cols = (torch.as_tensor(prefix_len, device=q.device).long()[:, None]
+            + torch.arange(S, device=q.device)[None, :])           # (B, S)
+    rows = torch.arange(B, device=q.device)[:, None]
+
+    def laid_out(pages, new):
+        pad = new.new_zeros((B, T - pages.shape[1]) + new.shape[2:])
+        full = torch.cat([pages.to(new.dtype), pad], dim=1)
+        full[rows, cols] = new
+        return full
+
+    kf = laid_out(paged_gather(k_pool, block_table, page_span), k)
+    vf = laid_out(paged_gather(v_pool, block_table, page_span), v)
+    qf = laid_out(q.new_zeros((B, 0) + q.shape[2:]), q)
+    out = kernel_backend.flash_attention(qf, kf, vf, causal=True, window=0)
+    return out[rows, cols]
+
+
 def paged_decode_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
                        k_tok: torch.Tensor, v_tok: torch.Tensor,
                        block_table: torch.Tensor, cache_pos: torch.Tensor,
@@ -93,12 +180,18 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                     cache_pos: Optional[torch.Tensor] = None,
                     return_cache: bool = False,
                     block_table: Optional[torch.Tensor] = None,
-                    page_span: Optional[int] = None):
+                    page_span: Optional[int] = None,
+                    suffix_readonly: bool = False):
     """x: (B,S,D_model).  Prefill when ``cache`` is None; block-paged
     decode (S == 1) when ``cache`` holds the pool leaves and a
-    ``block_table`` is given.  Returns (out, new_cache): for prefill with
-    ``return_cache`` the new (B,S,KV,D) K/V; for decode the (mutated)
-    pool leaves."""
+    ``block_table`` is given.  ``suffix_readonly`` (with a block table):
+    suffix-only cached prefill — queries sit at per-row offset
+    ``cache_pos`` (the cached prefix length) and attend the gathered
+    prefix pages plus the in-flight suffix; the pool is not written (rows
+    sharing attached blocks must not rewrite them), the new K/V come back
+    as a contiguous (B,S,KV,D) piece for the caller to scatter.  Returns
+    (out, new_cache): for prefill with ``return_cache`` and for the suffix
+    the new K/V; for decode the (mutated) pool leaves."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
     lg = lora or {}
@@ -127,6 +220,15 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = kernel_backend.flash_attention(q, k, v, causal=True, window=0)
         if return_cache:
             new_cache = {"k": k, "v": v}
+    elif suffix_readonly:
+        # checked before the decode branch: a one-token suffix must not
+        # write the pool either
+        if cfg.attention_window > 0:
+            raise NotImplementedError(
+                "sliding-window (ring) caches come with a later slice")
+        out = suffix_attention(q, k, v, cache["k"], cache["v"], block_table,
+                               cache_pos, page_span)
+        new_cache = {"k": k, "v": v}
     elif block_table is not None and cache_pos is not None and S == 1:
         paged_decode_write(cache["k"], cache["v"], k[:, 0], v[:, 0],
                            block_table, cache_pos, page_span=page_span,
@@ -138,9 +240,9 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         new_cache = cache
     else:
         raise NotImplementedError(
-            "slotted decode, speculative verify and suffix-only prefill "
-            "come with the serving-extras slice of the port; this slice "
-            "serves prefill and block-paged single-token decode")
+            "slotted decode and speculative verify come with the "
+            "serving-extras slice of the port; this slice serves prefill, "
+            "suffix-only cached prefill and block-paged single-token decode")
 
     out = out.reshape(B, S, cfg.n_heads * hd)
     return lora_dense(out, p["wo"], lg.get("wo"), lora_scale), new_cache

@@ -136,14 +136,14 @@ def _index(tree, i: int):
 def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
                  lora_scale, k, cache=None, cache_pos=None,
                  return_cache=False, slot_mask=None, block_table=None,
-                 page_span=None, dispatch=None):
+                 page_span=None, dispatch=None, suffix_readonly=False):
     lg = lora or {}
     h = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
     h, new_cache = attn_mod.apply_attention(
         p["attn"], cfg, h, positions, lora=lg.get("attn"),
         lora_scale=lora_scale, cache=cache, cache_pos=cache_pos,
         return_cache=return_cache, block_table=block_table,
-        page_span=page_span)
+        page_span=page_span, suffix_readonly=suffix_readonly)
     x = x + h
     aux = None
     if "moe" in p:
@@ -161,7 +161,8 @@ def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
 
 def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                cache_pos=None, return_cache=False, slot_mask=None,
-               block_table=None, page_span=None, dispatch=None):
+               block_table=None, page_span=None, dispatch=None,
+               suffix_readonly=False):
     """The layer stack as a loop over the leading n_periods axis; period
     ``i`` reads views of the stacked weights, of the stacked LoRA adapters
     (``trainable["lora"]["blocks"]["pos0"]``) and of the rescalers.
@@ -185,7 +186,8 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
             rescaler=None if rescalers is None else rescalers[i],
             lora_scale=lora_scale, k=k, cache=h_cache, cache_pos=cache_pos,
             return_cache=return_cache, slot_mask=slot_mask,
-            block_table=block_table, page_span=page_span, dispatch=dispatch)
+            block_table=block_table, page_span=page_span, dispatch=dispatch,
+            suffix_readonly=suffix_readonly)
         if aux is not None:
             counts.append(aux.activation_counts)
         kv.append(nc)
@@ -301,6 +303,45 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
         cache[leaf] = stacked
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.rms_eps)
     return lm_head(params, cfg, h), {"pos0": {"attn": cache}}
+
+
+def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
+                   suffix_len, cache, block_table: torch.Tensor, *,
+                   page_span: int, trainable=None, k=None, slot_mask=None,
+                   dispatch: str = "ragged"):
+    """Suffix-only cached prefill against a block-paged pool.
+
+    A request whose prompt head is already cached pays compute for the
+    unmatched suffix only: ``tokens`` (B, S) holds each row's suffix
+    (padded to S), RoPE'd and attended at absolute positions
+    ``prefix_len[b] + s``, reading the attached prefix pages through
+    ``block_table`` read-only.  MoE routing runs over the S suffix
+    columns only; a (B, S) ``slot_mask`` with per-row ``k`` routes the
+    padding columns to no expert, so ragged dispatch moves
+    ``sum(suffix_len · k)`` rows.
+
+    ``prefix_len``/``suffix_len``: (B,) ints — the cached-prefix offset
+    and the real suffix length; logits come from column
+    ``suffix_len - 1``.  Returns (logits (B, 1, V), piece) with piece
+    leaves (n_periods, B, S, KV, hd) whose column ``c`` holds prompt
+    position ``prefix_len[b] + c``: what ``BlockPool.write(...,
+    starts=, piece_col0=)`` scatters."""
+    B, S = tokens.shape[:2]
+    dev = tokens.device
+    prefix_len = torch.as_tensor(prefix_len, device=dev).long()
+    suffix_len = torch.as_tensor(suffix_len, device=dev).long()
+    positions = prefix_len[:, None] + torch.arange(S, device=dev)[None, :]
+    x = embed_tokens(params, cfg, tokens)
+    h, _, kv = _run_stack(cfg, params, x, positions, trainable=trainable,
+                          k=k, cache=cache, cache_pos=prefix_len,
+                          return_cache=True, slot_mask=slot_mask,
+                          block_table=block_table, page_span=page_span,
+                          dispatch=dispatch, suffix_readonly=True)
+    piece = {leaf: torch.stack([c[leaf] for c in kv]) for leaf in ("k", "v")}
+    col = torch.clamp(suffix_len - 1, 0, S - 1)
+    last = h[torch.arange(B, device=dev), col]
+    h = rms_norm(params["final_norm"], last[:, None], cfg.rms_eps)
+    return lm_head(params, cfg, h), {"pos0": {"attn": piece}}
 
 
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,

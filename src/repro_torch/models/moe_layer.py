@@ -147,7 +147,8 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
     if dispatch == "ragged" and le:
         raise NotImplementedError(
             "expert LoRA adapters on ragged dispatch (LoRA serving) come "
-            "with the serving-extras slice of the port")
+            "with a later slice of the port, the ROADMAP's \"Expert LoRA "
+            "on ragged dispatch and LoRA serving\" item")
     m = cfg.moe
     B, S, D = x.shape
     T = B * S

@@ -1,3 +1,15 @@
-"""Observability of the port: the metrics registry (the serving report's
-histograms, the federated round's counters and gauges) and expert-load /
-activation-drift telemetry."""
+"""Observability of the port: the span tracer (Chrome trace-event JSON of
+the serving engine's request lifecycle and the federated rounds), the
+metrics registry (the serving report's histograms, the engine's and the
+round's counters and gauges) and expert-load / activation-drift
+telemetry."""
+from .expert_load import (ActivationDriftTracker, ExpertLoadTracker,
+                          entropy, gini)
+from .metrics import Counter, Gauge, Histogram, MetricsRegistry, exp_buckets
+from .trace import NULL_TRACER, Tracer, validate_chrome_trace
+
+__all__ = [
+    "ActivationDriftTracker", "Counter", "ExpertLoadTracker", "Gauge",
+    "Histogram", "MetricsRegistry", "NULL_TRACER", "Tracer", "entropy",
+    "exp_buckets", "gini", "validate_chrome_trace",
+]

@@ -1,19 +1,51 @@
 """Continuous-batching serving engine with per-slot adaptive k (port of
-``repro/serving/engine.py``: the block-paged, ragged-dispatch, greedy path).
+``repro/serving/engine.py``: the block-paged, ragged-dispatch, greedy path
+with the production traffic layer and its observability).
 
 One engine iteration:
 
   1. requests whose arrival time has passed join the scheduler queue;
   2. the scheduler packs waiting requests into free slots (FIFO per tier,
-     gated on each request's projected block need and per-tier block
-     quotas); admitted requests are prefilled in groups of equal
-     ``(prompt_len, tier k)``, their K/V scattered into the block pool,
-     and their first token emitted (TTFT);
+     or earliest-deadline-first under ``slo_ms``), gated on each request's
+     projected block need and per-tier block quotas; admitted requests are
+     prefilled in groups, their K/V scattered into the block pool, and
+     their first token emitted (TTFT);
   3. one decode step advances every active slot by a token.  Slots carry
      static expert budgets ``slot_k`` (premium slots at full k,
      constrained ones at k=1–2): the MoE layers route each row at its own
      budget and the ragged dispatch makes expert work follow
      ``sum(slot_k)``.  Finished requests release their slot and blocks.
+
+Production traffic controls:
+
+* ``prefix_cache=True`` — prompts are matched against the pool's
+  content-addressed block index at admission (``BlockPool.attach_prefix``,
+  digests salted by the slot's tier k), so requests sharing a system
+  prompt hold its K/V blocks once, and prefill runs over the unmatched
+  suffix only (``model.prefill_suffix``), attending into the attached
+  pages.  Matched rows group by the power-of-two bucket of their suffix
+  length (the reference's grouping, so the prefill calls are the
+  reference's); cold misses keep the exact-length full prefill.
+* ``slo_ms={tier_k: target_ms}`` — per-tier TTFT targets: admission
+  becomes earliest-deadline-first and the report gains per-tier SLO
+  attainment.
+* ``preemption=True`` (needs ``slo_ms``) — when a waiter is past its TTFT
+  deadline after a packing pass (for want of blocks, or, as in the
+  reference, of a free slot of its tier), the active request with the
+  most lenient deadline is swapped out to host memory
+  (``BlockPool.swap_out``, blocks and reservation freed) and resumes
+  through normal admission, bit for bit, at most ``max_preemptions``
+  times each.
+
+Observability (all opt-in; the defaults cost one attribute check per
+event site): ``tracer`` (a :class:`repro_torch.obs.Tracer`) records
+request-lifecycle spans (queued / prefill / decode, swap instants) and
+engine-loop spans on the host clock with no device sync of its own, and is
+flight-dumped if ``run`` raises; ``metrics`` (a ``MetricsRegistry``) gets
+the engine's counters, the pool and scheduler as snapshot sources and the
+run's step histograms; ``expert_telemetry=True`` makes each decode step
+return its per-expert counts, brought to the host in the same transfer as
+the logits, into ``report.expert_load``.
 
 Prefill groups run at their own batch size: the reference pads them to
 power-of-two buckets to bound recompiles, which eager PyTorch does not
@@ -21,13 +53,13 @@ have, and ragged dispatch is row-isolated, so padding rows could not
 change a result anyway.  Every engine step runs under
 ``torch.inference_mode()``.
 
-Speculative decoding, prefix caching, preemption/SLO admission, the
-tracer, metrics registry and expert telemetry, the slotted pool, LoRA
-adapters, sampled decoding and the one-hot dispatch modes come with later
-slices and raise ``NotImplementedError``.
+Speculative decoding, the slotted pool, LoRA adapters, sampled decoding
+and the one-hot dispatch modes come with later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
+import sys
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -36,7 +68,9 @@ import numpy as np
 import torch
 
 from ..models import model as model_lib
-from ..obs.metrics import Histogram
+from ..obs.expert_load import ExpertLoadTracker
+from ..obs.metrics import Histogram, MetricsRegistry
+from ..obs.trace import NULL_TRACER, PID_ENGINE, PID_REQUESTS, Tracer
 from .kv_cache import BlockPool
 from .sampler import SamplerConfig
 from .scheduler import Completion, Request, Scheduler
@@ -44,12 +78,29 @@ from .workload import percentile
 
 PyTree = Any
 
-_LATER = "comes with the serving-extras slice of the port"
+_EXTRAS = "the ROADMAP's \"Serving extras\" item"
+_LORA = ("the ROADMAP's \"Expert LoRA on ragged dispatch and LoRA "
+         "serving\" item")
 
 
 def _log_softmax_np(x: np.ndarray) -> np.ndarray:
     m = x.max(axis=-1, keepdims=True)
     return x - (np.log(np.exp(x - m).sum(axis=-1, keepdims=True)) + m)
+
+
+def _bucket(n: int) -> int:
+    """Next power of two >= n (the reference's prefill buckets)."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def _tier_salt(k: Optional[int]) -> bytes:
+    """Prefix-digest salt for an expert-budget tier: a block's K/V depend
+    on the k its writer ran at, so equal prompts at different k must
+    never alias each other's pages."""
+    return b"" if k is None else str(int(k)).encode()
 
 
 @dataclass
@@ -60,6 +111,10 @@ class _ActiveSlot:
     admitted: float
     first_token: float
     max_new: int
+    # times swapped out mid-decode (capped by max_preemptions)
+    preemptions: int = 0
+    # engine time of the latest swap-out (the tracer's swapped_out span)
+    swap_t: float = 0.0
 
 
 def _pct_ms(xs: Sequence[float], q: float) -> Optional[float]:
@@ -75,37 +130,51 @@ class ServingReport:
     wall_s: float = 0.0
     num_slots: int = 0
     slot_k: Tuple[Optional[int], ...] = ()
+    preemptions: int = 0                     # swap-outs over the run
+    # tokens the prefill calls computed: whole prompts on a cold engine,
+    # the unmatched suffixes under suffix prefill
     prefill_tokens: int = 0
+    prefix: Dict[str, int] = field(default_factory=dict)
+    slo_ms: Optional[Dict[Optional[int], float]] = None
     decode_hist: Histogram = field(default_factory=Histogram)
     prefill_hist: Histogram = field(default_factory=Histogram)
+    expert_load: Optional[Dict[str, Any]] = None
 
     def tokens_by_rid(self) -> Dict[int, np.ndarray]:
         """Generated tokens keyed by request id."""
         return {c.rid: c.tokens for c in self.completions}
 
     def per_tier(self) -> Dict[str, Dict[str, float]]:
+        """Per-tier p50/p99 TTFT, tokens/s and (with ``slo_ms``) the share
+        of requests whose TTFT met the tier's target."""
         by_tier: Dict[int, List[Completion]] = {}
         for c in self.completions:
             by_tier.setdefault(c.k, []).append(c)
         out: Dict[str, Dict[str, float]] = {}
         for k, cs in sorted(by_tier.items()):
             ttfts = [c.ttft for c in cs]
-            out[str(k)] = {
+            row = {
                 "n_requests": len(cs),
                 "ttft_p50_ms": percentile(ttfts, 50) * 1e3,
                 "ttft_p99_ms": percentile(ttfts, 99) * 1e3,
                 "gen_tokens_per_s": (sum(c.n_generated for c in cs)
                                      / max(self.wall_s, 1e-9)),
             }
+            slo = (self.slo_ms or {}).get(k)
+            if slo is not None:
+                row["slo_attainment"] = (
+                    sum(t * 1e3 <= slo for t in ttfts) / len(cs))
+            out[str(k)] = row
         return out
 
     def summary(self) -> Dict[str, Any]:
-        """Flat, JSON-safe run summary (percentiles None when empty)."""
+        """Flat, JSON-safe run summary (percentiles None when empty), with
+        prefix-cache, preemption and expert-load accounting when on."""
         n = len(self.completions)
         gen = sum(c.n_generated for c in self.completions)
         ttfts = [c.ttft for c in self.completions]
         lats = [c.latency for c in self.completions]
-        return {
+        out = {
             "n_requests": n,
             "gen_tokens": gen,
             "wall_s": self.wall_s,
@@ -125,6 +194,16 @@ class ServingReport:
             "truncated": sum(c.truncated for c in self.completions),
             "per_tier": self.per_tier(),
         }
+        if self.preemptions:
+            out["preemptions"] = self.preemptions
+        if self.prefix:
+            out["prefix_cache"] = dict(self.prefix)
+        if self.expert_load is not None:
+            out["expert_load"] = {
+                k: self.expert_load[k]
+                for k in ("steps", "gini", "entropy", "hot_expert",
+                          "assignments_total")}
+        return out
 
 
 class ServingEngine:
@@ -135,9 +214,11 @@ class ServingEngine:
     (default ``cfg.moe.top_k`` everywhere); requests are matched to slots
     of their tier.  ``rescaler_by_k``: optional ``{k: {"pos0":
     (n_periods,)}}`` — each tier's FLAME s_i, applied per slot in decode
-    and per group in prefill.  The remaining keywords name features of the
-    reference engine that later slices bring; anything but their default
-    raises ``NotImplementedError``."""
+    and per group in prefill.  ``prefix_cache``, ``slo_ms``,
+    ``preemption``, ``max_preemptions``, ``tracer``, ``metrics`` and
+    ``expert_telemetry``: see the module docstring.  The remaining
+    keywords name features of the reference engine that later slices
+    bring; anything but their default raises ``NotImplementedError``."""
 
     def __init__(self, cfg, params: PyTree, *, lora: Optional[PyTree] = None,
                  rescaler_by_k: Optional[Dict[int, PyTree]] = None,
@@ -150,20 +231,38 @@ class ServingEngine:
                  speculative=None, prefix_cache: bool = False,
                  preemption: bool = False,
                  slo_ms: Optional[Dict[Optional[int], float]] = None,
-                 tracer=None, metrics=None, expert_telemetry: bool = False):
+                 max_preemptions: int = 4,
+                 tracer: Optional[Tracer] = None,
+                 metrics: Optional[MetricsRegistry] = None,
+                 expert_telemetry: bool = False):
+        # the reference's guards first, with its errors
+        if prefix_cache and kv_layout != "paged":
+            raise ValueError(
+                "prefix_cache needs the paged KV layout (block sharing "
+                "has no meaning in the slotted pool)")
+        if preemption:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "preemption needs the paged KV layout (swap-out "
+                    "frees blocks, not whole slots)")
+            if not slo_ms:
+                raise ValueError(
+                    "preemption needs slo_ms targets: victim selection "
+                    "is driven by TTFT deadlines")
+        if expert_telemetry and not cfg.moe.enabled:
+            raise ValueError("expert_telemetry needs an MoE model: a "
+                             "dense model routes nothing to observe")
         unsupported = {
-            "lora": lora is not None, "speculative": speculative is not None,
-            "prefix_cache": prefix_cache, "preemption": preemption,
-            "slo_ms": bool(slo_ms), "tracer": tracer is not None,
-            "metrics": metrics is not None,
-            "expert_telemetry": expert_telemetry,
-            f"kv_layout={kv_layout!r}": kv_layout != "paged",
-            f"dispatch={dispatch!r}": dispatch != "ragged",
+            "lora": (lora is not None, _LORA),
+            "speculative": (speculative is not None, _EXTRAS),
+            f"kv_layout={kv_layout!r}": (kv_layout != "paged", _EXTRAS),
+            f"dispatch={dispatch!r}": (dispatch != "ragged", _EXTRAS),
         }
-        asked = [name for name, on in unsupported.items() if on]
-        if asked:
-            raise NotImplementedError(f"ServingEngine {', '.join(asked)}: "
-                                      f"{_LATER}")
+        for name, (asked, item) in unsupported.items():
+            if asked:
+                raise NotImplementedError(
+                    f"ServingEngine {name}: comes with a later slice of the "
+                    f"port, {item}")
         if cfg.num_codebooks:
             raise ValueError("serving engine: text models only")
         self.cfg = cfg
@@ -193,7 +292,8 @@ class ServingEngine:
         self._decode_trainable = self._build_decode_trainable()
 
         self.pool = BlockPool(cfg, num_slots, slot_len, block_size=block_size,
-                              num_blocks=num_blocks, device=self.device)
+                              num_blocks=num_blocks,
+                              prefix_cache=prefix_cache, device=self.device)
         # per-tier block quotas (the tier's slot share, floored at one full
         # request): a tier exceeds its quota only while no other tier waits
         counts: Dict[Optional[int], int] = {}
@@ -204,9 +304,38 @@ class ServingEngine:
                    self.pool.num_blocks * c // num_slots)
             for t, c in counts.items()}
         self._tier_reserved = {t: 0 for t in counts}
-        self.scheduler = Scheduler()
+        self.prefix_cache = prefix_cache
+        self.slo_ms = dict(slo_ms) if slo_ms else None
+        self._preemption = preemption
+        self._max_preemptions = max_preemptions
+        # rid -> (pool swap state, _ActiveSlot, last sampled token):
+        # everything a preempted request needs to resume bit for bit
+        self._swapped: Dict[int, Tuple[Dict[str, Any], _ActiveSlot,
+                                       int]] = {}
+        if self.slo_ms:
+            self.scheduler = Scheduler(
+                policy="slo",
+                tier_slo_s={t: ms / 1e3 for t, ms in self.slo_ms.items()})
+        else:
+            self.scheduler = Scheduler()
         self._active: List[Optional[_ActiveSlot]] = [None] * num_slots
         self._last_tok = np.zeros((num_slots, 1), np.int64)
+
+        self._tracer = tracer if tracer is not None else NULL_TRACER
+        self._metrics = metrics
+        self._expert_tracker = (ExpertLoadTracker(cfg.moe.num_experts)
+                                if expert_telemetry else None)
+        if metrics is not None:
+            metrics.add_source(self.pool.publish)
+            metrics.add_source(self.scheduler.publish)
+            self._ctr_completions = metrics.counter("serving.completions")
+            self._ctr_tokens = metrics.counter("serving.gen_tokens")
+            self._ctr_admitted = metrics.counter("serving.admitted")
+            self._ctr_preempt = metrics.counter("serving.preemptions")
+        if self._tracer.enabled:
+            self._tracer.process_name(PID_ENGINE, "serving-engine")
+            self._tracer.thread_name(PID_ENGINE, 0, "engine loop")
+            self._tracer.process_name(PID_REQUESTS, "requests")
 
     # ------------------------------------------------------------- trainables
     def _build_decode_trainable(self) -> Optional[PyTree]:
@@ -242,11 +371,86 @@ class ServingEngine:
         plus one per generated token after the first."""
         return req.prompt_len + max(self._max_new(req), 1) - 1
 
+    def _admit(self, report: ServingReport) -> int:
+        """One admission round: a packing pass, then (with preemption)
+        swap out lenient-deadline victims while a waiter is past its TTFT
+        deadline and another pass can seat it."""
+        t0 = self._now()
+        n = self._admit_pass(report)
+        if self._preemption:
+            for _ in range(self.num_slots):
+                victim = self._pick_victim()
+                if victim is None:
+                    break
+                self._preempt(victim, report)
+                got = self._admit_pass(report)
+                n += got
+                if got == 0:
+                    # the freed blocks alone did not seat the waiter: stop
+                    # rather than strip the pool in one round
+                    break
+        if n:
+            if self._tracer.enabled:
+                self._tracer.complete("admit", t0, self._now(), cat="engine",
+                                      args={"admitted": n})
+            if self._metrics is not None:
+                self._ctr_admitted.inc(n)
+        return n
+
+    def _pick_victim(self) -> Optional[int]:
+        """When the most urgent waiter is past its TTFT deadline, the
+        active request with the latest deadline — strictly later than the
+        waiter's — ties broken toward the most recently admitted; requests
+        preempted ``max_preemptions`` times are exempt."""
+        if not len(self.scheduler):
+            return None
+        sch = self.scheduler
+        now = self._now()
+        urgent = [sch.deadline(r) for r in sch.queue
+                  if sch.deadline(r) <= now]
+        if not urgent:
+            return None
+        w_deadline = min(urgent)
+        best: Optional[int] = None
+        best_key: Optional[Tuple[float, float]] = None
+        for s, a in enumerate(self._active):
+            if a is None or a.preemptions >= self._max_preemptions:
+                continue
+            v_deadline = sch.deadline(a.req)
+            if v_deadline <= w_deadline:
+                continue
+            key = (v_deadline, a.admitted)
+            if best_key is None or key > best_key:
+                best, best_key = s, key
+        return best
+
+    def _preempt(self, slot: int, report: ServingReport) -> None:
+        """Swap ``slot``'s request out to the host and requeue it; its tier
+        is pinned to the slot's k so it resumes at the budget it started
+        decoding with."""
+        a = self._active[slot]
+        tier = self.slot_k[slot]
+        self._tier_reserved[tier] -= self.pool.reserved_for(slot)
+        state = self.pool.swap_out(slot)
+        a.preemptions += 1
+        a.req.k = tier
+        self._swapped[a.req.rid] = (state, a, int(self._last_tok[slot, 0]))
+        self._active[slot] = None
+        self.scheduler.add(a.req)
+        report.preemptions += 1
+        if self._tracer.enabled:
+            a.swap_t = self._now()
+            self._tracer.instant("swap_out", a.swap_t, pid=PID_REQUESTS,
+                                 tid=a.req.rid, cat="preempt",
+                                 args={"slot": slot})
+        if self._metrics is not None:
+            self._ctr_preempt.inc()
+
     def _can_admit_fn(self):
         """The paged admission predicate: projected block need against the
         headroom (with an escrow for the oldest block-starved waiter) and
-        the per-tier quota under cross-tier contention — the reference's
-        rule, accounting blocks as the scheduler accepts."""
+        the per-tier quota under cross-tier contention, accounting blocks
+        as the scheduler accepts."""
         booked = 0
         booked_by_tier: Dict[Optional[int], int] = {}
         waiting_tiers: set = set()
@@ -284,39 +488,134 @@ class ServingEngine:
             return 0
         assignments = self.scheduler.admit(free, self.slot_k,
                                            self._can_admit_fn())
-        groups: Dict[Tuple[int, Optional[int]], List[Tuple[Request, int]]] = {}
+        # prefill groups keyed (kind, width, tier): "full" groups key on the
+        # exact prompt length; under the prefix cache the match runs now
+        # (in admission order, so same-pass duplicates share), and rows
+        # with a usable matched head form "suffix" groups keyed by the
+        # power-of-two bucket of their suffix.  Items carry (request, slot,
+        # suffix start, matched tokens).
+        groups: Dict[Tuple[str, int, Optional[int]],
+                     List[Tuple[Request, int, int, int]]] = {}
         for req, slot in assignments:
             self.pool.take(slot)
             proj = self._projected_tokens(req)
             self.pool.reserve(slot, proj)
             self._tier_reserved[self.slot_k[slot]] += \
                 self.pool.blocks_needed(proj)
-            groups.setdefault((req.prompt_len, self.slot_k[slot]),
-                              []).append((req, slot))
+            if req.rid in self._swapped:
+                # resume a preempted request from its exact KV state; its
+                # timestamps continue from where the swap-out left them
+                state, a, last = self._swapped.pop(req.rid)
+                self.pool.swap_in(slot, state)
+                self._active[slot] = a
+                self._last_tok[slot, 0] = last
+                if self._tracer.enabled:
+                    now = self._now()
+                    self._tracer.complete(
+                        "swapped_out", a.swap_t, now, pid=PID_REQUESTS,
+                        tid=req.rid, cat="preempt")
+                    self._tracer.instant("swap_in", now, pid=PID_REQUESTS,
+                                         tid=req.rid, cat="preempt",
+                                         args={"slot": slot})
+                continue
+            if self.prefix_cache:
+                L = req.prompt_len
+                covered, ready = self.pool.attach_prefix(
+                    slot, req.prompt, L, _tier_salt(self.slot_k[slot]))
+                # the suffix starts at the ready span rounded down to a
+                # block (the cache validity is idx < start, which must not
+                # admit a partially matched block's foreign tail), floored
+                # at L-1 so a full match still runs a one-token step
+                bs = self.pool.block_size
+                sstart = min((ready // bs) * bs, L - 1)
+                key = (("suffix", _bucket(L - sstart))
+                       if sstart > 0 else ("full", L))
+                groups.setdefault(key + (self.slot_k[slot],), []).append(
+                    (req, slot, sstart, covered))
+            else:
+                groups.setdefault(("full", req.prompt_len, self.slot_k[slot]),
+                                  []).append((req, slot, 0, 0))
 
-        for (L, kk), items in groups.items():
+        for (kind, width, kk), items in groups.items():
+            nb = len(items)
+            slots = [s for _, s, _, _ in items]
             admitted = self._now()
-            prompts = torch.as_tensor(np.stack([r.prompt for r, _ in items]),
-                                      dtype=torch.int64, device=self.device)
-            # only the first L columns are scattered, so the prefill cache
-            # needs no padding to slot_len
-            logits, cache = model_lib.prefill(
-                self.cfg, self.params, prompts,
-                trainable=self._prefill_trainable(kk), k=kk,
-                dispatch=self.dispatch)
-            logits_np = logits[:, 0].float().cpu().numpy()
-            self.pool.write([s for _, s in items], cache, [L] * len(items))
-            report.prefill_tokens += len(items) * L
+            if kind == "suffix":
+                logits_np = self._prefill_suffix_group(items, kk)
+                report.prefill_tokens += sum(
+                    r.prompt_len - st for r, _, st, _ in items)
+                targs = {"batch": nb, "suffix_bucket": width}
+            else:
+                prompts = torch.as_tensor(
+                    np.stack([r.prompt for r, _, _, _ in items]),
+                    dtype=torch.int64, device=self.device)
+                # only the first L columns are scattered, so the prefill
+                # cache needs no padding to slot_len
+                logits, cache = model_lib.prefill(
+                    self.cfg, self.params, prompts,
+                    trainable=self._prefill_trainable(kk), k=kk,
+                    dispatch=self.dispatch)
+                logits_np = logits[:, 0].float().cpu().numpy()
+                # under the prefix cache the match/attach/alloc already
+                # ran: scatter past the matched span only (a same-pass
+                # duplicate recomputes its prompt but must not rewrite the
+                # shared blocks it attached)
+                self.pool.write(slots, cache, [width] * nb,
+                                starts=([cov for _, _, _, cov in items]
+                                        if self.prefix_cache else None))
+                report.prefill_tokens += nb * width
+                targs = {"batch": nb, "prompt_len": width}
             tft = self._now()
             report.prefill_s.append(tft - admitted)
             report.prefill_hist.observe((tft - admitted) * 1e3)
-            for j, (req, slot) in enumerate(items):
+            if self._tracer.enabled:
+                targs["k"] = kk if kk is not None else 0
+                self._tracer.complete("prefill", admitted, tft, cat="engine",
+                                      args=targs)
+            for j, (req, slot, _st, _cov) in enumerate(items):
                 a = _ActiveSlot(req=req, tokens=[], nll=0.0,
                                 admitted=admitted, first_token=tft,
                                 max_new=self._max_new(req))
                 self._active[slot] = a
                 self._emit(slot, a, logits_np[j], report)
         return len(assignments)
+
+    def _prefill_suffix_group(self, items, kk: Optional[int]) -> np.ndarray:
+        """One suffix-prefill call for a group; scatters the new K/V past
+        each row's matched span and returns the rows' last logits.  The
+        token block is as wide as the group's longest suffix; when rows'
+        suffixes differ, per-token budgets route the padding columns to
+        no expert."""
+        nb = len(items)
+        pref = np.asarray([st for _, _, st, _ in items], np.int64)
+        suf = np.asarray([r.prompt_len - st for r, _, st, _ in items],
+                         np.int64)
+        S = int(suf.max())
+        toks = np.zeros((nb, S), np.int64)
+        for j, (req, _slot, st, _cov) in enumerate(items):
+            toks[j, :suf[j]] = req.prompt[st:]
+        # only prefix positions < pref are read: gather just their blocks
+        span_b = -(-int(pref.max()) // self.pool.block_size)
+        tbl = np.stack([self.pool.block_table[s, :span_b]
+                        for _, s, _, _ in items])
+        k, mask = kk, None
+        if self.cfg.moe.enabled and (suf < S).any():
+            k = (kk,) * nb
+            mask = torch.as_tensor(np.arange(S)[None, :] < suf[:, None],
+                                   dtype=torch.float32, device=self.device)
+        logits, piece = model_lib.prefill_suffix(
+            self.cfg, self.params,
+            torch.as_tensor(toks, device=self.device), pref, suf,
+            self.pool.cache, torch.as_tensor(tbl, device=self.device),
+            page_span=span_b * self.pool.block_size,
+            trainable=self._prefill_trainable(kk), k=k, slot_mask=mask,
+            dispatch=self.dispatch)
+        logits_np = logits[:, 0].float().cpu().numpy()
+        self.pool.write([s for _, s, _, _ in items], piece,
+                        [r.prompt_len for r, _, _, _ in items],
+                        starts=[cov for _, _, _, cov in items],
+                        piece_col0=pref.tolist())
+        return logits_np
 
     # --------------------------------------------------------------- sampling
     def _pick(self, logits_row: np.ndarray,
@@ -345,31 +644,73 @@ class ServingEngine:
             [a is not None for a in self._active], dtype=torch.float32,
             device=self.device)
         self.pool.prepare_decode(active)
-        logits, _ = model_lib.decode_step(
+        telemetry = self._expert_tracker is not None
+        out = model_lib.decode_step(
             self.cfg, self.params, self.pool.cache,
             torch.as_tensor(self._last_tok, device=self.device),
             self.pool.positions(), trainable=self._decode_trainable,
             k=self._moe_k,
             slot_mask=active_mask if self.cfg.moe.enabled else None,
             block_table=self.pool.tables(), page_span=self.pool.attn_len,
-            dispatch=self.dispatch)
-        logits_np = logits[:, 0].float().cpu().numpy()   # waits for the step
+            dispatch=self.dispatch, return_counts=telemetry)
+        logits = out[0][:, 0].float()
+        if telemetry:
+            # the counts ride in the logits' transfer: one wait, one copy
+            counts = out[2]
+            keys = sorted(counts)
+            host = torch.cat([logits.reshape(-1)] + [
+                counts[p].float().reshape(-1) for p in keys]).cpu().numpy()
+            parts = np.split(host, np.cumsum(
+                [logits.numel()] + [counts[p].numel() for p in keys])[:-1])
+            logits_np = parts[0].reshape(logits.shape)    # waited for above
+            step_counts = {p: a.reshape(counts[p].shape)
+                           for p, a in zip(keys, parts[1:])}
+        else:
+            logits_np = logits.cpu().numpy()             # waits for the step
         dt = time.perf_counter() - t_start
         report.decode_step_s.append(dt)
         report.decode_hist.observe(dt * 1e3)
+        if telemetry:
+            self._expert_tracker.observe_step(step_counts)
+        if self._tracer.enabled:
+            end = self._now()
+            self._tracer.complete("decode_step", end - dt, end, cat="engine",
+                                  args={"active": len(active)})
         self.pool.advance(active)
         for slot in active:
             self._emit(slot, self._active[slot], logits_np[slot], report)
 
     def _finish(self, slot: int, report: ServingReport) -> None:
         a = self._active[slot]
-        report.completions.append(Completion(
+        c = Completion(
             rid=a.req.rid, prompt_len=a.req.prompt_len,
             tokens=np.asarray(a.tokens, np.int32),
             k=self.slot_k[slot] or 0, arrival=a.req.arrival,
             admitted=a.admitted, first_token=a.first_token,
             finished=self._now(), nll_sum=a.nll,
-            truncated=len(a.tokens) < a.max_new))
+            truncated=len(a.tokens) < a.max_new,
+            preemptions=a.preemptions)
+        report.completions.append(c)
+        if self._tracer.enabled:
+            # the request's lifecycle track, from the completion's
+            # timestamps: an enclosing span and its queued -> prefill ->
+            # decode phases (swap events were emitted as they happened)
+            tr, tid = self._tracer, c.rid
+            tr.thread_name(PID_REQUESTS, tid, f"req {tid}")
+            args = {"rid": c.rid, "k": c.k, "prompt_len": c.prompt_len,
+                    "gen_tokens": c.n_generated,
+                    "preemptions": c.preemptions}
+            tr.complete("request", c.arrival, c.finished, pid=PID_REQUESTS,
+                        tid=tid, cat="request", args=args)
+            tr.complete("queued", c.arrival, c.admitted, pid=PID_REQUESTS,
+                        tid=tid, cat="request")
+            tr.complete("prefill", c.admitted, c.first_token,
+                        pid=PID_REQUESTS, tid=tid, cat="request")
+            tr.complete("decode", c.first_token, c.finished,
+                        pid=PID_REQUESTS, tid=tid, cat="request")
+        if self._metrics is not None:
+            self._ctr_completions.inc()
+            self._ctr_tokens.inc(c.n_generated)
         self._active[slot] = None
         self._tier_reserved[self.slot_k[slot]] -= self.pool.reserved_for(slot)
         self.pool.release(slot)
@@ -398,28 +739,60 @@ class ServingEngine:
                 f"generated token in a {self.slot_len}-token slot")
         pending = sorted(requests, key=lambda r: r.arrival)
         report = ServingReport(completions=[], num_slots=self.num_slots,
-                               slot_k=self.slot_k)
+                               slot_k=self.slot_k, slo_ms=self.slo_ms)
+        if self._metrics is not None:
+            # this run's step histograms, rebound every run
+            self._metrics.register("serving.decode_step_ms",
+                                   report.decode_hist)
+            self._metrics.register("serving.prefill_ms", report.prefill_hist)
+        if self._expert_tracker is not None:
+            self._expert_tracker.reset()
         self._t0 = time.perf_counter()
+        tr = self._tracer
+        if tr.enabled:
+            tr.anchor(0.0)           # tracer time == engine-relative time
         steps = 0
-        while pending or len(self.scheduler) or self.n_active:
-            now = self._now()
-            while pending and pending[0].arrival <= now:
-                self.scheduler.add(pending.pop(0))
-            admitted = self._admit_pass(report)
-            if self.n_active:
-                self._decode_once(report)
-                steps += 1
-                if max_steps is not None and steps >= max_steps:
-                    break
-            elif not admitted:
-                if pending:                  # idle until the next arrival
-                    time.sleep(max(0.0, min(pending[0].arrival - self._now(),
-                                            0.01)))
-                elif len(self.scheduler):
-                    stuck = [r.rid for r in self.scheduler.queue]
-                    raise RuntimeError(
-                        f"requests {stuck} match no slot tier "
-                        f"(slot_k={self.slot_k})")
+        try:
+            while pending or len(self.scheduler) or self.n_active:
+                now = self._now()
+                while pending and pending[0].arrival <= now:
+                    self.scheduler.add(pending.pop(0))
+                admitted = self._admit(report)
+                if tr.enabled:
+                    tr.counter("engine", self._now(),
+                               {"active_slots": self.n_active,
+                                "queue_depth": len(self.scheduler)})
+                if self.n_active:
+                    self._decode_once(report)
+                    steps += 1
+                    if max_steps is not None and steps >= max_steps:
+                        break
+                elif not admitted:
+                    if pending:              # idle until the next arrival
+                        time.sleep(max(0.0, min(
+                            pending[0].arrival - self._now(), 0.01)))
+                    elif len(self.scheduler):
+                        stuck = [r.rid for r in self.scheduler.queue]
+                        raise RuntimeError(
+                            f"requests {stuck} match no slot tier "
+                            f"(slot_k={self.slot_k})")
+        except Exception:
+            # flight recorder: leave the last trace events on disk for a
+            # postmortem, then re-raise
+            path = tr.flight_dump()
+            if path is not None:
+                print(f"serving engine: exception — flight recorder "
+                      f"dumped to {path}", file=sys.stderr)
+            raise
         report.wall_s = self._now()
         report.completions.sort(key=lambda c: c.rid)
+        if self._swapped and max_steps is None:
+            raise RuntimeError("swapped-out requests left behind after a "
+                               "full run")
+        if self.prefix_cache:
+            report.prefix = self.pool.prefix_stats()
+        if self._expert_tracker is not None:
+            report.expert_load = self._expert_tracker.snapshot()
+            if self._metrics is not None:
+                self._expert_tracker.publish(self._metrics)
         return report

@@ -25,4 +25,5 @@ class SamplerConfig:
         if self.kind != "greedy":
             raise NotImplementedError(
                 f"sampler kind {self.kind!r}: sampled decoding comes with the "
-                "serving-extras slice of the port (greedy only for now)")
+                "serving-extras slice of the port, the ROADMAP's \"Serving "
+                "extras\" item (greedy only for now)")

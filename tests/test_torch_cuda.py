@@ -325,6 +325,88 @@ def test_cuda_engine_matches_cpu_engine(cuda):
         np.testing.assert_array_equal(gt[rid], ct[rid], err_msg=f"rid {rid}")
 
 
+def _shared_prefix_requests(cfg, n, seed):
+    """Prompts of 6 or 10 tokens opening with one of two 4-token prefixes,
+    the last two repeating earlier prompts."""
+    rng = np.random.default_rng(seed)
+    heads = rng.integers(0, cfg.vocab_size, (2, 4)).astype(np.int32)
+    reqs = []
+    for i in range(n):
+        p = rng.integers(0, cfg.vocab_size, (int(rng.choice((6, 10))),))
+        p = p.astype(np.int32)
+        p[:4] = heads[i % 2]
+        if i >= n - 2:
+            p = reqs[i - 2].prompt.copy()
+        reqs.append(Request(rid=i, prompt=p, max_new_tokens=4,
+                            k=(2, 1)[i % 2]))
+    return reqs
+
+
+def test_cuda_traffic_engine_matches_cpu_engine(cuda):
+    """The traffic layer on the card (prefix cache with suffix prefill,
+    EDF with an already-missed target for k=2, preemption): the CPU
+    engine's tokens, prefix counters and preemptions (float32)."""
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(num_slots=4, slot_len=20, slot_k=(2, 2, 1, 1), block_size=4,
+              prefix_cache=True, preemption=True,
+              slo_ms={2: 0.0, 1: 60000.0})
+    cpu = ServingEngine(cfg, params, **kw).run(
+        _shared_prefix_requests(cfg, 10, 4))
+    eng = ServingEngine(cfg, _to(params, cuda), **kw)
+    gpu = eng.run(_shared_prefix_requests(cfg, 10, 4))
+    ct, gt = cpu.tokens_by_rid(), gpu.tokens_by_rid()
+    for rid in ct:
+        np.testing.assert_array_equal(gt[rid], ct[rid], err_msg=f"rid {rid}")
+    assert gpu.prefix == cpu.prefix and gpu.prefix["hit_tokens"] > 0
+    assert gpu.preemptions == cpu.preemptions >= 1
+    eng.pool.check_invariants()
+    assert eng.pool.blocks_in_use == 0
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+def test_cuda_block_copy_and_swap_are_bit_exact(cuda, dtype):
+    """Copy-on-write on the card and a swap to the host and back leave
+    the block contents bit for bit."""
+    from repro_torch.serving import BlockPool
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(
+        dtype=str(dtype).split(".")[1])
+    pool = BlockPool(cfg, 2, 16, block_size=4, prefix_cache=True,
+                     device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    for c in pool.cache.values():
+        for leaf in c["attn"].values():
+            leaf.copy_(torch.randn(leaf.shape, generator=g, device=cuda))
+    prompt = np.arange(6, dtype=np.int32)
+    rows = []
+    for _ in range(2):
+        s = pool.allocate()
+        pool.reserve(s, 12)
+        pool.attach_prefix(s, prompt, 6)
+        pool.cache_pos[s] = 6
+        rows.append(s)
+    # the second row shares both blocks; its next write lands in block 1
+    shared = int(pool.block_table[rows[1], 1])
+    pool.prepare_decode([rows[1]])
+    private = int(pool.block_table[rows[1], 1])
+    assert private != shared and pool.prefix_stats()["cow_copies"] == 1
+    leaves = [leaf for c in pool.cache.values() for leaf in c["attn"].values()]
+    for leaf in leaves:
+        assert torch.equal(leaf[:, private], leaf[:, shared])
+    idx = torch.as_tensor(pool.block_table[rows[1], :2].astype(np.int64),
+                          device=cuda)
+    before = [leaf[:, idx].clone() for leaf in leaves]
+    state = pool.swap_out(rows[1])
+    s = pool.allocate()
+    pool.reserve(s, 12)
+    pool.swap_in(s, state)
+    idx = torch.as_tensor(pool.block_table[s, :2].astype(np.int64),
+                          device=cuda)
+    for leaf, want in zip(leaves, before):
+        assert torch.equal(leaf[:, idx], want)
+    pool.check_invariants()
+
+
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}

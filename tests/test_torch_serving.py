@@ -4,7 +4,8 @@ Same weights (converted from the JAX package), same numpy-made requests,
 both engines paged with ragged dispatch and greedy sampling: the generated
 tokens must be identical per request.  Also the numpy-only copies
 (workload traces, histogram) against their originals, the serving
-launcher, and the options that later slices bring.
+launcher, and the options that later slices bring (the traffic layer
+and its observability: ``tests/test_torch_traffic.py``).
 """
 import jax
 import numpy as np
@@ -122,10 +123,7 @@ def test_workload_and_histogram_copies_match_the_originals():
 
 @pytest.mark.parametrize("kw", [
     dict(kv_layout="slotted"), dict(dispatch="dense"),
-    dict(prefix_cache=True), dict(preemption=True), dict(slo_ms={2: 100.0}),
-    dict(speculative=object()), dict(tracer=object()),
-    dict(metrics=object()), dict(expert_telemetry=True),
-    dict(lora={"blocks": {}}),
+    dict(speculative=object()), dict(lora={"blocks": {}}),
 ])
 def test_engine_later_slice_options_raise(kw):
     with pytest.raises(NotImplementedError, match="later|slice"):
@@ -149,7 +147,7 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,match", [
     (["--local", "--speculate"], "serving-extras"),
-    (["--local", "--slo-ms", "2:100"], "SLO"),
+    (["--local", "--kv-layout", "slotted"], "slotted pool"),
     (["--device", "cpu"], "multi-chip"),
 ])
 def test_serve_launcher_rejects_later_slice_flags(argv, match):
