@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
-federated training round, checkpoints and resume, the three baselines and
-the serving engine's traffic layer — on one NVIDIA GPU.
+federated training round, checkpoints and resume, the three baselines,
+the serving engine's traffic layer and self-speculative decoding — on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -97,7 +98,30 @@ nothing else of the network or the filesystem.  Phases:
    requests' tokens equal to their solo runs; (c) a 2-layer full-width
    float32 model: the traffic engine token for token against the cold
    engine, and the suffix step's kernels checked as in (a);
-11. summary — a ``{"kernels": [...]}`` line, then the last line
+11. speculative — self-speculative decoding (W = 4 drafts at k = 1, one
+   full-k verify): (a) OLMoE FULL, bf16, the serving phase's engine shape
+   and 16 requests, greedy: plain paged decode against speculative
+   engines on the paged and the slotted pool — requests token-identical
+   to plain decode, or the first divergence a near-tie (the plain top-2
+   logit gap no larger than the largest |verify - plain| logit there);
+   acceptance per tier, rounds, draft-window and verify ms, tokens/s
+   against plain, hand-kernel launches per round against per plain
+   decode step; every serving kernel launched by the speculative run
+   (counts zeroed just before it, static router once per layer and
+   prefill call or draft step, per-token router once per layer and
+   verify step); (b) every kernel call of one round — the static router
+   at T = 8, k = 1 in the draft steps, the per-token router at T = 40 in
+   the verify step, the ragged trio at both — against its plain version
+   at every layer, and layer 0's calls timed at both shapes beside their
+   bounds; (c) sampled (top-p 0.9, temperature 0.8), plain and
+   speculative: reproducible by seed, another seed other tokens, slotted
+   against paged agreement; (d) the 2-layer full-width model in float32:
+   greedy speculative tokens equal plain decode's on both layouts, k = 1
+   slots accept every draft (or each miss is a near-tie), sampled tokens
+   equal across layouts, the kernel calls of one round within 1e-5, and
+   speculation with prefix cache and preemption on (b)'s forced-
+   preemption shape token for token against the same engine without it;
+12. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -841,12 +865,23 @@ def main() -> int:
     for row in rows:
         row["traffic_launches"] = traffic_launches[row["name"]]
     preemption_phase(torch, cfg, params, dev, check)
-    del params
-    torch.cuda.empty_cache()
     traffic_fp32_phase(torch, cfg2, dev, check, kc)
     print(f"traffic phase: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 11. summary
+    # ------------------------------------------------ 11. speculative
+    t0 = time.perf_counter()
+    spec_launches, _ = speculative_phase(torch, cfg, params, dev, check, kc)
+    # the speculative path's kernels: the static router for prefill and
+    # every draft step (k = 1), the per-token-budget router for every
+    # verify step, flash for prefill, the ragged trio throughout
+    for row in rows:
+        row["spec_launches"] = spec_launches[row["name"]]
+    del params
+    torch.cuda.empty_cache()
+    speculative_fp32_phase(torch, cfg2, dev, check, kc)
+    print(f"speculative phase: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 12. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1811,6 +1846,498 @@ def traffic_fp32_phase(torch, cfg2, dev, check, kc) -> None:
                           _traffic_trace(c32, n=16, new=8), dev, check, kc,
                           "fp32 2-layer")
     del eng, cold_eng, params
+    torch.cuda.empty_cache()
+
+
+SPEC_W = 4
+SPEC_SAMPLER = dict(kind="top_p", temperature=0.8, top_p=0.9)
+
+
+def _spec_requests(cfg, n=16, new=16, seed=0):
+    """The serving phase's workload: 128/256-token prompts in turn, tiers
+    (8,8,4,4,2,2,1,1) in turn, ``new`` new tokens, seeded."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, ((128, 256)[i % 2],)).astype(np.int32),
+        max_new_tokens=new, k=TRAFFIC_SLOTS[i % 8]) for i in range(n)]
+
+
+class _SpecRecorder:
+    """What one engine run emitted each token from, for the near-tie rule:
+    prefill and plain-decode rows (host) through the engine's ``_emit``,
+    and each speculative round's verify rows (kept on the device) through
+    ``speculative.verify_window``, with the round's drafts, draft logits,
+    accepts and active slots; plus the hand-kernel launches of every
+    round and plain decode step."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels import _build
+        from repro_torch.serving import speculative
+        self.eng, self.mod = eng, speculative
+        self.rows, self.rounds = {}, []
+        self.launches = {"round": [], "decode": []}
+        emit, decode = eng._emit, eng._decode_once
+        orig = self._orig = speculative.verify_window
+
+        def rec_emit(slot, a, row, drawn, report):
+            self.rows[a.req.rid, len(a.tokens)] = row
+            emit(slot, a, row, drawn, report)
+
+        def rec_verify(d_toks, d_logits, t_logits, sc, u, u_last):
+            out = orig(d_toks, d_logits, t_logits, sc, u, u_last)
+            active = [(s, a.req.rid, len(a.tokens), eng.slot_k[s])
+                      for s, a in enumerate(eng._active) if a is not None]
+            for s, rid, base, _ in active:
+                for j in range(t_logits.shape[1]):
+                    self.rows[rid, base + j] = (len(self.rounds), s, j)
+            self.rounds.append((t_logits, d_logits, d_toks, out[2], active))
+            return out
+
+        def counted(fn, kind):
+            def run(report):
+                n0, r0 = sum(_build.LAUNCHES.values()), report.spec_rounds
+                fn(report)
+                if kind == "decode" or report.spec_rounds > r0:
+                    self.launches[kind].append(
+                        sum(_build.LAUNCHES.values()) - n0)
+            return run
+
+        eng._emit = rec_emit
+        eng._decode_once = counted(decode, "decode")
+        if eng._spec is not None:
+            eng._spec.round = counted(eng._spec.round, "round")
+        speculative.verify_window = rec_verify
+
+    def close(self):
+        self.mod.verify_window = self._orig
+
+    def row(self, rid, t):
+        v = self.rows[rid, t]
+        if isinstance(v, tuple):
+            i, s, j = v
+            return self.rounds[i][0][s, j].float().cpu().numpy()
+        return v
+
+    def per_tier(self):
+        """{tier: (drafted, accepted)} over the run's rounds."""
+        out = {}
+        for _, _, d_toks, n_acc, active in self.rounds:
+            n = n_acc.cpu().numpy()
+            for s, _, _, tier in active:
+                d, a = out.get(tier, (0, 0))
+                out[tier] = (d + d_toks.shape[1], a + int(n[s]))
+        return out
+
+    def k1_misses(self):
+        """Each rejected draft of a k = 1 slot: (verify top-1 logit minus
+        the draft token's, max |draft row - verify row|) at the first
+        rejected position; a near-tie when the first is no larger."""
+        out = []
+        for lv, ql, d_toks, n_acc, active in self.rounds:
+            n = n_acc.cpu().numpy()
+            W = d_toks.shape[1]
+            for s, _, _, tier in active:
+                j = int(n[s])
+                if tier != 1 or j == W:
+                    continue
+                v, q = lv[s, j].float(), ql[s, j].float()
+                gap = (v.max() - v[int(d_toks[s, j])]).item()
+                out.append((gap, (q - v).abs().max().item()))
+        return out
+
+
+def _first_divergences(plain_rec, plain, other_rec, other):
+    """Per request whose tokens differ: (rid, first differing position,
+    the plain logits' top-2 gap there, max |other - plain| logit)."""
+    out = []
+    for rid, a in plain.items():
+        diff = np.nonzero(a != other[rid])[0]
+        if not len(diff):
+            continue
+        t = int(diff[0])
+        p, o = plain_rec.row(rid, t), other_rec.row(rid, t)
+        top = np.sort(p)[-2:]
+        out.append((rid, t, float(top[1] - top[0]),
+                    float(np.abs(o - p).max())))
+    return out
+
+
+def _spec_run(torch, eng, reqs):
+    """One recorded run: (report, recorder, hand-kernel launches of the
+    run, counts zeroed just before it)."""
+    from repro_torch.kernels import _build
+    rec = _SpecRecorder(eng)
+    try:
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        rep = eng.run(reqs)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        rec.close()
+    return rep, rec, launches
+
+
+def _spec_round_kernels(torch, cfg, params, dev, check, kc, what,
+                        timed=False):
+    """Every kernel call of one speculative round with all 8 slots busy —
+    W draft steps at k = 1 (the static router at T = 8) and the verify
+    step at the tiers (the per-token router at T = 8·(W+1) = 40, budgets
+    repeated per slot) — each against its plain version at every layer:
+    ``kc["close"]`` at bf16, <= 1e-5 absolute at float32, routers exact
+    with weights within 1e-6, the gather exact.  ``timed``: layer 0's
+    calls of the first draft step and of the verify step timed beside
+    their plain versions, bounds and library calls.  Returns the per-shape
+    times."""
+    from repro_torch.kernels import ref
+    from repro_torch.serving import ServingEngine, SpeculativeConfig
+    from repro_torch.serving.engine import ServingReport
+    L = cfg.num_layers
+    eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+                        slot_k=TRAFFIC_SLOTS, block_size=16,
+                        speculative=SpeculativeConfig(SPEC_W, 1))
+    report = ServingReport(completions=[])
+    eng._t0 = time.perf_counter()
+    for r in _spec_requests(cfg, n=8, new=32, seed=3):
+        eng.scheduler.add(r)
+    with torch.inference_mode():
+        eng._admit(report)
+        check(eng.n_active == 8, f"{what} spec kernels: {eng.n_active} slots")
+        _, calls = _recorded(torch, lambda: eng._spec.round(report))
+        while eng.n_active:
+            eng._spec.round(report)
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, f"{what} spec kernels: blocks held")
+    names = [c[0] for c in calls]
+    split = names.index("adaptive_router")
+    draft, verify = calls[:split], calls[split:]
+    for part, router, n_steps, T in ((draft, "router", SPEC_W, 8),
+                                     (verify, "adaptive_router", 1,
+                                      8 * (SPEC_W + 1))):
+        pn = [c[0] for c in part]
+        for name in (router, "ragged_gather", "ragged_combine"):
+            check(pn.count(name) == L * n_steps,
+                  f"{what} spec {router} part: {pn.count(name)} {name} calls")
+        check(pn.count("ragged_expert_matmul") == 3 * L * n_steps and
+              len(pn) == 6 * L * n_steps, f"{what} spec {router} part: calls")
+        for c in part:
+            if c[0] in ("router", "adaptive_router"):
+                check(c[1][0].shape[0] == T, f"{what} spec {c[0]} at "
+                      f"T={c[1][0].shape[0]}, not {T}")
+    check(all(c[1][1] == 1 for c in draft if c[0] == "router"),
+          f"{what} spec: a draft router call not at k = 1")
+
+    def close32(got, want, tag):
+        err = (got.float() - want.float()).abs().max().item()
+        check(err <= 1e-5, f"{tag}: max |kernel - plain| {err:.3e} > 1e-5")
+        return err
+
+    close = kc["close"] if cfg.dtype != "float32" else close32
+    worst = {}
+    for part_name, part in (("draft", draft), ("verify", verify)):
+        for name, a, kw, out in part:
+            tag = f"{what} spec {part_name} {name}"
+            if name == "router":
+                err = kc["router"](out, ref.topk_router_ref(*a), tag)
+            elif name == "adaptive_router":
+                err = kc["router"](out, ref.adaptive_topk_router_ref(*a), tag)
+            elif name == "ragged_gather":
+                check(torch.equal(out, ref.ragged_gather_ref(*a)),
+                      f"{tag} differs from the plain version")
+                err = 0.0
+            elif name == "ragged_expert_matmul":
+                err = close(out, ref.ragged_expert_matmul_ref(*a), tag)
+            else:
+                err = close(out, ref.ragged_combine_ref(*a), tag)
+            key = f"{part_name} {name}"
+            worst[key] = max(worst.get(key, 0.0), err)
+    print(f"spec {what}: one round (W={SPEC_W} draft steps at k=1, T=8; "
+          f"verify at the tiers, T={8 * (SPEC_W + 1)}), every kernel call "
+          f"of {L} layers against its plain version, max |kernel - plain|: "
+          + ", ".join(f"{n} {e:.3e}" for n, e in worst.items()))
+    if not timed:
+        return {}
+    return {"draft": _time_layer0(torch, draft, kc),
+            "verify": _time_layer0(torch, verify, kc)}
+
+
+def _time_layer0(torch, calls, kc):
+    """Layer 0's router, gather, three grouped matmuls and combine of a
+    step: kernel, plain and library ms (CUDA events, L2 flushed) and the
+    bound from these inputs.  Returns {name: (ms, plain_ms, bound_ms,
+    bound_by, library_ms)}."""
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    out = {}
+    router = calls[0]
+    lg = router[1][0]
+    T, E = lg.shape
+    nbytes = lg.numel() * lg.element_size() + 2 * T * E * 4 + E * 4
+    if router[0] == "adaptive_router":
+        nbytes += 4 * T
+        plain = ref.adaptive_topk_router_ref
+    else:
+        plain = ref.topk_router_ref
+    fn = getattr(backend, router[0])
+    out[router[0]] = (t(lambda: fn(*router[1])), t(lambda: plain(*router[1])),
+                      *bound_ms(nbytes, 0.0, F32_FLOPS), None)
+    x, src, valid = calls[1][1]
+    el, D, N = x.element_size(), x.shape[1], src.shape[0]
+    used = int(torch.unique(src[valid.bool()]).numel())
+    out["ragged_gather"] = (
+        t(lambda: backend.ragged_gather(x, src, valid)),
+        t(lambda: ref.ragged_gather_ref(x, src, valid)),
+        *bound_ms(used * D * el + N * 8 + N * D * el, 0.0, F32_FLOPS),
+        t(lambda: torch.index_select(x, 0, src)))
+    n_valid = int(valid.sum())
+    for label, call in (("w1/w3", calls[2]), ("w2", calls[4])):
+        xs, be, w = call[1]
+        K, H = w.shape[1], w.shape[2]
+        n_exp = int(torch.unique(be).numel())
+        peak = BF16_FLOPS if xs.dtype != torch.float32 else F32_FLOPS
+        bm = xs.shape[0] // be.shape[0]
+        ends = (torch.cumsum(torch.bincount(be.long(), minlength=w.shape[0]),
+                             0) * bm).to(torch.int32)
+        lib = (t(lambda: torch._grouped_mm(xs, w, offs=ends))
+               if hasattr(torch, "_grouped_mm") and xs.dtype != torch.float32
+               else None)
+        out[f"ragged_expert_matmul {label}"] = (
+            t(lambda: backend.ragged_expert_matmul(xs, be, w)),
+            t(lambda: ref.ragged_expert_matmul_ref(xs, be, w)),
+            *bound_ms((xs.shape[0] * K + n_exp * K * H + xs.shape[0] * H)
+                      * xs.element_size(), 2.0 * n_valid * K * H, peak), lib)
+    eo, rows, wrank = calls[5][1]
+    live = rows[wrank > 0]
+    out["ragged_combine"] = (
+        t(lambda: backend.ragged_combine(eo, rows, wrank)),
+        t(lambda: ref.ragged_combine_ref(eo, rows, wrank)),
+        *bound_ms(int(torch.unique(live).numel()) * D * el + rows.numel() * 8
+                  + rows.shape[0] * D * el, 2.0 * live.numel() * D,
+                  F32_FLOPS), None)
+    return out
+
+
+def speculative_phase(torch, cfg, params, dev, check, kc):
+    """Self-speculative decoding (W = 4 drafts at k = 1, one full-k verify)
+    at FULL width, bf16, on the serving phase's engine shape and requests:
+    (a) greedy — plain paged decode against speculative engines on both
+    layouts: tokens equal or the first divergence a near-tie (the plain
+    top-2 gap no larger than the largest |verify - plain| logit there),
+    acceptance per tier, rounds, draft / verify ms, tokens/s against plain,
+    hand-kernel launches per round against per plain decode step, every
+    serving kernel launched by the speculative run (counts zeroed just
+    before it); (b) every kernel call of one round against its plain
+    version, and layer 0's calls timed at the draft and verify shapes;
+    (c) sampled (top-p 0.9 at temperature 0.8), plain and speculative:
+    reproducible by seed, another seed other tokens, slotted against paged
+    agreement printed.  Returns (the speculative run's launches, the
+    per-shape times)."""
+    from repro_torch.serving import (SamplerConfig, ServingEngine,
+                                     SpeculativeConfig)
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+    spec = SpeculativeConfig(SPEC_W, 1)
+    # warm-up off the clock: the verify step's GEMM shapes are new
+    ServingEngine(cfg, params, speculative=spec, **base).run(
+        _spec_requests(cfg, n=8, new=6, seed=9))
+
+    runs = {}
+    for name, kw in (("plain", {}), ("spec paged", dict(speculative=spec)),
+                     ("spec slotted", dict(speculative=spec,
+                                           kv_layout="slotted"))):
+        eng = ServingEngine(cfg, params, **base, **kw)
+        runs[name] = _spec_run(torch, eng, _spec_requests(cfg))
+        del eng
+    plain_rep, plain_rec, _ = runs["plain"]
+    plain_toks = plain_rep.tokens_by_rid()
+    ps = plain_rep.summary()
+    per_decode = float(np.mean(plain_rec.launches["decode"]))
+    for name in ("spec paged", "spec slotted"):
+        rep, rec, launches = runs[name]
+        s = rep.summary()
+        check(s["n_requests"] == 16 and s["gen_tokens"] == 16 * 16,
+              f"spec {name}: {s['n_requests']} requests, {s['gen_tokens']} "
+              "tokens")
+        toks = rep.tokens_by_rid()
+        div = _first_divergences(plain_rec, plain_toks, rec, toks)
+        for rid, t, gap, d in div:
+            check(gap <= d, f"spec {name}: request {rid} differs from plain "
+                  f"decode at position {t}, where the plain top-2 gap "
+                  f"{gap:.3e} exceeds max |verify - plain| {d:.3e} (not a "
+                  "near-tie)")
+        tiers = rec.per_tier()
+        n_draft = sum(int(r[2].shape[1]) for r in rec.rounds)
+        n_dec = len(rep.decode_step_s)
+        check(len(rec.rounds) == rep.spec_rounds,
+              f"spec {name}: {len(rec.rounds)} recorded rounds")
+        for kname, n in launches.items():
+            if kname.startswith("lora"):
+                check(n == 0, f"spec {name} launched {kname}")
+            else:
+                check(n > 0, f"kernel {kname} was not launched by the "
+                      f"speculative run ({name})")
+        n_pre = len(rep.prefill_s)
+        check(launches["flash_attention"] == L * n_pre,
+              f"spec {name}: flash launches")
+        check(launches["topk_router"] == L * (n_pre + n_draft),
+              f"spec {name}: {launches['topk_router']} static router "
+              f"launches for {n_pre} prefill calls and {n_draft} draft steps")
+        check(launches["adaptive_topk_router"]
+              == L * (rep.spec_rounds + n_dec),
+              f"spec {name}: {launches['adaptive_topk_router']} per-token "
+              f"router launches for {rep.spec_rounds} verify steps and "
+              f"{n_dec} plain decode steps")
+        print(f"spec {name} (W={SPEC_W}, draft_k=1), greedy bf16 FULL: "
+              f"{16 - len(div)}/16 requests token-identical to plain decode"
+              + ("" if not div else " (first divergences: " + "; ".join(
+                  f"rid {r} at {t}: plain top-2 gap {g:.3e} <= max |verify"
+                  f" - plain| {d:.3e}" for r, t, g, d in div) + ")")
+              + f"; acceptance {s['acceptance_rate']:.3f} ("
+              + ", ".join(f"k={k}: {a / max(d, 1):.3f}" for k, (d, a) in
+                          sorted(tiers.items(), reverse=True))
+              + f"), {s['spec_rounds']} rounds + {n_dec} plain steps, draft "
+              f"window p50 {s['draft_step_ms_p50']:.2f} ms, verify p50 "
+              f"{s['verify_step_ms_p50']:.2f} ms; {s['gen_tokens_per_s']:.1f}"
+              f" tokens/s against plain {ps['gen_tokens_per_s']:.1f} ("
+              f"decode step p50 {ps['decode_step_ms_p50']:.2f} ms); "
+              f"hand-kernel launches per round "
+              f"{float(np.mean(rec.launches['round'])):.1f} against "
+              f"{per_decode:.1f} per plain decode step")
+        misses = rec.k1_misses()
+        print(f"spec {name}: k=1 slots rejected {len(misses)} drafts; near-"
+              f"ties (verify top-1 lead over the draft token no larger than "
+              f"max |draft - verify| there): "
+              f"{sum(g <= d for g, d in misses)}/{len(misses)}")
+        print(f"spec {name} launches: {json.dumps(launches)}")
+    spec_launches = runs["spec paged"][2]
+    del runs, plain_rec
+    torch.cuda.empty_cache()
+
+    times = _spec_round_kernels(torch, cfg, params, dev, check, kc,
+                                "bf16 FULL", timed=True)
+    for part, rows_ in times.items():
+        print(f"spec kernel times, {part} step layer 0 (bf16): " + "; ".join(
+            f"{n} {ms:.4f} ms (plain {pl:.4f}, bound {b:.4f} by {by}, "
+            f"library {'none' if lib is None else f'{lib:.4f}'})"
+            for n, (ms, pl, b, by, lib) in rows_.items()))
+
+    sc = SamplerConfig(**SPEC_SAMPLER)
+    agree = []
+    for sp in (None, spec):
+        toks = {}
+        for layout, seed in (("paged", 0), ("paged", 0), ("paged", 1),
+                             ("slotted", 0)):
+            eng = ServingEngine(cfg, params, **base, kv_layout=layout,
+                                sampler=sc, seed=seed, speculative=sp)
+            toks.setdefault((layout, seed), []).append(eng.run(
+                _spec_requests(cfg, n=8, new=8)).tokens_by_rid())
+        a, b = toks["paged", 0]
+        tag = "speculative" if sp else "plain"
+        check(all(np.array_equal(a[r], b[r]) for r in a),
+              f"spec sampled {tag}: two runs of seed 0 differ")
+        check(any(not np.array_equal(a[r], toks["paged", 1][0][r])
+                  for r in a), f"spec sampled {tag}: seeds 0 and 1 agree")
+        sl = toks["slotted", 0][0]
+        agree.append((tag, sum(np.array_equal(a[r], sl[r]) for r in a)))
+    print("spec sampled (top-p 0.9, temperature 0.8) bf16 FULL, 8 requests x "
+          "8 tokens: plain and speculative reproducible by seed, seeds 0 "
+          "and 1 differ; slotted against paged, requests token-identical: "
+          + ", ".join(f"{t} {n}/8" for t, n in agree))
+    print(f"speculative phase (a-c): {time.perf_counter() - t_phase:.1f} s")
+    return spec_launches, times
+
+
+def speculative_fp32_phase(torch, cfg2, dev, check, kc) -> None:
+    """(d) The exact semantics on the card: the 2-layer full-width model in
+    float32 — greedy speculative tokens equal plain decode's on both
+    layouts and slotted plain equals paged plain; slots at k = 1 accept
+    every draft or each miss is a near-tie; sampled tokens equal across
+    the layouts, plain and speculative; every kernel call of one round
+    against its plain version (<= 1e-5); and a speculative engine with
+    prefix cache and preemption on phase 10b's forced-preemption shape
+    gives the tokens of the same engine without speculation, with the
+    pool consistent after it."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import (Request, SamplerConfig, ServingEngine,
+                                     SpeculativeConfig)
+    t_phase = time.perf_counter()
+    c32 = cfg2.replace(dtype="float32")
+    params = model_lib.init_params(
+        c32, torch.Generator(device=dev).manual_seed(4), dev)
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+    spec = SpeculativeConfig(SPEC_W, 1)
+    out = {}
+    for layout in ("paged", "slotted"):
+        for sp in (None, spec):
+            eng = ServingEngine(c32, params, kv_layout=layout,
+                                speculative=sp, **base)
+            out[layout, sp is not None] = _spec_run(
+                torch, eng, _spec_requests(c32))[:2]
+    plain = out["paged", False][0].tokens_by_rid()
+    misses = []
+    for (layout, is_spec), (rep, rec) in out.items():
+        toks = rep.tokens_by_rid()
+        diff = [r for r in plain if not np.array_equal(plain[r], toks[r])]
+        kind = "speculative" if is_spec else "plain"
+        check(not diff, f"spec fp32 {layout} {kind}: requests {diff} differ "
+              "from paged plain decode")
+        if is_spec:
+            misses += rec.k1_misses()
+            tiers = rec.per_tier()
+            print(f"spec fp32 (2 layers) {layout}: tokens equal to plain, "
+                  f"{rep.spec_rounds} rounds, acceptance "
+                  f"{rep.summary()['acceptance_rate']:.3f} (" + ", ".join(
+                      f"k={k}: {a}/{d}" for k, (d, a) in
+                      sorted(tiers.items(), reverse=True)) + ")")
+    for gap, d in misses:
+        check(gap <= d, f"spec fp32: a k=1 draft rejected where the verify "
+              f"top-1 leads the draft token by {gap:.3e} > max |draft - "
+              f"verify| {d:.3e} (not a near-tie)")
+    print(f"spec fp32: k=1 slots rejected {len(misses)} drafts, each a "
+          "near-tie" if misses else "spec fp32: k=1 slots accepted every "
+          "draft")
+    sc = SamplerConfig(**SPEC_SAMPLER)
+    for sp in (None, spec):
+        got = [ServingEngine(c32, params, kv_layout=layout, sampler=sc,
+                             seed=5, speculative=sp, **base).run(
+            _spec_requests(c32, n=8, new=8)).tokens_by_rid()
+               for layout in ("paged", "slotted")]
+        check(all(np.array_equal(got[0][r], got[1][r]) for r in got[0]),
+              f"spec fp32 sampled {'speculative' if sp else 'plain'}: "
+              "slotted tokens differ from paged")
+    print("spec fp32 sampled: slotted tokens equal paged, plain and "
+          "speculative")
+    _spec_round_kernels(torch, c32, params, dev, check, kc, "fp32 2-layer")
+
+    rng = np.random.default_rng(5)
+    eco, prm = (rng.integers(0, c32.vocab_size, (64,)).astype(np.int32)
+                for _ in range(2))
+    kw = dict(num_slots=2, slot_len=512, slot_k=(8, 1), block_size=16,
+              num_blocks=32, prefix_cache=True, preemption=True,
+              slo_ms={8: 0.0, 1: 60000.0})
+
+    def reqs():
+        return [Request(rid=0, prompt=eco, max_new_tokens=384, k=1),
+                Request(rid=1, prompt=prm, max_new_tokens=16, k=8,
+                        arrival=0.05)]
+    ref_rep = ServingEngine(c32, params, **kw).run(reqs())
+    eng = ServingEngine(c32, params, speculative=spec, **kw)
+    rep = eng.run(reqs())
+    want, got = ref_rep.tokens_by_rid(), rep.tokens_by_rid()
+    check(all(np.array_equal(want[r], got[r]) for r in want),
+          "spec fp32 preemption: tokens differ from the engine without "
+          "speculation")
+    check(rep.preemptions >= 1, "spec fp32 preemption: nothing preempted")
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, "spec fp32 preemption: blocks held")
+    print(f"spec fp32 preemption (prefix cache, 2 slots, 32 blocks): "
+          f"{rep.preemptions} preemption(s) ({ref_rep.preemptions} without "
+          f"speculation), {rep.spec_rounds} rounds, tokens equal to the "
+          f"engine without speculation, pool invariants hold "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    del eng, params
     torch.cuda.empty_cache()
 
 

@@ -12,7 +12,13 @@ Then one prefill call alone (a 256-token prompt at k = 8, the serving
 path's largest group), median of 5: its wall time (synchronised), the
 host's time until the call returns (enqueue), and its device-busy time —
 a call whose enqueue time is close to its wall time waits on the host.
-Needs a CUDA device.
+With ``--speculate``, then one engine step with all 8 slots busy, plain
+against speculative (W = 4 drafts at k = 1 and one full-k verify):
+per plain decode step and per speculative round, the kernel launches,
+wall time, device-busy time, idle share and tokens emitted.  Needs a CUDA
+device.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --speculate
 """
 from __future__ import annotations
 
@@ -26,7 +32,8 @@ import torch
 
 from ..configs import get_config
 from ..models import model as model_lib
-from ..serving import Request, ServingEngine
+from ..serving import Request, ServingEngine, SpeculativeConfig
+from ..serving.engine import ServingReport
 
 SLOT_K = (8, 8, 4, 4, 2, 2, 1, 1)
 
@@ -72,6 +79,9 @@ def print_rows(by_name: Dict[str, List[float]], n: int, width: int = 100) -> Non
 def main(argv: Optional[Sequence[str]] = None) -> None:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.profile_serve")
     ap.add_argument("--rows", type=int, default=15)
+    ap.add_argument("--speculate", action="store_true",
+                    help="also profile speculative rounds beside plain "
+                         "decode steps")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -110,6 +120,45 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     print_rows(by_name, args.rows)
 
     prefill_split(cfg, params, rng, acts, dev)
+    if args.speculate:
+        step_windows(cfg, params, rng, acts, dev)
+
+
+@torch.inference_mode()
+def step_windows(cfg, params, rng, acts, dev, n_steps: int = 4) -> None:
+    """Engine steps with all 8 slots busy (256-token prompts, requests long
+    enough that none finishes): ``n_steps`` plain decode steps, then
+    ``n_steps`` speculative rounds, each after one unprofiled step."""
+    spec_cfg = SpeculativeConfig(window=4, draft_k=1)
+    for name, spec in (("plain decode step", None),
+                       ("speculative round (W=4, draft_k=1)", spec_cfg)):
+        eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+                            slot_k=SLOT_K, speculative=spec)
+        report = ServingReport(completions=[])
+        eng._t0 = time.perf_counter()
+        for i in range(8):
+            eng.scheduler.add(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, (256,)).astype(np.int32),
+                max_new_tokens=128, k=SLOT_K[i]))
+        eng._admit(report)
+        step = eng._decode_once if spec is None else eng._spec.round
+        step(report)
+        torch.cuda.synchronize()
+        emitted = sum(len(a.tokens) for a in eng._active)
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step(report)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        emitted = sum(len(a.tokens) for a in eng._active) - emitted
+        n_kernels, busy, _ = device_summary(prof)
+        print(f"{name}, 8 slots busy, {n_steps} steps: per step "
+              f"{n_kernels / n_steps:.0f} kernel launches, wall "
+              f"{wall / n_steps:.2f} ms, device busy {busy / n_steps:.2f} "
+              f"ms, idle share {1 - busy / wall:.3f}, "
+              f"{emitted / n_steps:.2f} tokens emitted "
+              f"({wall / emitted:.2f} ms per token)")
 
 
 @torch.inference_mode()

@@ -19,6 +19,10 @@ under deadline pressure; needs ``--slo-ms``).  Observability:
 recorder dumps to ``PATH.crash.json`` if the engine raises),
 ``--metrics-out PATH`` (a metrics-registry snapshot) and
 ``--expert-telemetry`` (per-decode-step expert counts in the report).
+Serving extras: ``--kv-layout slotted`` (the monolithic slotted pool, the
+paged pool's differential oracle) and ``--speculate`` (self-speculative
+decoding: ``--window`` drafts per round at ``--draft-k``, verified in one
+full-k step).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --local \\
       --variant full --slots 8 --mix 8:0.25,4:0.25,2:0.25,1:0.25 \\
@@ -27,6 +31,8 @@ recorder dumps to ``PATH.crash.json`` if the engine raises),
       --prefix-cache --shared-prefix 4 --slo-ms 2:50,1:5000 --preemption \\
       --trace-out build/serve_trace.json \\
       --metrics-out build/serve_metrics.json --expert-telemetry
+  PYTHONPATH=src python -m repro_torch.launch.serve --local --device cpu \
+      --speculate --window 4 --draft-k 1 --kv-layout slotted
 
 Flags of the reference launcher that belong to later slices of the port
 are rejected with a message naming the slice.
@@ -42,17 +48,14 @@ import torch
 from ..configs import get_config
 from ..models import model as model_lib
 from ..obs import MetricsRegistry, Tracer
-from ..serving import ServingEngine, WorkloadConfig, make_trace
+from ..serving import (ServingEngine, SpeculativeConfig, WorkloadConfig,
+                       make_trace)
 
 _EXTRAS = "the serving-extras slice"
 LATER_FLAGS = {
     "--shape": "the multi-chip slice (the production-mesh serve step)",
     "--multi-pod": "the multi-chip slice (the production-mesh serve step)",
-    "--kv-layout": _EXTRAS + " (the slotted pool)",
     "--dispatch": _EXTRAS + " (capacity/dense dispatch in the engine)",
-    "--speculate": _EXTRAS + " (speculative decoding)",
-    "--window": _EXTRAS + " (speculative decoding)",
-    "--draft-k": _EXTRAS + " (speculative decoding)",
 }
 
 
@@ -112,8 +115,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--local", action="store_true")
     ap.add_argument("--slots", type=int, default=8)
     ap.add_argument("--slot-len", type=int, default=48)
+    ap.add_argument("--kv-layout", choices=("paged", "slotted"),
+                    default="paged",
+                    help="paged: block-paged KV pool (admission follows "
+                         "block availability); slotted: one fixed-capacity "
+                         "slot per request")
     ap.add_argument("--block-size", type=int, default=16,
-                    help="KV tokens per page block")
+                    help="KV tokens per page block (paged layout)")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="usable KV blocks in the pool; default: every slot "
                          "can hold a max-length request")
@@ -127,6 +135,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--mix", default="",
                     help="tier mix k:frac[,k:frac...]; empty = full top_k")
+    ap.add_argument("--speculate", action="store_true",
+                    help="self-speculative decoding: draft a window of "
+                         "tokens per slot at --draft-k through the same "
+                         "weights, verify it in one full-k step, accept by "
+                         "the exact rejection rule")
+    ap.add_argument("--window", type=int, default=4,
+                    help="speculative draft window W (tokens drafted per "
+                         "round and verified in one step)")
+    ap.add_argument("--draft-k", type=int, default=1,
+                    help="expert budget of the draft pass (the cheap k)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="content-addressed prompt block sharing with "
                          "copy-on-write, and suffix-only prefill of matched "
@@ -211,13 +229,21 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.expert_telemetry and not cfg.moe.enabled:
         raise SystemExit(f"--expert-telemetry needs an MoE arch: "
                          f"{cfg.name} routes nothing to observe")
+    spec = None
+    if args.speculate:
+        if not cfg.moe.enabled:
+            raise SystemExit(f"--speculate needs an MoE arch: {cfg.name} "
+                             "has no cheaper draft budget")
+        spec = SpeculativeConfig(window=args.window, draft_k=args.draft_k)
     tracer = (Tracer(flight_path=f"{args.trace_out}.crash.json")
               if args.trace_out else None)
     registry = MetricsRegistry() if args.metrics_out else None
     engine = ServingEngine(cfg, params, num_slots=args.slots,
                            slot_len=args.slot_len, slot_k=slot_k,
+                           kv_layout=args.kv_layout,
                            block_size=args.block_size,
                            num_blocks=args.num_blocks,
+                           speculative=spec,
                            prefix_cache=args.prefix_cache,
                            preemption=args.preemption, slo_ms=slo,
                            tracer=tracer, metrics=registry,
@@ -226,10 +252,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                (("prefix-cache", args.prefix_cache),
                 ("preemption", args.preemption),
                 (f"slo={args.slo_ms}", bool(slo))) if on]
+    pool_desc = (f"{engine.pool.num_blocks} x {engine.pool.block_size}"
+                 f"-token KV blocks" if engine.paged else "slotted KV pool")
+    spec_desc = (f", speculative W={args.window} draft_k={args.draft_k}"
+                 if spec else "")
     print(f"{cfg.name} on {device}: {args.slots} slots × {args.slot_len} "
-          f"tokens ({engine.pool.num_blocks} x {engine.pool.block_size}"
-          f"-token KV blocks), slot_k={engine.slot_k}, "
-          f"dispatch={engine.dispatch}"
+          f"tokens ({pool_desc}), slot_k={engine.slot_k}, "
+          f"dispatch={engine.dispatch}{spec_desc}"
           + (f", {' '.join(traffic)}" if traffic else ""))
     report = engine.run(make_trace(wl))
     for key, val in report.summary().items():

@@ -1,13 +1,14 @@
 """Attention: GQA with RoPE and optional qk-norm (port of
-``repro/models/attention.py``, the branches of ``apply_attention`` on the
-serving path).
+``repro/models/attention.py``).
 
 * training and prefill (no cache): the flash-attention kernel through
   :func:`repro_torch.kernels.backend.flash_attention` (differentiable),
   with optional LoRA adapters on q/k/v/o through ``lora_matmul``;
-* block-paged decode: :func:`paged_decode_write`, :func:`paged_gather` and
-  :func:`decode_attention`, plain PyTorch as in the reference (which keeps
-  them outside Pallas too);
+* single-token decode, block-paged (:func:`paged_decode_write`,
+  :func:`paged_gather`, :func:`decode_attention`) or slotted (a per-row
+  scatter at ``cache_pos`` into the (B, Sc, KV, D) rows, then the same
+  :func:`decode_attention`), plain PyTorch as in the reference (which
+  keeps them outside Pallas too);
 * suffix-only cached prefill (``suffix_readonly``): the suffix rows attend
   each row's gathered prefix pages plus the in-flight suffix through
   :func:`suffix_attention`, which runs the flash kernel of the cold
@@ -16,11 +17,19 @@ serving path).
   with plain jnp, :func:`verify_attention`; the same math, but at bf16 its
   fp32 probabilities against the kernel's rounded ones are enough to flip
   near-tied routing decisions, so a prefix hit would not reproduce the
-  cold prefill's tokens.)
+  cold prefill's tokens.)  This branch is checked before the decode ones,
+  so a one-token suffix never writes the pool;
+* speculative verify (S > 1 with a cache): :func:`verify_attention` reads
+  the cache before any write (the window's positions may hold nothing
+  the full-k pass should see), then the window's K/V are written at
+  ``cache_pos + s``, through :func:`paged_verify_write` or a per-row
+  scatter;
+* speculative draft: :func:`apply_draft_attention` /
+  :func:`draft_attention`, one reduced-k step against a read-only prefix
+  and a small (B, W, KV, D) window buffer (``model.draft_window``).
 
-The other branches — slotted decode, speculative verify (the caller
-:func:`verify_attention` is ported for), sliding-window ring caches and
-logit softcap — come with later slices and raise ``NotImplementedError``.
+Sliding-window ring caches in the slotted layout and logit softcap come
+with a later slice and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,6 +69,38 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(_F32))
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def draft_attention(q: torch.Tensor, k_win: torch.Tensor,
+                    v_win: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, pos: torch.Tensor, j: int, *,
+                    logit_softcap: float = 0.0) -> torch.Tensor:
+    """One speculative-draft step's attention: a read-only prefix plus the
+    window buffer.  q: (B,1,H,D) RoPE'd at ``pos + j``; ``k_win``/``v_win``:
+    (B,W,KV,D) holding the draft pass's own K/V at indices ``<= j``;
+    caches: (B,Sc,KV,D), valid strictly below ``pos`` (the window's start).
+    Needs a non-wrapping cache."""
+    B, Sc, KV, D = k_cache.shape
+    W = k_win.shape[1]
+    H = q.shape[2]
+    rep = H // KV
+    scale = D ** -0.5
+    qh = q.reshape(B, KV, rep, D).to(_F32)
+    s_old = torch.einsum("bkrd,bskd->bkrs", qh, k_cache.to(_F32)) * scale
+    s_new = torch.einsum("bkrd,btkd->bkrt", qh, k_win.to(_F32)) * scale
+    s_old = softcap(s_old, logit_softcap)
+    s_new = softcap(s_new, logit_softcap)
+    posb = torch.as_tensor(pos, device=q.device).expand(B)
+    valid_old = torch.arange(Sc, device=q.device)[None, :] < posb[:, None]
+    valid_new = (torch.arange(W, device=q.device) <= j)[None, :].expand(B, W)
+    valid = torch.cat([valid_old, valid_new], dim=-1)             # (B, Sc+W)
+    scores = torch.cat([s_old, s_new], dim=-1)
+    scores = torch.where(valid[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = (torch.einsum("bkrs,bskd->bkrd", p[..., :Sc], v_cache.to(_F32))
+           + torch.einsum("bkrt,btkd->bkrd", p[..., Sc:], v_win.to(_F32)))
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -162,6 +203,39 @@ def paged_decode_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
     v_pool[bi, off] = v_tok.to(v_pool.dtype)
 
 
+def paged_verify_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       k_win: torch.Tensor, v_win: torch.Tensor,
+                       block_table: torch.Tensor, cache_pos: torch.Tensor,
+                       *, page_span: int, window: int) -> None:
+    """Write an S-token verify window's K/V per row into the block pool,
+    in place: row ``r`` writes logical slots ``pos + s`` for ``s < S``
+    (the multi-token :func:`paged_decode_write`).  ``k_win``/``v_win``:
+    (B, S, KV, D); free rows (zeroed table) write the trash block."""
+    bs = k_pool.shape[1]
+    B, S = k_win.shape[:2]
+    cp = torch.as_tensor(cache_pos, device=k_pool.device).expand(B).long()
+    pos = cp[:, None] + torch.arange(S, device=k_pool.device)[None, :]
+    logical = pos % page_span if window > 0 else pos
+    rows = torch.arange(B, device=k_pool.device)[:, None]
+    bi = block_table[rows, logical // bs].long()
+    off = logical % bs
+    k_pool[bi, off] = k_win.to(k_pool.dtype)
+    v_pool[bi, off] = v_win.to(v_pool.dtype)
+
+
+def _slotted_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
+                   cache_pos) -> None:
+    """Scatter an S-token window's K/V into the slotted rows in place:
+    row ``b`` writes indices ``cache_pos[b] + s`` of its (Sc, KV, D) row."""
+    B, S = k.shape[:2]
+    dev = cache["k"].device
+    cp = torch.as_tensor(cache_pos, device=dev).expand(B).long()
+    cols = cp[:, None] + torch.arange(S, device=dev)[None, :]
+    rows = torch.arange(B, device=dev)[:, None]
+    cache["k"][rows, cols] = k.to(cache["k"].dtype)
+    cache["v"][rows, cols] = v.to(cache["v"].dtype)
+
+
 def paged_gather(pool: torch.Tensor, block_table: torch.Tensor,
                  page_span: int) -> torch.Tensor:
     """Each row's KV pages as a contiguous (B, page_span, KV, D) view-copy,
@@ -174,32 +248,16 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor,
     return pages.reshape(B, MB * bs, *pool.shape[2:])[:, :page_span]
 
 
-def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                    *, lora: Optional[dict] = None, lora_scale: float = 0.0,
-                    cache: Optional[dict] = None,
-                    cache_pos: Optional[torch.Tensor] = None,
-                    return_cache: bool = False,
-                    block_table: Optional[torch.Tensor] = None,
-                    page_span: Optional[int] = None,
-                    suffix_readonly: bool = False):
-    """x: (B,S,D_model).  Prefill when ``cache`` is None; block-paged
-    decode (S == 1) when ``cache`` holds the pool leaves and a
-    ``block_table`` is given.  ``suffix_readonly`` (with a block table):
-    suffix-only cached prefill — queries sit at per-row offset
-    ``cache_pos`` (the cached prefix length) and attend the gathered
-    prefix pages plus the in-flight suffix; the pool is not written (rows
-    sharing attached blocks must not rewrite them), the new K/V come back
-    as a contiguous (B,S,KV,D) piece for the caller to scatter.  Returns
-    (out, new_cache): for prefill with ``return_cache`` and for the suffix
-    the new K/V; for decode the (mutated) pool leaves."""
+def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 lg: dict, lora_scale: float):
+    """q, k, v (B,S,H|KV,hd) of ``x``: the projections (with adapters),
+    qk-norm and RoPE at ``positions``."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    lg = lora or {}
     if cfg.attn_logit_softcap > 0:
         raise NotImplementedError(
             "logit-softcap attention comes with a later slice of the port "
             "(the flash kernel has no softcap)")
-
     q = lora_dense(x, p["wq"], lg.get("wq"), lora_scale)
     k = lora_dense(x, p["wk"], lg.get("wk"), lora_scale)
     v = lora_dense(x, p["wv"], lg.get("wv"), lora_scale)
@@ -209,40 +267,103 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(p["q_norm"], q, cfg.rms_eps)
         k = rms_norm(p["k_norm"], k, cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _no_ring(cfg) -> None:
+    if cfg.attention_window > 0:
+        raise NotImplementedError(
+            "sliding-window (ring) caches come with a later slice")
+
+
+def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                    *, lora: Optional[dict] = None, lora_scale: float = 0.0,
+                    cache: Optional[dict] = None,
+                    cache_pos: Optional[torch.Tensor] = None,
+                    return_cache: bool = False,
+                    block_table: Optional[torch.Tensor] = None,
+                    page_span: Optional[int] = None,
+                    suffix_readonly: bool = False):
+    """x: (B,S,D_model).  Prefill when ``cache`` is None.  With a cache and
+    ``cache_pos``: single-token decode (S == 1) or speculative verify
+    (S > 1, the S tokens teacher-forced at ``cache_pos + s``), block-paged
+    when a ``block_table`` is given (the cache leaves are then the pool
+    (NB+1, bs, KV, D)), slotted otherwise (the leaves are (B, Sc, KV, D)
+    rows); the cache is written in place.  ``suffix_readonly`` (with a
+    block table): suffix-only cached prefill — queries sit at per-row
+    offset ``cache_pos`` (the cached prefix length) and attend the
+    gathered prefix pages plus the in-flight suffix; the pool is not
+    written (rows sharing attached blocks must not rewrite them), the new
+    K/V come back as a contiguous (B,S,KV,D) piece for the caller to
+    scatter.  Returns (out, new_cache): for prefill with ``return_cache``
+    and for the suffix the new K/V; otherwise the (mutated) cache."""
+    B, S, _ = x.shape
+    lg = lora or {}
+    q, k, v = _project_qkv(p, cfg, x, positions, lg, lora_scale)
+    window = cfg.attention_window
 
     new_cache = None
     if cache is None:
-        if cfg.attention_window > 0:
-            raise NotImplementedError(
-                "sliding-window (ring) caches come with a later slice")
+        _no_ring(cfg)
         out = kernel_backend.flash_attention(q, k, v, causal=True, window=0)
         if return_cache:
             new_cache = {"k": k, "v": v}
     elif suffix_readonly:
-        # checked before the decode branch: a one-token suffix must not
+        # checked before the decode branches: a one-token suffix must not
         # write the pool either
-        if cfg.attention_window > 0:
-            raise NotImplementedError(
-                "sliding-window (ring) caches come with a later slice")
+        _no_ring(cfg)
         out = suffix_attention(q, k, v, cache["k"], cache["v"], block_table,
                                cache_pos, page_span)
         new_cache = {"k": k, "v": v}
-    elif block_table is not None and cache_pos is not None and S == 1:
+    elif block_table is not None and S == 1:
         paged_decode_write(cache["k"], cache["v"], k[:, 0], v[:, 0],
                            block_table, cache_pos, page_span=page_span,
-                           window=cfg.attention_window)
+                           window=window)
         kg = paged_gather(cache["k"], block_table, page_span)
         vg = paged_gather(cache["v"], block_table, page_span)
-        out = decode_attention(q, kg, vg, cache_pos,
-                               window=cfg.attention_window)
+        out = decode_attention(q, kg, vg, cache_pos, window=window)
+        new_cache = cache
+    elif S == 1:
+        _no_ring(cfg)
+        _slotted_write(cache, k, v, cache_pos)
+        out = decode_attention(q, cache["k"], cache["v"], cache_pos)
+        new_cache = cache
+    elif block_table is not None:
+        # paged verify: attend the gathered pages before the write, then
+        # deposit the window's full-k K/V at its positions
+        kg = paged_gather(cache["k"], block_table, page_span)
+        vg = paged_gather(cache["v"], block_table, page_span)
+        out = verify_attention(q, k, v, kg, vg, cache_pos, window=window)
+        paged_verify_write(cache["k"], cache["v"], k, v, block_table,
+                           cache_pos, page_span=page_span, window=window)
         new_cache = cache
     else:
-        raise NotImplementedError(
-            "slotted decode and speculative verify come with the "
-            "serving-extras slice of the port; this slice serves prefill, "
-            "suffix-only cached prefill and block-paged single-token decode")
+        _no_ring(cfg)
+        out = verify_attention(q, k, v, cache["k"], cache["v"], cache_pos)
+        _slotted_write(cache, k, v, cache_pos)
+        new_cache = cache
 
-    out = out.reshape(B, S, cfg.n_heads * hd)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim_)
     return lora_dense(out, p["wo"], lg.get("wo"), lora_scale), new_cache
+
+
+def apply_draft_attention(p: dict, cfg, x: torch.Tensor,
+                          positions: torch.Tensor, j: int, win: dict,
+                          static_kv: dict, pos: torch.Tensor, *,
+                          lora: Optional[dict] = None,
+                          lora_scale: float = 0.0) -> torch.Tensor:
+    """The attention sub-layer of one speculative-draft step (S == 1): the
+    projections of :func:`apply_attention`, the new K/V written in place
+    at index ``j`` of the window buffer ``win`` ((B,W,KV,D) leaves) rather
+    than into the cache, and :func:`draft_attention` against the read-only
+    contiguous prefix ``static_kv``."""
+    B, S, _ = x.shape
+    lg = lora or {}
+    q, k, v = _project_qkv(p, cfg, x, positions, lg, lora_scale)
+    win["k"][:, j] = k[:, 0].to(win["k"].dtype)
+    win["v"][:, j] = v[:, 0].to(win["v"].dtype)
+    out = draft_attention(q, win["k"], win["v"], static_kv["k"],
+                          static_kv["v"], pos, j)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim_)
+    return lora_dense(out, p["wo"], lg.get("wo"), lora_scale)

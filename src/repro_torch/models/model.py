@@ -11,9 +11,11 @@ pairs {"a", "b"} mirroring the targeted weights>}}, "rescaler": {"pos0":
 (n_periods,)}}`` (``repro_torch.core.lora``).
 
 Caches are dicts ``{"pos0": {"attn": {"k", "v"}}}`` with a leading
-``n_periods`` axis.  The block-paged pool (:func:`init_paged_cache`) is
-updated in place by :func:`decode_step`; the reference threads it through
-the scan carry and returns a new one.
+``n_periods`` axis: the slotted rows of :func:`init_cache` (n, B, Sc, KV,
+hd) or the block-paged pool of :func:`init_paged_cache`.  Both are updated
+in place by :func:`decode_step`; the reference threads them through the
+scan carry and returns new ones.  :func:`draft_window` runs the
+speculative draft: W reduced-k steps that never write the cache.
 """
 from __future__ import annotations
 
@@ -264,6 +266,19 @@ def cache_len_for(cfg, seq_len: int) -> int:
     return seq_len
 
 
+def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> PyTree:
+    """Zeroed slotted decode cache: (n_periods, batch, cache_len_for(
+    seq_len), KV, hd) per leaf (attention-only models; SSM state comes
+    with the SSM slice)."""
+    _check_supported(cfg)
+    n = cfg.num_layers // cfg.pattern_period
+    shape = (n, batch, cache_len_for(cfg, seq_len), cfg.n_kv_heads,
+             cfg.head_dim_)
+    z = dict(dtype=cfg.torch_dtype, device=device)
+    return {"pos0": {"attn": {"k": torch.zeros(shape, **z),
+                              "v": torch.zeros(shape, **z)}}}
+
+
 def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
                      device="cuda") -> PyTree:
     """Zeroed block-paged decode cache (leading axis n_periods): K/V live
@@ -348,19 +363,18 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
                 trainable=None, k=None, slot_mask=None, block_table=None,
                 page_span=None, dispatch: str = "ragged",
                 return_counts: bool = False):
-    """One block-paged decode step.  tokens: (B, 1); pos: (B,) per-row
-    positions (or a scalar); ``k``: int or per-slot tuple; ``slot_mask``:
-    (B,) 0/1 rows in use.  The pool in ``cache`` is written in place.
-    Returns (logits (B,1,V), cache) [+ counts {pos0: (n_periods, E)}]."""
-    if block_table is None:
-        raise NotImplementedError(
-            "slotted (non-paged) decode comes with the serving-extras slice")
+    """One decode step over the whole slot batch.  tokens: (B, S); pos:
+    (B,) per-row positions (or a scalar).  ``S`` is normally 1; ``S > 1``
+    is the speculative verify step: the S tokens are teacher-forced at
+    positions ``pos .. pos+S-1`` against the cache (read before the
+    window's K/V are written) and logits for every window position come
+    back.  ``block_table`` (B, max_blocks) with ``page_span``: the cache
+    is the block-paged pool; without one it is the slotted rows of
+    :func:`init_cache`.  Either is written in place.  ``k``: int or
+    per-slot tuple; ``slot_mask``: (B,) 0/1 rows in use.  Returns (logits
+    (B,S,V), cache) [+ counts {pos0: (n_periods, E)}]."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
-    if S != 1:
-        raise NotImplementedError(
-            "multi-token decode (speculative verify) comes with the "
-            "serving-extras slice")
     pos = torch.as_tensor(pos, device=x.device)
     base = pos[:, None] if pos.dim() == 1 else pos.expand(B, 1)
     positions = base + torch.arange(S, device=x.device)[None, :]
@@ -373,3 +387,75 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
     if return_counts:
         return logits, cache, counts
     return logits, cache
+
+
+def draft_window(cfg, params, cache, tok0: torch.Tensor, pos, draws, *,
+                 sample_fn, window: int, trainable=None, k=None,
+                 block_table=None, page_span=None, dispatch: str = "ragged"):
+    """W reduced-k decode steps for the speculative draft, without writing
+    the cache.
+
+    Each step's K/V go into a per-layer window buffer (B, W, KV, hd) and
+    attention reads the cache read-only (``attention.apply_draft_attention``);
+    for the block-paged pool each layer's prefix pages are gathered once
+    per window.  The next token is picked on the device by ``sample_fn(
+    logits (B, V) fp32, draws[j]) -> (B,)``, so the window needs no host
+    sync.  tok0: (B, 1) first window token per row; pos: (B,) window start
+    (each row's cache_pos); draws: (W, B) the sampler's uniforms (ignored
+    by a greedy ``sample_fn``); ``k``: the scalar draft budget (every row
+    drafts at it: free rows ride along, and ragged dispatch keeps rows
+    apart).  Attention-only models with a non-wrapping cache (the engine
+    guards both).  Returns (draft logits (W, B, V) fp32, draft tokens
+    (W, B)), both on the device."""
+    _check_supported(cfg)
+    trainable = trainable or {}
+    lora_blocks = ((trainable.get("lora") or {}).get("blocks") or {}).get(
+        "pos0")
+    rescalers = (trainable.get("rescaler") or {}).get("pos0")
+    lora_scale = cfg.lora.scale if cfg.lora.enabled else 0.0
+    kk = k if k is not None else cfg.moe.top_k
+    n = cfg.num_layers // cfg.pattern_period
+    dev = tok0.device
+    pos = torch.as_tensor(pos, device=dev).long()
+    B = tok0.shape[0]
+    blocks = params["blocks"]["pos0"]
+    kv = cache["pos0"]["attn"]
+    static, win = [], []
+    for i in range(n):
+        if block_table is not None:
+            static.append({leaf: attn_mod.paged_gather(
+                kv[leaf][i], block_table, page_span) for leaf in ("k", "v")})
+        else:
+            static.append({leaf: kv[leaf][i] for leaf in ("k", "v")})
+        win.append({leaf: torch.zeros(
+            (B, window, cfg.n_kv_heads, cfg.head_dim_),
+            dtype=cfg.torch_dtype, device=dev) for leaf in ("k", "v")})
+    tok = tok0
+    qs, toks = [], []
+    for j in range(window):
+        x = embed_tokens(params, cfg, tok)                        # (B, 1, D)
+        positions = pos[:, None] + j
+        for i in range(n):
+            p = _index(blocks, i)
+            lg = {} if not lora_blocks else _index(lora_blocks, i)
+            h1 = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
+            x = x + attn_mod.apply_draft_attention(
+                p["attn"], cfg, h1, positions, j, win[i], static[i], pos,
+                lora=lg.get("attn"), lora_scale=lora_scale)
+            if "moe" in p:
+                h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
+                h2, _ = moe_mod.apply_moe(
+                    p["moe"], cfg, h2, k=kk,
+                    rescaler=None if rescalers is None else rescalers[i],
+                    lora=lg.get("moe"), lora_scale=lora_scale,
+                    dispatch=dispatch)
+                x = x + h2
+            elif "ffn" in p:
+                h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
+                x = x + apply_ffn(p["ffn"], h2, lg.get("ffn"), lora_scale)
+        h = rms_norm(params["final_norm"], x, cfg.rms_eps)
+        logits = lm_head(params, cfg, h)[:, 0].float()
+        tok = sample_fn(logits, draws[j]).to(tok0.dtype)[:, None]
+        qs.append(logits)
+        toks.append(tok[:, 0])
+    return torch.stack(qs), torch.stack(toks)

@@ -1,6 +1,7 @@
 """Continuous-batching serving engine with per-slot adaptive k (port of
-``repro/serving/engine.py``: the block-paged, ragged-dispatch, greedy path
-with the production traffic layer and its observability).
+``repro/serving/engine.py``: ragged dispatch over the block-paged or the
+slotted KV pool, greedy or sampled decoding, self-speculative decoding,
+the production traffic layer and its observability).
 
 One engine iteration:
 
@@ -15,6 +16,18 @@ One engine iteration:
      constrained ones at k=1–2): the MoE layers route each row at its own
      budget and the ragged dispatch makes expert work follow
      ``sum(slot_k)``.  Finished requests release their slot and blocks.
+
+``kv_layout="slotted"`` backs the slots with the monolithic
+:class:`SlotPool` instead (the reference's differential oracle: token for
+token the paged engine's).  ``sampler=SamplerConfig(kind="temperature" |
+"top_p")`` samples: each draw takes its uniforms from (``seed``, request
+id, the request's event counter), so a request's tokens never depend on
+its slot, the layout or what shares its batch; the draws run on the
+device over the step's logits.  ``speculative=SpeculativeConfig(...)``
+replaces the decode step by self-speculative rounds
+(:mod:`.speculative`): draft W tokens per slot at ``draft_k``, verify in
+one full-k multi-token step, accept by the rejection rule and roll the
+rejected K/V back.
 
 Production traffic controls:
 
@@ -53,9 +66,8 @@ have, and ragged dispatch is row-isolated, so padding rows could not
 change a result anyway.  Every engine step runs under
 ``torch.inference_mode()``.
 
-Speculative decoding, the slotted pool, LoRA adapters, sampled decoding
-and the one-hot dispatch modes come with later slices and raise
-``NotImplementedError``.
+LoRA adapters and the one-hot dispatch modes come with later slices and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -71,9 +83,10 @@ from ..models import model as model_lib
 from ..obs.expert_load import ExpertLoadTracker
 from ..obs.metrics import Histogram, MetricsRegistry
 from ..obs.trace import NULL_TRACER, PID_ENGINE, PID_REQUESTS, Tracer
-from .kv_cache import BlockPool
-from .sampler import SamplerConfig
+from .kv_cache import BlockPool, SlotPool
+from .sampler import SamplerConfig, event_uniforms, sample_token
 from .scheduler import Completion, Request, Scheduler
+from .speculative import SpeculativeConfig, SpeculativeDecoder
 from .workload import percentile
 
 PyTree = Any
@@ -111,6 +124,9 @@ class _ActiveSlot:
     admitted: float
     first_token: float
     max_new: int
+    # the request's sampling event counter: every draw takes its uniforms
+    # from (seed, rid, events), so draws follow the request's own order
+    events: int = 0
     # times swapped out mid-decode (capped by max_preemptions)
     preemptions: int = 0
     # engine time of the latest swap-out (the tracer's swapped_out span)
@@ -130,6 +146,12 @@ class ServingReport:
     wall_s: float = 0.0
     num_slots: int = 0
     slot_k: Tuple[Optional[int], ...] = ()
+    # speculative accounting (zero when speculation is off)
+    draft_step_s: List[float] = field(default_factory=list)
+    verify_step_s: List[float] = field(default_factory=list)
+    spec_rounds: int = 0
+    spec_drafted: int = 0
+    spec_accepted: int = 0
     preemptions: int = 0                     # swap-outs over the run
     # tokens the prefill calls computed: whole prompts on a cold engine,
     # the unmatched suffixes under suffix prefill
@@ -138,6 +160,8 @@ class ServingReport:
     slo_ms: Optional[Dict[Optional[int], float]] = None
     decode_hist: Histogram = field(default_factory=Histogram)
     prefill_hist: Histogram = field(default_factory=Histogram)
+    draft_hist: Histogram = field(default_factory=Histogram)
+    verify_hist: Histogram = field(default_factory=Histogram)
     expert_load: Optional[Dict[str, Any]] = None
 
     def tokens_by_rid(self) -> Dict[int, np.ndarray]:
@@ -169,7 +193,8 @@ class ServingReport:
 
     def summary(self) -> Dict[str, Any]:
         """Flat, JSON-safe run summary (percentiles None when empty), with
-        prefix-cache, preemption and expert-load accounting when on."""
+        speculation, prefix-cache, preemption and expert-load accounting
+        when on."""
         n = len(self.completions)
         gen = sum(c.n_generated for c in self.completions)
         ttfts = [c.ttft for c in self.completions]
@@ -198,6 +223,21 @@ class ServingReport:
             out["preemptions"] = self.preemptions
         if self.prefix:
             out["prefix_cache"] = dict(self.prefix)
+        if self.spec_rounds:
+            out.update({
+                "spec_rounds": self.spec_rounds,
+                "spec_drafted": self.spec_drafted,
+                "spec_accepted": self.spec_accepted,
+                "acceptance_rate": (self.spec_accepted
+                                    / max(self.spec_drafted, 1)),
+                "draft_step_ms_mean": float(np.mean(self.draft_step_s)) * 1e3,
+                "draft_step_ms_p50": self.draft_hist.percentile(50),
+                "draft_step_ms_p99": self.draft_hist.percentile(99),
+                "verify_step_ms_mean": (float(np.mean(self.verify_step_s))
+                                        * 1e3),
+                "verify_step_ms_p50": self.verify_hist.percentile(50),
+                "verify_step_ms_p99": self.verify_hist.percentile(99),
+            })
         if self.expert_load is not None:
             out["expert_load"] = {
                 k: self.expert_load[k]
@@ -207,18 +247,19 @@ class ServingReport:
 
 
 class ServingEngine:
-    """Continuous batching over a :class:`BlockPool` with per-slot k.
+    """Continuous batching over a :class:`BlockPool` (or, with
+    ``kv_layout="slotted"``, a :class:`SlotPool`) with per-slot k.
 
     ``params`` live on the device the engine runs on (CUDA: the kernels;
     CPU: their plain versions).  ``slot_k``: per-slot expert budgets
     (default ``cfg.moe.top_k`` everywhere); requests are matched to slots
     of their tier.  ``rescaler_by_k``: optional ``{k: {"pos0":
     (n_periods,)}}`` — each tier's FLAME s_i, applied per slot in decode
-    and per group in prefill.  ``prefix_cache``, ``slo_ms``,
-    ``preemption``, ``max_preemptions``, ``tracer``, ``metrics`` and
-    ``expert_telemetry``: see the module docstring.  The remaining
-    keywords name features of the reference engine that later slices
-    bring; anything but their default raises ``NotImplementedError``."""
+    and per group in prefill.  ``sampler``, ``seed``, ``speculative``,
+    ``prefix_cache``, ``slo_ms``, ``preemption``, ``max_preemptions``,
+    ``tracer``, ``metrics`` and ``expert_telemetry``: see the module
+    docstring.  ``lora`` and a ``dispatch`` other than ``"ragged"`` come
+    with later slices and raise ``NotImplementedError``."""
 
     def __init__(self, cfg, params: PyTree, *, lora: Optional[PyTree] = None,
                  rescaler_by_k: Optional[Dict[int, PyTree]] = None,
@@ -228,14 +269,18 @@ class ServingEngine:
                  num_blocks: Optional[int] = None,
                  dispatch: str = "ragged",
                  sampler: Optional[SamplerConfig] = None,
-                 speculative=None, prefix_cache: bool = False,
+                 speculative: Optional[SpeculativeConfig] = None,
+                 prefix_cache: bool = False,
                  preemption: bool = False,
                  slo_ms: Optional[Dict[Optional[int], float]] = None,
                  max_preemptions: int = 4,
+                 seed: int = 0,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None,
                  expert_telemetry: bool = False):
         # the reference's guards first, with its errors
+        if kv_layout not in ("paged", "slotted"):
+            raise ValueError(f"kv_layout={kv_layout!r}: paged or slotted")
         if prefix_cache and kv_layout != "paged":
             raise ValueError(
                 "prefix_cache needs the paged KV layout (block sharing "
@@ -252,10 +297,18 @@ class ServingEngine:
         if expert_telemetry and not cfg.moe.enabled:
             raise ValueError("expert_telemetry needs an MoE model: a "
                              "dense model routes nothing to observe")
+        if expert_telemetry and speculative is not None:
+            raise ValueError(
+                "expert_telemetry under speculative decoding is not "
+                "supported yet: the fused draft window does not surface "
+                "activation counts")
+        if speculative is not None and dispatch == "capacity":
+            raise ValueError(
+                "speculative verify requires a loss-free dispatch mode "
+                "(ragged/dense): capacity dispatch makes the verify "
+                "distribution depend on co-batched rows")
         unsupported = {
             "lora": (lora is not None, _LORA),
-            "speculative": (speculative is not None, _EXTRAS),
-            f"kv_layout={kv_layout!r}": (kv_layout != "paged", _EXTRAS),
             f"dispatch={dispatch!r}": (dispatch != "ragged", _EXTRAS),
         }
         for name, (asked, item) in unsupported.items():
@@ -271,7 +324,9 @@ class ServingEngine:
         self.num_slots = num_slots
         self.slot_len = slot_len
         self.dispatch = dispatch
-        del sampler      # SamplerConfig admits only greedy in this slice
+        self.paged = kv_layout == "paged"
+        self._sampler = sampler or SamplerConfig()
+        self._seed = seed
         if cfg.moe.enabled:
             resolved = tuple(int(v) for v in (
                 slot_k if slot_k is not None
@@ -291,19 +346,26 @@ class ServingEngine:
         self._rescaler_by_k = rescaler_by_k
         self._decode_trainable = self._build_decode_trainable()
 
-        self.pool = BlockPool(cfg, num_slots, slot_len, block_size=block_size,
-                              num_blocks=num_blocks,
-                              prefix_cache=prefix_cache, device=self.device)
-        # per-tier block quotas (the tier's slot share, floored at one full
-        # request): a tier exceeds its quota only while no other tier waits
-        counts: Dict[Optional[int], int] = {}
-        for t in self.slot_k:
-            counts[t] = counts.get(t, 0) + 1
-        self._tier_quota = {
-            t: max(self.pool.blocks_per_slot,
-                   self.pool.num_blocks * c // num_slots)
-            for t, c in counts.items()}
-        self._tier_reserved = {t: 0 for t in counts}
+        if self.paged:
+            self.pool = BlockPool(cfg, num_slots, slot_len,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks,
+                                  prefix_cache=prefix_cache,
+                                  device=self.device)
+            # per-tier block quotas (the tier's slot share, floored at one
+            # full request): a tier exceeds its quota only while no other
+            # tier waits
+            counts: Dict[Optional[int], int] = {}
+            for t in self.slot_k:
+                counts[t] = counts.get(t, 0) + 1
+            self._tier_quota = {
+                t: max(self.pool.blocks_per_slot,
+                       self.pool.num_blocks * c // num_slots)
+                for t, c in counts.items()}
+            self._tier_reserved = {t: 0 for t in counts}
+        else:
+            self.pool = SlotPool(cfg, num_slots, slot_len,
+                                 device=self.device)
         self.prefix_cache = prefix_cache
         self.slo_ms = dict(slo_ms) if slo_ms else None
         self._preemption = preemption
@@ -336,6 +398,8 @@ class ServingEngine:
             self._tracer.process_name(PID_ENGINE, "serving-engine")
             self._tracer.thread_name(PID_ENGINE, 0, "engine loop")
             self._tracer.process_name(PID_REQUESTS, "requests")
+        self._spec = (SpeculativeDecoder(self, speculative)
+                      if speculative is not None else None)
 
     # ------------------------------------------------------------- trainables
     def _build_decode_trainable(self) -> Optional[PyTree]:
@@ -352,6 +416,15 @@ class ServingEngine:
             pos: torch.stack([self._rescaler_by_k[k][pos] for k in ks],
                              dim=-1).to(self.device)
             for pos in self._rescaler_by_k[ks[0]]}}
+
+    def _build_draft_trainable(self, draft_k: int) -> Optional[PyTree]:
+        """The draft window's trainables: every slot at the scalar
+        ``draft_k``, so the ``draft_k`` tier's rescaler when one was given
+        (otherwise the draft runs unrescaled: any draft distribution keeps
+        the rule exact, only the acceptance rate moves)."""
+        if self._rescaler_by_k and draft_k in self._rescaler_by_k:
+            return self._prefill_trainable(draft_k)
+        return None
 
     def _prefill_trainable(self, k: Optional[int]) -> Optional[PyTree]:
         if self._rescaler_by_k and k is not None:
@@ -429,6 +502,9 @@ class ServingEngine:
         is pinned to the slot's k so it resumes at the budget it started
         decoding with."""
         a = self._active[slot]
+        if self._spec is not None:
+            # an open draft window must not leak into the swap state
+            self._spec.rollback_open(slot)
         tier = self.slot_k[slot]
         self._tier_reserved[tier] -= self.pool.reserved_for(slot)
         state = self.pool.swap_out(slot)
@@ -486,8 +562,8 @@ class ServingEngine:
         free = self.pool.free_slots
         if not free or not len(self.scheduler):
             return 0
-        assignments = self.scheduler.admit(free, self.slot_k,
-                                           self._can_admit_fn())
+        assignments = self.scheduler.admit(
+            free, self.slot_k, self._can_admit_fn() if self.paged else None)
         # prefill groups keyed (kind, width, tier): "full" groups key on the
         # exact prompt length; under the prefix cache the match runs now
         # (in admission order, so same-pass duplicates share), and rows
@@ -498,10 +574,11 @@ class ServingEngine:
                      List[Tuple[Request, int, int, int]]] = {}
         for req, slot in assignments:
             self.pool.take(slot)
-            proj = self._projected_tokens(req)
-            self.pool.reserve(slot, proj)
-            self._tier_reserved[self.slot_k[slot]] += \
-                self.pool.blocks_needed(proj)
+            if self.paged:
+                proj = self._projected_tokens(req)
+                self.pool.reserve(slot, proj)
+                self._tier_reserved[self.slot_k[slot]] += \
+                    self.pool.blocks_needed(proj)
             if req.rid in self._swapped:
                 # resume a preempted request from its exact KV state; its
                 # timestamps continue from where the swap-out left them
@@ -541,7 +618,7 @@ class ServingEngine:
             slots = [s for _, s, _, _ in items]
             admitted = self._now()
             if kind == "suffix":
-                logits_np = self._prefill_suffix_group(items, kk)
+                logits = self._prefill_suffix_group(items, kk)
                 report.prefill_tokens += sum(
                     r.prompt_len - st for r, _, st, _ in items)
                 targs = {"batch": nb, "suffix_bucket": width}
@@ -555,7 +632,7 @@ class ServingEngine:
                     self.cfg, self.params, prompts,
                     trainable=self._prefill_trainable(kk), k=kk,
                     dispatch=self.dispatch)
-                logits_np = logits[:, 0].float().cpu().numpy()
+                logits = logits[:, 0].float()
                 # under the prefix cache the match/attach/alloc already
                 # ran: scatter past the matched span only (a same-pass
                 # duplicate recomputes its prompt but must not rewrite the
@@ -565,6 +642,11 @@ class ServingEngine:
                                         if self.prefix_cache else None))
                 report.prefill_tokens += nb * width
                 targs = {"batch": nb, "prompt_len": width}
+            actives = [_ActiveSlot(req=req, tokens=[], nll=0.0,
+                                   admitted=admitted, first_token=0.0,
+                                   max_new=self._max_new(req))
+                       for req, _, _, _ in items]
+            logits_np, drawn = self._select(logits, actives)   # waits
             tft = self._now()
             report.prefill_s.append(tft - admitted)
             report.prefill_hist.observe((tft - admitted) * 1e3)
@@ -572,17 +654,16 @@ class ServingEngine:
                 targs["k"] = kk if kk is not None else 0
                 self._tracer.complete("prefill", admitted, tft, cat="engine",
                                       args=targs)
-            for j, (req, slot, _st, _cov) in enumerate(items):
-                a = _ActiveSlot(req=req, tokens=[], nll=0.0,
-                                admitted=admitted, first_token=tft,
-                                max_new=self._max_new(req))
+            for j, (a, slot) in enumerate(zip(actives, slots)):
+                a.first_token = tft
                 self._active[slot] = a
-                self._emit(slot, a, logits_np[j], report)
+                self._emit(slot, a, logits_np[j], drawn[j], report)
         return len(assignments)
 
-    def _prefill_suffix_group(self, items, kk: Optional[int]) -> np.ndarray:
+    def _prefill_suffix_group(self, items, kk: Optional[int]) -> torch.Tensor:
         """One suffix-prefill call for a group; scatters the new K/V past
-        each row's matched span and returns the rows' last logits.  The
+        each row's matched span and returns the rows' last logits (fp32,
+        on the device).  The
         token block is as wide as the group's longest suffix; when rows'
         suffixes differ, per-token budgets route the padding columns to
         no expert."""
@@ -610,26 +691,58 @@ class ServingEngine:
             page_span=span_b * self.pool.block_size,
             trainable=self._prefill_trainable(kk), k=k, slot_mask=mask,
             dispatch=self.dispatch)
-        logits_np = logits[:, 0].float().cpu().numpy()
         self.pool.write([s for _, s, _, _ in items], piece,
                         [r.prompt_len for r, _, _, _ in items],
                         starts=[cov for _, _, _, cov in items],
                         piece_col0=pref.tolist())
-        return logits_np
+        return logits[:, 0].float()
 
     # --------------------------------------------------------------- sampling
-    def _pick(self, logits_row: np.ndarray,
-              a: _ActiveSlot) -> Tuple[int, float]:
-        """Next token: greedy argmax (first maximal id), or the request's
-        forced token with its NLL."""
+    def _draw(self, a: _ActiveSlot) -> float:
+        """The uniform of the request's next sampling event."""
+        u = event_uniforms(self._seed, a.req.rid, a.events)[0]
+        a.events += 1
+        return u
+
+    def _select(self, logits: torch.Tensor,
+                rows: Sequence[Optional[_ActiveSlot]], *extra: torch.Tensor):
+        """Bring a step's logits (n, V) to the host in one copy, with any
+        ``extra`` tensors and, for the sampled kinds, a token per row drawn
+        on the device (each live, unforced request's row from its next
+        event; the other rows' draws go unused).  Returns (host logits,
+        drawn tokens (all -1 under greedy), host extras...)."""
+        parts = [logits.reshape(-1)]
+        sampled = self._sampler.kind != "greedy"
+        if sampled:
+            u = np.zeros(len(rows))
+            for j, a in enumerate(rows):
+                if a is not None and a.req.forced is None:
+                    u[j] = self._draw(a)
+            tok = sample_token(logits, torch.as_tensor(u).to(
+                logits.device, non_blocking=True), self._sampler)
+            parts.append(tok.to(logits.dtype))     # ids < 2^24: exact
+        parts += [t.float().reshape(-1) for t in extra]
+        host = torch.cat(parts).cpu().numpy()
+        pieces = np.split(host, np.cumsum([t.numel() for t in parts])[:-1])
+        logits_np = pieces[0].reshape(logits.shape)
+        drawn = (pieces[1].astype(np.int64) if sampled
+                 else np.full(len(rows), -1, np.int64))
+        return (logits_np, drawn) + tuple(pieces[1 + sampled:])
+
+    def _pick(self, logits_row: np.ndarray, a: _ActiveSlot,
+              drawn: int) -> Tuple[int, float]:
+        """Next token: the request's forced token with its NLL, the greedy
+        argmax (first maximal id), or the token drawn on the device."""
         if a.req.forced is not None:
             tok = int(a.req.forced[len(a.tokens)])
             return tok, float(-_log_softmax_np(logits_row)[tok])
-        return int(np.argmax(logits_row)), 0.0
+        if self._sampler.kind == "greedy":
+            return int(np.argmax(logits_row)), 0.0
+        return int(drawn), 0.0
 
     def _emit(self, slot: int, a: _ActiveSlot, logits_row: np.ndarray,
-              report: ServingReport) -> None:
-        tok, nll = self._pick(logits_row, a)
+              drawn: int, report: ServingReport) -> None:
+        tok, nll = self._pick(logits_row, a, drawn)
         a.tokens.append(tok)
         a.nll += nll
         self._last_tok[slot, 0] = tok
@@ -643,7 +756,11 @@ class ServingEngine:
         active_mask = torch.as_tensor(
             [a is not None for a in self._active], dtype=torch.float32,
             device=self.device)
-        self.pool.prepare_decode(active)
+        paged = {}
+        if self.paged:
+            self.pool.prepare_decode(active)
+            paged = dict(block_table=self.pool.tables(),
+                         page_span=self.pool.attn_len)
         telemetry = self._expert_tracker is not None
         out = model_lib.decode_step(
             self.cfg, self.params, self.pool.cache,
@@ -651,34 +768,26 @@ class ServingEngine:
             self.pool.positions(), trainable=self._decode_trainable,
             k=self._moe_k,
             slot_mask=active_mask if self.cfg.moe.enabled else None,
-            block_table=self.pool.tables(), page_span=self.pool.attn_len,
-            dispatch=self.dispatch, return_counts=telemetry)
-        logits = out[0][:, 0].float()
-        if telemetry:
-            # the counts ride in the logits' transfer: one wait, one copy
-            counts = out[2]
-            keys = sorted(counts)
-            host = torch.cat([logits.reshape(-1)] + [
-                counts[p].float().reshape(-1) for p in keys]).cpu().numpy()
-            parts = np.split(host, np.cumsum(
-                [logits.numel()] + [counts[p].numel() for p in keys])[:-1])
-            logits_np = parts[0].reshape(logits.shape)    # waited for above
-            step_counts = {p: a.reshape(counts[p].shape)
-                           for p, a in zip(keys, parts[1:])}
-        else:
-            logits_np = logits.cpu().numpy()             # waits for the step
+            dispatch=self.dispatch, return_counts=telemetry, **paged)
+        # the expert counts ride in the logits' transfer: one wait, one copy
+        keys = sorted(out[2]) if telemetry else []
+        logits_np, drawn, *counts = self._select(
+            out[0][:, 0].float(), self._active,
+            *[out[2][p] for p in keys])
         dt = time.perf_counter() - t_start
         report.decode_step_s.append(dt)
         report.decode_hist.observe(dt * 1e3)
         if telemetry:
-            self._expert_tracker.observe_step(step_counts)
+            self._expert_tracker.observe_step(
+                {p: c.reshape(out[2][p].shape) for p, c in zip(keys, counts)})
         if self._tracer.enabled:
             end = self._now()
             self._tracer.complete("decode_step", end - dt, end, cat="engine",
                                   args={"active": len(active)})
         self.pool.advance(active)
         for slot in active:
-            self._emit(slot, self._active[slot], logits_np[slot], report)
+            self._emit(slot, self._active[slot], logits_np[slot], drawn[slot],
+                       report)
 
     def _finish(self, slot: int, report: ServingReport) -> None:
         a = self._active[slot]
@@ -712,7 +821,9 @@ class ServingEngine:
             self._ctr_completions.inc()
             self._ctr_tokens.inc(c.n_generated)
         self._active[slot] = None
-        self._tier_reserved[self.slot_k[slot]] -= self.pool.reserved_for(slot)
+        if self.paged:
+            self._tier_reserved[self.slot_k[slot]] -= \
+                self.pool.reserved_for(slot)
         self.pool.release(slot)
 
     # ------------------------------------------------------------------- loop
@@ -737,6 +848,13 @@ class ServingEngine:
             raise ValueError(
                 f"requests {too_long}: prompt leaves no room for a "
                 f"generated token in a {self.slot_len}-token slot")
+        if self._spec is not None:
+            forced = [r.rid for r in requests if r.forced is not None]
+            if forced:
+                raise ValueError(
+                    f"requests {forced}: teacher-forced (NLL) requests "
+                    "cannot run under speculative decoding — the drafts "
+                    "would diverge from the forced continuation")
         pending = sorted(requests, key=lambda r: r.arrival)
         report = ServingReport(completions=[], num_slots=self.num_slots,
                                slot_k=self.slot_k, slo_ms=self.slo_ms)
@@ -745,6 +863,11 @@ class ServingEngine:
             self._metrics.register("serving.decode_step_ms",
                                    report.decode_hist)
             self._metrics.register("serving.prefill_ms", report.prefill_hist)
+            if self._spec is not None:
+                self._metrics.register("serving.draft_step_ms",
+                                       report.draft_hist)
+                self._metrics.register("serving.verify_step_ms",
+                                       report.verify_hist)
         if self._expert_tracker is not None:
             self._expert_tracker.reset()
         self._t0 = time.perf_counter()
@@ -763,7 +886,10 @@ class ServingEngine:
                                {"active_slots": self.n_active,
                                 "queue_depth": len(self.scheduler)})
                 if self.n_active:
-                    self._decode_once(report)
+                    if self._spec is not None:
+                        self._spec.round(report)
+                    else:
+                        self._decode_once(report)
                     steps += 1
                     if max_steps is not None and steps >= max_steps:
                         break

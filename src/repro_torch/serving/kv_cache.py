@@ -1,5 +1,11 @@
-"""Block-paged KV-cache pool for the serving engine (port of
-``repro/serving/kv_cache.py``: ``_RowPool`` and ``BlockPool``).
+"""KV-cache pools for the serving engine (port of
+``repro/serving/kv_cache.py``: ``_RowPool``, ``SlotPool`` and
+``BlockPool``).
+
+:class:`SlotPool` is the slotted pool: one device cache of ``num_slots``
+fixed-capacity rows (``model.init_cache``) plus a free list and a per-row
+``cache_pos``; a short request pins as many K/V positions as a long one.
+It is the reference's differential oracle for the paged pool.
 
 Attention K/V live in a global pool of fixed-size blocks on the device;
 each request row owns a *block table* mapping its logical positions to
@@ -34,7 +40,7 @@ Device writes are in place: :meth:`BlockPool.write` scatters with one
 leaf, all on the current stream, whose order puts them before the decode
 step that reads them.  (The reference fuses its scatters into one donated
 jitted program to dodge JAX's copy per ``.at[]``; eager PyTorch writes in
-place to begin with.)  The slotted ``SlotPool`` comes with a later slice.
+place to begin with.)
 """
 from __future__ import annotations
 
@@ -114,9 +120,9 @@ class _RowPool:
 
     def truncate_to(self, slot: int, n_tokens: int) -> None:
         """Roll a live row back to ``n_tokens`` written positions (the
-        speculative-decode rollback); never grows a row, and needs an
-        unwrapped cache.  Only the parity tests call it until speculative
-        decoding is ported."""
+        speculative-decode rollback): positions ``>= n_tokens`` become dead
+        and the next write lands at ``n_tokens``.  Never grows a row, and
+        needs an unwrapped cache."""
         if slot in self._free:
             raise ValueError(
                 f"{type(self).__name__}.truncate_to({slot}): slot is free")
@@ -149,6 +155,47 @@ class _RowPool:
         reg.gauge("serving.kv.num_slots").set(self.num_slots)
         reg.gauge("serving.kv.slots_free").set(self.num_free)
         reg.gauge("serving.kv.kv_bytes").set(self.kv_bytes())
+
+
+class SlotPool(_RowPool):
+    """Fixed-capacity slotted KV-cache pool with take/release."""
+
+    def __init__(self, cfg, num_slots: int, slot_len: int, device="cuda"):
+        super().__init__(cfg, num_slots, slot_len, device)
+        self.cache: PyTree = model_lib.init_cache(cfg, num_slots, slot_len,
+                                                  device=self.device)
+
+    def write(self, slots: Sequence[int], piece: PyTree,
+              lengths: Sequence[int],
+              tokens: Optional[Sequence[np.ndarray]] = None,
+              salt: bytes = b"", starts: Optional[Sequence[int]] = None
+              ) -> None:
+        """Install freshly prefilled caches into ``slots``, in place.
+
+        ``piece``: a contiguous cache tree (what ``model.prefill``
+        returns), batch ``>= len(slots)`` on axis 1; its columns land at
+        the row's start and the rest of the row is zeroed.  ``lengths``:
+        per-slot prompt length (the first decode position).  ``tokens``
+        and ``salt`` are accepted for :meth:`BlockPool.write`'s signature
+        and ignored (the slotted layout shares nothing); ``starts`` (a
+        prefix attach) has no meaning here."""
+        del tokens, salt
+        if starts is not None:
+            raise ValueError("SlotPool.write: the slotted pool attaches no "
+                             "prefix (starts must be None)")
+        slots = [int(s) for s in slots]
+        self._require_live(slots)
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        for pos_key, c in self.cache.items():
+            for leaf, rows in c["attn"].items():
+                src = piece[pos_key]["attn"][leaf][:, :len(slots)]
+                n = min(src.shape[2], self.attn_len)
+                block = rows.new_zeros((rows.shape[0], len(slots))
+                                       + rows.shape[2:])
+                block[:, :, :n] = src[:, :, :n]
+                rows[:, idx] = block
+        self.cache_pos[np.asarray(slots)] = np.asarray(list(lengths),
+                                                       np.int32)
 
 
 class BlockPool(_RowPool):
@@ -368,10 +415,7 @@ class BlockPool(_RowPool):
     def truncate_to(self, slot: int, n_tokens: int) -> None:
         """Rollback: drop the row's positions ``>= n_tokens`` and release
         the tail blocks past the kept span (refcount-aware).  The
-        reservation stays booked.  No engine path calls it before
-        speculative decoding is ported (ROADMAP, serving extras); until
-        then only the op-for-op parity tests against the reference pool
-        drive it."""
+        reservation stays booked."""
         super().truncate_to(slot, n_tokens)
         keep = -(-min(n_tokens, self.attn_len) // self.block_size)
         n = int(self._nalloc[slot])

@@ -325,6 +325,33 @@ def test_cuda_engine_matches_cpu_engine(cuda):
         np.testing.assert_array_equal(gt[rid], ct[rid], err_msg=f"rid {rid}")
 
 
+@pytest.mark.parametrize("layout", ["paged", "slotted"])
+def test_cuda_speculative_engine_matches_plain_decode(cuda, layout):
+    """Greedy self-speculative decoding on the card (W = 3 drafts at k = 1,
+    one full-k verify, rollback) gives plain decode's tokens on both KV
+    layouts, float32 2-layer model, and its rounds run the static router
+    (drafts), the per-token router (verify) and the ragged trio."""
+    from repro_torch.serving import SpeculativeConfig
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(dtype="float32")
+    params = _to(tmodel.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu"), cuda)
+    kw = dict(num_slots=4, slot_len=24, slot_k=(2, 2, 1, 1), block_size=4,
+              kv_layout=layout)
+    plain = ServingEngine(cfg, params, **kw).run(_requests(cfg, 8, 4))
+    _build.reset_launches()
+    eng = ServingEngine(cfg, params, speculative=SpeculativeConfig(3, 1),
+                        **kw)
+    rep = eng.run(_requests(cfg, 8, 4))
+    assert rep.spec_rounds > 0
+    for name in ("topk_router", "adaptive_topk_router", "ragged_gather",
+                 "ragged_expert_matmul", "ragged_combine"):
+        assert _build.LAUNCHES[name] > 0, _build.LAUNCHES
+    pt, st = plain.tokens_by_rid(), rep.tokens_by_rid()
+    for rid in pt:
+        np.testing.assert_array_equal(st[rid], pt[rid], err_msg=f"rid {rid}")
+    assert eng.pool.num_free == 4
+
+
 def _shared_prefix_requests(cfg, n, seed):
     """Prompts of 6 or 10 tokens opening with one of two 4-token prefixes,
     the last two repeating earlier prompts."""

@@ -243,8 +243,10 @@ def test_later_slice_branches_raise():
         tmodel.prefill(TCFG.replace(attn_logit_softcap=30.0), TPARAMS, x, k=2)
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tmodel.prefill(TCFG.replace(attention_window=4), TPARAMS, x, k=2)
-    with pytest.raises(NotImplementedError, match="slotted"):
-        tmodel.decode_step(TCFG, TPARAMS, {}, x[:, :1], 0, k=2)
+    ring = TCFG.replace(attention_window=4)
+    with pytest.raises(NotImplementedError, match="sliding-window"):
+        tmodel.decode_step(ring, TPARAMS, tmodel.init_cache(ring, 4, 8, "cpu"),
+                           x[:, :1], 0, k=2)
     expert_lora = {"experts": {"w1": {"a": torch.ones(1), "b": torch.ones(1)}}}
     with pytest.raises(NotImplementedError, match="LoRA"):
         apply_moe(jax.tree.map(lambda a: a[0],

@@ -5,7 +5,8 @@ both engines paged with ragged dispatch and greedy sampling: the generated
 tokens must be identical per request.  Also the numpy-only copies
 (workload traces, histogram) against their originals, the serving
 launcher, and the options that later slices bring (the traffic layer
-and its observability: ``tests/test_torch_traffic.py``).
+and its observability: ``tests/test_torch_traffic.py``; speculative and
+sampled decoding and the slotted pool: ``tests/test_torch_speculative.py``).
 """
 import jax
 import numpy as np
@@ -122,8 +123,8 @@ def test_workload_and_histogram_copies_match_the_originals():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_layout="slotted"), dict(dispatch="dense"),
-    dict(speculative=object()), dict(lora={"blocks": {}}),
+    dict(dispatch="capacity"), dict(dispatch="dense"),
+    dict(lora={"blocks": {}}, kv_layout="slotted"), dict(lora={"blocks": {}}),
 ])
 def test_engine_later_slice_options_raise(kw):
     with pytest.raises(NotImplementedError, match="later|slice"):
@@ -131,9 +132,17 @@ def test_engine_later_slice_options_raise(kw):
 
 
 def test_sampler_is_greedy_only():
+    """Greedy by default; the sampled kinds (ported since the serving
+    extras, ``tests/test_torch_speculative.py``) keep the reference's
+    argument checks."""
     assert SamplerConfig().kind == "greedy"
-    with pytest.raises(NotImplementedError, match="sampled decoding"):
-        SamplerConfig(kind="top_p", top_p=0.9)
+    assert SamplerConfig(kind="top_p", top_p=0.9).top_p == 0.9
+    with pytest.raises(ValueError, match="not in"):
+        SamplerConfig(kind="beam")
+    with pytest.raises(ValueError, match="temperature"):
+        SamplerConfig(kind="temperature", temperature=0.0)
+    with pytest.raises(ValueError, match="top_p"):
+        SamplerConfig(kind="top_p", top_p=1.5)
 
 
 def test_serve_launcher_runs_on_cpu(capsys):
@@ -146,8 +155,8 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--local", "--speculate"], "serving-extras"),
-    (["--local", "--kv-layout", "slotted"], "slotted pool"),
+    (["--local", "--dispatch", "dense"], "serving-extras"),
+    (["--local", "--multi-pod"], "multi-chip"),
     (["--device", "cpu"], "multi-chip"),
 ])
 def test_serve_launcher_rejects_later_slice_flags(argv, match):
