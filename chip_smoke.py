@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
 federated training round, checkpoints and resume, the three baselines,
-the serving engine's traffic layer and self-speculative decoding — on one
-NVIDIA GPU.
+the serving engine's traffic layer, self-speculative decoding and LoRA
+serving (the federated adapter unmerged) — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -37,8 +37,12 @@ nothing else of the network or the filesystem.  Phases:
    times by CUDA events with the L2 flushed before every call, and each
    kernel's bound (bytes over 3.35 TB/s or FLOPs over the peak);
 3. backward — gradients through the autograd wrappers (both LoRA
-   matmuls, both router entries, flash) against autograd through their
-   plain versions, float32, b != 0;
+   matmuls, both router entries, flash, and the ragged trio on a plan at
+   budgets (1, 2, 8, 0) with padding rows, the grouped matmul with a
+   rank-20 adapter) against autograd through their plain versions,
+   float32, b != 0; then a 2-layer full-width model's ``lm_loss``
+   gradients (every trainable leaf) under ragged dispatch against dense
+   dispatch on the card, relative L2 <= 1e-4;
 4. serving — OLMoE-1.3B/6.9B FULL (16 layers, bf16, random seeded weights)
    served by ``ServingEngine``: 8 slots at tiers (8,8,4,4,2,2,1,1), 16
    requests of 128/256-token prompts and 16 new tokens each, one request
@@ -121,7 +125,32 @@ nothing else of the network or the filesystem.  Phases:
    equal across layouts, the kernel calls of one round within 1e-5, and
    speculation with prefix cache and preemption on (b)'s forced-
    preemption shape token for token against the same engine without it;
-12. summary — a ``{"kernels": [...]}`` line, then the last line
+12. LoRA serving — (a) OLMoE FULL, bf16, the serving phase's weights,
+   engine shape and 16 requests, with a seeded rank-20 adapter on q/k/v/o
+   and every expert's w1/w2/w3 (its LoRA term a tenth of the base
+   product's rms on layer 0) served unmerged (``lora=``) against the
+   engine on ``merge_into_params``: requests token-identical or the first
+   divergence a near-tie (phase 11's rule); against the engine without
+   the adapter most requests differ; counts zeroed just before the
+   unmerged run: the grouped ragged matmul (its LoRA route) 3 and
+   ``lora_matmul`` 4 launches per layer and engine call, hand-kernel
+   launches per decode step against merged serving's, tokens/s and
+   decode p50 of the three; (b) every kernel call of one prefill call
+   (T = 256, k = 8) and one decode step (T = 8, the tiers) against its
+   plain version at every layer, layer 0's LoRA calls timed beside their
+   bounds and the library's base product; (c) the 2-layer full-width
+   model in float32 with a random adapter: token for token unmerged
+   against merged, ragged against dense and capacity (factor E),
+   speculative against plain decode, prefix-cached against cold; under
+   dense and capacity dispatch, at bf16 FULL and in (c): counts zeroed
+   just before each run, ``lora_matmul_experts`` 3 and ``lora_matmul`` 4
+   launches per layer and engine call and no ragged launch, and every
+   kernel call of one prefill call (two 256-token prompts at k = 8: two
+   routing groups under dense) and one decode step held against its plain
+   version; dense at bf16 FULL against ragged by the near-tie rule; (d)
+   phase 5's global adapter with one client's rescaler per tier served
+   unmerged at FULL: every request complete, finite logits;
+13. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -711,6 +740,7 @@ def main() -> int:
 
     # ------------------------------------------------ 3. backward wrappers
     backward_phase(torch, backend, ref, dev, check)
+    ragged_loss_grads(torch, dev, check)
 
     # ------------------------------------------------ 4. serving, FULL
     cfg = get_config("olmoe-1.3b-6.9b", "full")
@@ -779,9 +809,9 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ------------------------------------------------ 5. training, FULL
-    train_launches = training_phase(torch, cfg, params, dev, check,
-                                     expert_ms,
-                                     {r["name"]: r["ms"] for r in rows})
+    train_launches, fed_adapter = training_phase(
+        torch, cfg, params, dev, check, expert_ms,
+        {r["name"]: r["ms"] for r in rows})
     # launches: the router's two entries, flash and the ragged trio from
     # the serving run (their path), the LoRA matmuls from the training
     # round (theirs); both runs' counters are printed
@@ -876,12 +906,58 @@ def main() -> int:
     # verify step, flash for prefill, the ragged trio throughout
     for row in rows:
         row["spec_launches"] = spec_launches[row["name"]]
-    del params
-    torch.cuda.empty_cache()
     speculative_fp32_phase(torch, cfg2, dev, check, kc)
     print(f"speculative phase: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 12. summary
+    # ------------------------------------------------ 12. LoRA serving
+    t0 = time.perf_counter()
+    lora_launches, lt, lora_err, onehot_launches = lora_serving_phase(
+        torch, cfg, params, dev, check, kc, fed_adapter)
+    del params, fed_adapter
+    torch.cuda.empty_cache()
+    # the two LoRA routes of the serving path, timed at layer 0 of the
+    # decode step (their launches: the unmerged run's, every one of them
+    # with the adapter); the prefill step's times are printed beside
+    for part in ("decode", "prefill"):
+        print(f"lora kernel times, {part} step layer 0 (bf16): " + "; ".join(
+            f"{n} {ms:.4f} ms (plain {pl:.4f}, bound "
+            f"{bound_ms(nb, fl, BF16_FLOPS)[0]:.4f} by "
+            f"{bound_ms(nb, fl, BF16_FLOPS)[1]}, library "
+            f"{'none' if lib is None else f'{lib:.4f}'})"
+            for n, (ms, pl, nb, fl, lib) in lt[part].items()))
+    for name, key, replaces, kname, what in (
+            ("ragged_expert_matmul (LoRA route, decode)", "ragged w1",
+             "ragged_dispatch.py:175", "ragged_expert_matmul",
+             "torch._grouped_mm, base product only"),
+            ("lora_matmul (serving, decode M=8)", "lora_matmul",
+             "lora_matmul.py:63", "lora_matmul",
+             "torch.matmul(x, W), base product only")):
+        ms, pl, nb, fl, lib = lt["decode"][key]
+        record(name, src + ("ragged_dispatch.cu" if "ragged" in kname
+                            else "lora_matmul.cu"), tpu + replaces,
+               lora_err[kname], ms, pl, nb, fl, BF16_FLOPS, library_ms=lib,
+               library_what=what)
+        rows[-1]["launches"] = lora_launches[kname]
+    # lora_matmul_experts at the one-hot modes' serving shapes (layer 0's
+    # w1); the row's launches: the bf16 dense run's
+    for key in ("dense prefill", "dense decode", "capacity prefill",
+                "capacity decode"):
+        ms, pl, nb, fl, lib = lt[key]
+        b_ms, b_by = bound_ms(nb, fl, BF16_FLOPS)
+        print(f"lora_matmul_experts, {key} step layer 0 w1 (bf16): "
+              f"{ms:.4f} ms (plain {pl:.4f}, bound {b_ms:.4f} by {b_by}, "
+              f"library torch.bmm {lib:.4f})")
+    ms, pl, nb, fl, lib = lt["dense decode"]
+    record("lora_matmul_experts (serving, dense decode)",
+           src + "lora_matmul.cu", tpu + "lora_matmul.py:101",
+           lora_err["dense lora_matmul_experts"], ms, pl, nb, fl, BF16_FLOPS,
+           library_ms=lib, library_what="torch.bmm(x, W), base product only")
+    rows[-1]["launches"] = onehot_launches["dense"]
+    rows[-1]["capacity_launches"] = onehot_launches["capacity"]
+    lora_fp32_phase(torch, cfg2, dev, check, kc)
+    print(f"LoRA serving phase: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 13. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -894,7 +970,10 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
     backward) against autograd through the plain version, float32, with a
     random cotangent and b != 0 so that dA != 0.  Tolerance 1e-4 relative
     to the largest gradient: fp32 both sides, the forward sums over K in
-    another order and the backward products are the same."""
+    another order and the backward products are the same.  The ragged
+    trio runs on a plan of 256 tokens at budgets (1, 2, 8, 0) over 64
+    experts, padding rows present."""
+    from repro_torch.kernels.ragged_dispatch import ragged_plan
     g = torch.Generator(device=dev).manual_seed(5)
 
     def rn(*shape, scale=1.0):
@@ -910,6 +989,14 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
     def flash_plain(q, k, v):
         return ref.flash_attention_ref(*(t.transpose(1, 2) for t in
                                          (q, k, v))).transpose(1, 2)
+
+    kt = torch.tensor((1, 2, 8, 0), dtype=torch.int32, device=dev).repeat(64)
+    w_r, m_r, _ = ref.adaptive_topk_router_ref(rn(256, 64), kt, 8)
+    pl = ragged_plan(m_r, w_r, budget=int(kt.sum()), max_k=8)
+    n_rows = pl.src.shape[0]
+    check(int(pl.valid.sum()) < n_rows, "backward: the ragged plan has no "
+          "padding rows")
+    be = pl.block_expert
 
     cases = {
         "lora_matmul": (lora_in((), 300, 512, 384, 20),
@@ -930,6 +1017,21 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
                              rn(2, 128, 16, 128)),
                             lambda q, k, v: backend.flash_attention(q, k, v),
                             flash_plain),
+        "ragged_gather": (
+            (rn(256, 512),),
+            lambda x: backend.ragged_gather(x, pl.src, pl.valid),
+            lambda x: ref.ragged_gather_ref(x, pl.src, pl.valid)),
+        "ragged_expert_matmul (LoRA r20)": (
+            (rn(n_rows, 512), rn(64, 512, 256, scale=512 ** -0.5),
+             rn(64, 512, 20, scale=512 ** -0.5), rn(64, 20, 256, scale=0.1)),
+            lambda xs, w, a, b: backend.ragged_expert_matmul(
+                xs, be, w, a, b, scale=1.25),
+            lambda xs, w, a, b: ref.ragged_expert_matmul_ref(
+                xs, be, w, a, b, scale=1.25)),
+        "ragged_combine": (
+            (rn(n_rows, 512), pl.wrank.clone()),
+            lambda eo, w: backend.ragged_combine(eo, pl.rows, w),
+            lambda eo, w: ref.ragged_combine_ref(eo, pl.rows, w)),
     }
     for name, (inputs, wrap, plain) in cases.items():
         outs = []
@@ -949,11 +1051,63 @@ def backward_phase(torch, backend, ref, dev, check) -> None:
               + ", ".join(f"{e:.3e}" for e in errs))
 
 
+def ragged_loss_grads(torch, dev, check) -> None:
+    """The gradient of every trainable leaf (adapters with b != 0, the
+    rescalers) of ``lm_loss`` on a 2-layer full-width model in float32 on
+    the card: ``dispatch="ragged"`` (the trio's Functions) against
+    ``dispatch="dense"`` (one-hot, the expert LoRA kernel), relative L2
+    <= 1e-4 per leaf (fp32; the two sum over experts in other orders)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as model_lib
+    c32 = get_config("olmoe-1.3b-6.9b", "full").replace(num_layers=2,
+                                                       dtype="float32")
+    params = model_lib.init_params(
+        c32, torch.Generator(device=dev).manual_seed(12), dev)
+    lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(13),
+                              c32, params)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for path, leaf in _paths(lora):
+        if path[-1] == "b":
+            leaf.copy_(torch.randn(leaf.shape, generator=gen, device=dev)
+                       * 0.02)
+    tok = torch.randint(0, c32.vocab_size, (2, 64), generator=gen,
+                        device=dev)
+    grads, launches = {}, {}
+    for mode in ("ragged", "dense"):
+        tr = {"lora": _clone(lora),
+              "rescaler": lora_lib.init_rescalers(c32, 8, device=dev)}
+        leaves = [leaf.requires_grad_(True) for _, leaf in _paths(tr)]
+        _build.reset_launches()
+        loss, _ = model_lib.lm_loss(c32, params, tok, tok.roll(-1, 1),
+                                    trainable=tr, k=8, dispatch=mode)
+        grads[mode] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        launches[mode] = dict(_build.LAUNCHES)
+    for name in ("ragged_gather", "ragged_expert_matmul", "ragged_combine"):
+        check(launches["ragged"][name] == 2 * (3 if "matmul" in name else 1),
+              f"ragged lm_loss: {launches['ragged'][name]} {name} launches")
+        check(launches["dense"][name] == 0, f"dense lm_loss launched {name}")
+    rel = [((r - d).norm() / d.norm()).item()
+           for r, d in zip(grads["ragged"], grads["dense"])]
+    check(all(d.norm() > 0 for d in grads["dense"]),
+          "ragged lm_loss: a dense gradient is zero")
+    check(max(rel) <= 1e-4, f"ragged lm_loss gradients: relative L2 "
+          f"{max(rel):.3e} > 1e-4 against dense dispatch")
+    print(f"backward lm_loss (2 layers, full width, fp32, k=8): ragged "
+          f"against dense dispatch, {len(rel)} trainable leaves, relative "
+          f"L2 max {max(rel):.3e} (median {float(np.median(rel)):.3e})")
+    del params, lora
+    torch.cuda.empty_cache()
+
+
 def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
     """The reference's default FLAME round (batched cohort engine, host
     driver) at OLMoE FULL on the card through the port's entry points,
     held against the looped engine from the same start; returns the
-    batched round's launch counts."""
+    batched round's launch counts and (the round's global adapter, one
+    client's rescaler per tier)."""
     import dataclasses
 
     from repro_torch.configs import FederatedConfig, TrainConfig
@@ -1133,8 +1287,12 @@ def training_phase(torch, cfg, params, dev, check, expert_ms, kernel_ms):
     for name in ("ragged_gather", "ragged_expert_matmul", "ragged_combine",
                  "adaptive_topk_router"):
         check(launches[name] == 0, f"training round launched {name}")
+    # the round's global adapter and one client's rescaler per tier, for
+    # the LoRA serving phase's FLAME pipeline
+    adapter = (server.global_lora,
+               {c.k: c.rescaler for c in reversed(server.clients)})
     del exp, server, looped, start_lora
-    return launches
+    return launches, adapter
 
 
 def _two_layer_experiment(cfg2, params, dev, num_clients=8, **fed_kw):
@@ -1415,7 +1573,8 @@ def _recorded(torch, fn):
         setattr(mod, name, rec)
 
     for name in ("flash_attention", "router", "adaptive_router",
-                 "ragged_gather", "ragged_expert_matmul", "ragged_combine"):
+                 "ragged_gather", "ragged_expert_matmul", "ragged_combine",
+                 "lora_matmul", "lora_matmul_experts"):
         wrap(backend, name)
     wrap(attention, "suffix_attention",
          lambda q, k, v, kp, vp, tbl, plen, span: (
@@ -2092,7 +2251,7 @@ def _time_layer0(torch, calls, kc):
         t(lambda: torch.index_select(x, 0, src)))
     n_valid = int(valid.sum())
     for label, call in (("w1/w3", calls[2]), ("w2", calls[4])):
-        xs, be, w = call[1]
+        xs, be, w = call[1][:3]
         K, H = w.shape[1], w.shape[2]
         n_exp = int(torch.unique(be).numel())
         peak = BF16_FLOPS if xs.dtype != torch.float32 else F32_FLOPS
@@ -2338,6 +2497,512 @@ def speculative_fp32_phase(torch, cfg2, dev, check, kc) -> None:
           f"engine without speculation, pool invariants hold "
           f"({time.perf_counter() - t_phase:.1f} s)")
     del eng, params
+    torch.cuda.empty_cache()
+
+
+LORA_REL = 0.1
+
+
+def _pairs(tree, prefix=()):
+    """(key path, {"a", "b"} node) of an adapter tree, keys sorted."""
+    if set(tree) == {"a", "b"}:
+        yield prefix, tree
+        return
+    for k in sorted(tree):
+        yield from _pairs(tree[k], prefix + (k,))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _rms(t) -> float:
+    return t.float().pow(2).mean().sqrt().item()
+
+
+def _serving_adapter(torch, cfg, params, dev, seed, rel=LORA_REL):
+    """A seeded rank-``cfg.lora.rank`` adapter on q/k/v/o and every
+    expert's w1/w2/w3: ``init_lora``'s ``a`` (N(0, 1/d_in)), and ``b``
+    drawn N(0, σ²) per weight, σ set on layer 0 so that the LoRA term's
+    rms is ``rel`` times the base product's for x ~ N(0, 1) (256 rows;
+    the expert weights at expert 0): σ = rel · rms(x·W) / (rms(x·A) ·
+    sqrt(r) · s), s the LoRA scale.  Returns (adapter, {weight: measured
+    rms((x·A)·B·s) / rms(x·W) at layer 0})."""
+    from repro_torch.core import lora as lora_lib
+    lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(seed),
+                              cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    r, s = cfg.lora.rank, cfg.lora.scale
+    blocks = params["blocks"]["pos0"]
+    ratios = {}
+    for path, pair in _pairs(lora["blocks"]["pos0"]):
+        w0, a0 = _at(blocks, path)[0].float(), pair["a"][0].float()
+        if w0.dim() == 3:
+            w0, a0 = w0[0], a0[0]
+        x = torch.randn(256, w0.shape[0], generator=gen, device=dev)
+        sigma = rel * _rms(x @ w0) / (_rms(x @ a0) * r ** 0.5 * s)
+        pair["b"].copy_(torch.randn(pair["b"].shape, generator=gen,
+                                    device=dev) * sigma)
+        b0 = pair["b"][0].float()
+        b0 = b0[0] if b0.dim() == 3 else b0
+        ratios[".".join(path[-2:])] = _rms((x @ a0) @ b0 * s) / _rms(x @ w0)
+    return lora, ratios
+
+
+def _lora_step_calls(torch, cfg, params, lora, check, what, dispatch="ragged"):
+    """Every kernel call of one prefill call and of one decode step (8
+    slots at the tiers), on an engine serving ``lora`` unmerged under
+    ``dispatch``.  The prefill call takes one 256-token prompt at k = 8
+    under ragged dispatch, two under the one-hot modes (two routing groups
+    under dense, a bucket of two under capacity).  Returns (prefill calls,
+    decode calls)."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import ServingReport
+    eng = ServingEngine(cfg, params, lora=lora, num_slots=8, slot_len=512,
+                        slot_k=TRAFFIC_SLOTS, block_size=16,
+                        dispatch=dispatch)
+    report = ServingReport(completions=[])
+    eng._t0 = time.perf_counter()
+    reqs = _spec_requests(cfg, n=10, new=4, seed=5)
+    first = [reqs[1]] if dispatch == "ragged" else [reqs[1], reqs[9]]
+    check(all(r.prompt_len == 256 and r.k == 8 for r in first),
+          f"{what}: requests 1 and 9 are not 256-token prompts at k=8")
+    with torch.inference_mode():
+        for r in first:
+            eng.scheduler.add(r)
+        _, pre = _recorded(torch, lambda: eng._admit(report))
+        for r in (reqs[:1] if dispatch == "ragged" else []) + reqs[2:8]:
+            eng.scheduler.add(r)
+        eng._admit(report)
+        check(eng.n_active == 8, f"{what}: {eng.n_active} slots busy")
+        _, dec = _recorded(torch, lambda: eng._decode_once(report))
+        while eng.n_active:
+            eng._decode_once(report)
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, f"{what}: blocks held after the run")
+    return pre, dec
+
+
+def _check_lora_calls(torch, cfg, calls, check, kc, what, router, T,
+                      slots=None, prefill=None):
+    """Each recorded call against its plain version, at every layer: the
+    per-layer call counts, every expert matmul carrying the expert
+    adapter, routers exact (weights within 1e-6), the gather exact, the
+    rest within ``kc["close"]`` (phase 2's: close_16bit at bf16, 1e-4·max
+    at float32).  ``slots``: None for ragged dispatch, else the one-hot
+    modes' expert slot count G·C that every ``lora_matmul_experts`` call
+    must have.  ``prefill``: whether the call is a prefill (one flash
+    launch per layer); by default, whether ``router`` is the static one.
+    Returns {name: max |kernel - plain|}."""
+    from repro_torch.kernels import ref
+    close = kc["close"]
+    L = cfg.num_layers
+    names = [c[0] for c in calls]
+    if prefill is None:
+        prefill = router == "router"
+    want_n = {router: L, "lora_matmul": 4 * L,
+              "flash_attention": L if prefill else 0}
+    if slots is None:
+        want_n.update({"ragged_gather": L, "ragged_combine": L,
+                       "ragged_expert_matmul": 3 * L})
+    else:
+        want_n["lora_matmul_experts"] = 3 * L
+    for name, n in want_n.items():
+        check(names.count(name) == n, f"{what}: {names.count(name)} {name} "
+              f"calls, not {n}")
+    check(len(names) == sum(want_n.values()), f"{what}: other calls {names}")
+    worst = {}
+    for name, a, kw, out in calls:
+        tag = f"{what} {name}"
+        if name == "flash_attention":
+            q, k, v = (t.transpose(1, 2) for t in a)
+            err = close(out, ref.flash_attention_ref(
+                q, k, v, causal=kw["causal"],
+                window=kw["window"]).transpose(1, 2), tag)
+        elif name in ("router", "adaptive_router"):
+            check(a[0].shape[0] == T, f"{tag} at T={a[0].shape[0]}")
+            plain = (ref.topk_router_ref if name == "router"
+                     else ref.adaptive_topk_router_ref)
+            err = kc["router"](out, plain(*a), tag)
+        elif name == "ragged_gather":
+            check(torch.equal(out, ref.ragged_gather_ref(*a)),
+                  f"{tag} differs from the plain version")
+            err = 0.0
+        elif name == "ragged_expert_matmul":
+            check(len(a) == 5 and a[3] is not None, f"{tag} without LoRA")
+            err = close(out, ref.ragged_expert_matmul_ref(*a, **kw), tag)
+        elif name == "ragged_combine":
+            err = close(out, ref.ragged_combine_ref(*a), tag)
+        elif name == "lora_matmul_experts":
+            check(a[0].shape[1] == slots, f"{tag} over {a[0].shape[1]} "
+                  f"slots, not {slots}")
+            err = close(out, ref.lora_matmul_experts_ref(*a, kw["scale"]),
+                        tag)
+        else:
+            err = close(out, ref.lora_matmul_ref(*a, kw["scale"]), tag)
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def _one_hot_slots(cfg, dispatch, rows, S, ks):
+    """The expert slot count G·C of one prefill call (``rows`` prompts of
+    ``S`` tokens at ``ks[0]``) or decode step (S = 1, ``ks`` the active
+    budgets) under a one-hot mode, by the port's own rules: dense routes
+    a prefill call one group per row with C its token count; capacity
+    routes one group whose C follows the budgets of the call's bucket."""
+    from repro_torch.models import moe_layer
+    if dispatch == "dense":
+        groups = rows if S > 1 else 1
+        return groups * moe_layer.dense_capacity(rows * S // groups)
+    return moe_layer._capacity_from_assignments(
+        S * sum(ks), cfg.moe.num_experts, cfg.moe.capacity_factor)
+
+
+def _one_hot_step_checks(torch, cfg, params, lora, check, kc, what):
+    """Under dense and capacity dispatch: every kernel call of one LoRA
+    prefill call (two 256-token prompts at k = 8) and one decode step (the
+    tiers) against its plain version at every layer
+    (``_check_lora_calls``).  Returns {dispatch: (prefill calls, decode
+    calls, {name: max |kernel - plain|})}."""
+    out = {}
+    for d in ("dense", "capacity"):
+        pre, dec = _lora_step_calls(torch, cfg, params, lora, check,
+                                    f"{what} {d}", dispatch=d)
+        worst = {}
+        # capacity prefills a bucket with its real-row mask: the
+        # per-token-budget router
+        pre_router = "router" if d == "dense" else "adaptive_router"
+        for part, calls, router, T, slots in (
+                ("prefill", pre, pre_router, 512,
+                 _one_hot_slots(cfg, d, 2, 256, (8, 8))),
+                ("decode", dec, "adaptive_router", 8,
+                 _one_hot_slots(cfg, d, 8, 1, TRAFFIC_SLOTS))):
+            w = _check_lora_calls(torch, cfg, calls, check, kc,
+                                  f"{what} {d} {part}", router, T, slots,
+                                  prefill=part == "prefill")
+            for k, v in w.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            print(f"{what} {d} {part} (T={T}, {slots} expert slots): every "
+                  f"kernel call of {cfg.num_layers} layers against its plain "
+                  "version, max |kernel - plain|: "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in w.items()))
+        out[d] = (pre, dec, worst)
+    return out
+
+
+def _one_hot_run_checks(torch, eng, reqs, check, what):
+    """One run of a dense or capacity engine serving an adapter, counts
+    zeroed just before it: ``lora_matmul_experts`` 3 and ``lora_matmul`` 4
+    launches per layer and engine call, flash once per layer and prefill
+    call, no ragged launch.  Returns ``_spec_run``'s result."""
+    rep, rec, la = _spec_run(torch, eng, reqs)
+    L = eng.cfg.num_layers
+    n_pre, n_calls = len(rep.prefill_s), len(rep.prefill_s) + len(
+        rep.decode_step_s)
+    for name, want in (("lora_matmul_experts", 3 * L * n_calls),
+                       ("lora_matmul", 4 * L * n_calls),
+                       ("flash_attention", L * n_pre),
+                       ("ragged_gather", 0), ("ragged_expert_matmul", 0),
+                       ("ragged_combine", 0)):
+        check(la[name] == want, f"{what}: {la[name]} {name} launches for "
+              f"{n_calls} engine calls ({n_pre} prefill) x {L} layers, not "
+              f"{want}")
+    s = rep.summary()
+    check(s["n_requests"] == len(reqs), f"{what}: {s['n_requests']} requests")
+    return rep, rec, la
+
+
+def _time_lora_layer0(torch, calls, kc):
+    """Layer 0's q projection (``lora_matmul``) and its grouped w1 and w2
+    (the ragged LoRA route) of a step: (ms, plain ms, bytes, FLOPs,
+    library ms of the base product alone) each, CUDA events, L2 flushed.
+    Bytes: every input read once and the output written once (for the
+    grouped matmul: each expert that a row block names, its W, A and B);
+    FLOPs: the products of the valid rows."""
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    out = {}
+    x, w, a, b = next(c[1] for c in calls if c[0] == "lora_matmul")
+    sc = next(c[2]["scale"] for c in calls if c[0] == "lora_matmul")
+    M, K = x.shape
+    N, r = w.shape[1], a.shape[1]
+    out["lora_matmul"] = (
+        t(lambda: backend.lora_matmul(x, w, a, b, scale=sc)),
+        t(lambda: ref.lora_matmul_ref(x, w, a, b, sc)),
+        2 * (M * K + K * N + K * r + r * N + M * N),
+        2.0 * M * (K * N + K * r + r * N),
+        t(lambda: torch.matmul(x, w)))
+    valid = next(c[1][2] for c in calls if c[0] == "ragged_gather")
+    n_valid = int(valid.sum())
+    mms = [c for c in calls if c[0] == "ragged_expert_matmul"]
+    for label, (_, args, kw, _) in (("w1", mms[0]), ("w2", mms[2])):
+        xs, be, w, a, b = args
+        E, K, H = w.shape
+        r = a.shape[2]
+        n_exp = int(torch.unique(be).numel())
+        bm = xs.shape[0] // be.shape[0]
+        ends = (torch.cumsum(torch.bincount(be.long(), minlength=E), 0)
+                * bm).to(torch.int32)
+        lib = (t(lambda: torch._grouped_mm(xs, w, offs=ends))
+               if hasattr(torch, "_grouped_mm") else None)
+        out[f"ragged {label}"] = (
+            t(lambda: backend.ragged_expert_matmul(xs, be, w, a, b, **kw)),
+            t(lambda: ref.ragged_expert_matmul_ref(xs, be, w, a, b, **kw)),
+            2 * (xs.shape[0] * K + n_exp * (K * H + K * r + r * H)
+                 + xs.shape[0] * H),
+            2.0 * n_valid * (K * H + K * r + r * H), lib)
+    return out
+
+
+def _time_experts_layer0(torch, calls, kc):
+    """Layer 0's w1 ``lora_matmul_experts`` call of a one-hot step: (ms,
+    plain ms, bytes, FLOPs, ms of ``torch.bmm`` on the base product
+    alone), CUDA events, L2 flushed; bytes and FLOPs over every slot."""
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    (x, w, a, b), kw = next((c[1], c[2]) for c in calls
+                            if c[0] == "lora_matmul_experts")
+    E, C, K = x.shape
+    N, r = w.shape[2], a.shape[2]
+    return (t(lambda: backend.lora_matmul_experts(x, w, a, b, **kw)),
+            t(lambda: ref.lora_matmul_experts_ref(x, w, a, b, kw["scale"])),
+            2 * E * (C * K + K * N + K * r + r * N + C * N),
+            2.0 * E * C * (K * N + K * r + r * N),
+            t(lambda: torch.bmm(x, w)))
+
+
+def lora_serving_phase(torch, cfg, params, dev, check, kc, fed_adapter):
+    """LoRA serving at OLMoE FULL, bf16, on the serving phase's weights,
+    engine shape and 16 requests: (a) a seeded rank-20 adapter
+    (``_serving_adapter``, the LoRA term at a tenth of the base product's
+    rms on layer 0) served unmerged against the engine on
+    ``merge_into_params`` (merged in fp32, then cast): every request
+    token-identical or its first divergence a near-tie (phase 11's rule);
+    against the engine without the adapter most requests differ; the
+    unmerged run's launches (counters zeroed just before it) — the
+    grouped matmul (its LoRA route) 3 and ``lora_matmul`` 4 per layer and
+    engine call; hand-kernel launches per decode step, tokens/s and decode
+    p50 of the three; then the dense and capacity engines with the
+    adapter (``_one_hot_run_checks``; dense against ragged by the
+    near-tie rule); (b) every kernel call of one prefill call (T = 256,
+    k = 8) and one decode step (T = 8, the tiers) against its plain
+    version at every layer, layer 0's LoRA calls timed, and the same
+    under dense and capacity (``_one_hot_step_checks``, layer 0's expert
+    call timed); (d) the FLAME
+    pipeline: phase 5's global adapter with one client's rescaler per
+    tier, unmerged, 8 requests, every request complete with finite
+    logits.  Returns (the unmerged run's launches, layer 0's times
+    {"prefill"|"decode"|"<mode> prefill"|"<mode> decode": ...}, max
+    |kernel - plain| per kernel, {mode: lora_matmul_experts launches})."""
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.serving import ServingEngine
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+    lora, ratios = _serving_adapter(torch, cfg, params, dev, seed=21)
+    print(f"lora serving adapter: rank {cfg.lora.rank}, scale "
+          f"{cfg.lora.scale}, rms(LoRA term) / rms(base product) at layer "
+          f"0: " + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    merged = lora_lib.merge_into_params(params, lora, cfg.lora.scale)
+    # warm-up off the clock: the LoRA shapes are new to cuBLAS and caches
+    ServingEngine(cfg, params, lora=lora, **base).run(
+        _spec_requests(cfg, n=8, new=2, seed=9))
+    runs = {}
+    for name, p_, lo in (("merged", merged, None), ("unmerged", params, lora),
+                         ("no adapter", params, None)):
+        runs[name] = _spec_run(torch, ServingEngine(cfg, p_, lora=lo, **base),
+                               _spec_requests(cfg))
+    del merged
+    torch.cuda.empty_cache()
+    toks = {n: r[0].tokens_by_rid() for n, r in runs.items()}
+    for name, (rep, _, _) in runs.items():
+        s = rep.summary()
+        check(s["n_requests"] == 16 and s["gen_tokens"] == 16 * 16,
+              f"lora {name}: {s['n_requests']} requests, {s['gen_tokens']} "
+              "tokens")
+    div = _first_divergences(runs["merged"][1], toks["merged"],
+                             runs["unmerged"][1], toks["unmerged"])
+    for rid, t, gap, d in div:
+        check(gap <= d, f"lora unmerged: request {rid} differs from merged "
+              f"at position {t}, where the merged top-2 gap {gap:.3e} "
+              f"exceeds max |unmerged - merged| {d:.3e} (not a near-tie)")
+    n_moved = sum(not np.array_equal(toks["no adapter"][r], toks["unmerged"][r])
+                  for r in toks["unmerged"])
+    check(n_moved > 8, f"lora: only {n_moved}/16 requests differ from the "
+          "engine without the adapter")
+    rep, rec, launches = runs["unmerged"]
+    n_calls = len(rep.prefill_s) + len(rep.decode_step_s)
+    check(launches["ragged_expert_matmul"] == 3 * L * n_calls,
+          f"lora unmerged: {launches['ragged_expert_matmul']} grouped matmul "
+          f"launches for {n_calls} engine calls x {L} layers x 3")
+    check(launches["lora_matmul"] == 4 * L * n_calls,
+          f"lora unmerged: {launches['lora_matmul']} lora_matmul launches "
+          f"for {n_calls} engine calls x {L} layers x 4")
+    check(launches["lora_matmul_experts"] == 0,
+          "lora unmerged launched lora_matmul_experts")
+    check(runs["merged"][2]["lora_matmul"] == 0, "merged launched lora_matmul")
+    per_step = {n: float(np.mean(r[1].launches["decode"]))
+                for n, r in runs.items()}
+    # the adapter rides in launches serving makes anyway: q/k/v/o go from
+    # cuBLAS products (not counted) to lora_matmul, nothing else is added
+    check(per_step["unmerged"] == per_step["merged"] + 4 * L,
+          f"lora: hand-kernel launches per decode step unmerged "
+          f"{per_step['unmerged']} != merged {per_step['merged']} + 4 x {L}")
+    print(f"lora serving (bf16 FULL, 16 requests): unmerged vs merged "
+          f"{16 - len(div)}/16 requests token-identical"
+          + ("" if not div else " (first divergences: " + "; ".join(
+              f"rid {r} at {t}: merged top-2 gap {g:.3e} <= max |unmerged "
+              f"- merged| {d:.3e}" for r, t, g, d in div) + ")")
+          + f"; {n_moved}/16 differ from the engine without the adapter; "
+          "hand-kernel launches per decode step (q/k/v/o are cuBLAS "
+          "products without lora_matmul): " + ", ".join(
+              f"{n} {v:.1f}" for n, v in per_step.items()))
+    for name, (rep_, _, _) in runs.items():
+        s = rep_.summary()
+        print(f"lora serving {name}: {s['gen_tokens_per_s']:.1f} tokens/s, "
+              f"decode step p50 {s['decode_step_ms_p50']:.2f} ms, prefill "
+              f"p50 {float(np.median(rep_.prefill_s)) * 1e3:.1f} ms, TTFT "
+              f"p50 {s['ttft_p50_ms']:.1f} ms")
+    print(f"lora serving launches (unmerged): {json.dumps(launches)}")
+    # the one-hot modes at FULL with the adapter: launch counts, and dense
+    # (loss-free) against ragged by the near-tie rule
+    onehot_launches = {}
+    for d in ("dense", "capacity"):
+        rep_d, rec_d, la = _one_hot_run_checks(
+            torch, ServingEngine(cfg, params, lora=lora, dispatch=d, **base),
+            _spec_requests(cfg), check, f"lora bf16 {d}")
+        toks_d = rep_d.tokens_by_rid()
+        div_d = _first_divergences(runs["unmerged"][1], toks["unmerged"],
+                                   rec_d, toks_d)
+        if d == "dense":
+            for rid, t, gap, dd in div_d:
+                check(gap <= dd, f"lora dense: request {rid} differs from "
+                      f"ragged at position {t}, where the ragged top-2 gap "
+                      f"{gap:.3e} exceeds max |dense - ragged| {dd:.3e}")
+        s = rep_d.summary()
+        print(f"lora serving {d} (bf16 FULL, 16 requests): "
+              f"{16 - len(div_d)}/16 requests token-identical to ragged"
+              + (" (every first divergence a near-tie)" if d == "dense"
+                 else " (capacity may drop tokens)")
+              + f", {s['gen_tokens_per_s']:.1f} tokens/s, decode step p50 "
+              f"{s['decode_step_ms_p50']:.2f} ms, prefill p50 "
+              f"{float(np.median(rep_d.prefill_s)) * 1e3:.1f} ms; launches "
+              f"{json.dumps(la)}")
+        onehot_launches[d] = la["lora_matmul_experts"]
+        del rep_d, rec_d
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) every kernel call of one prefill call and one decode step
+    pre, dec = _lora_step_calls(torch, cfg, params, lora, check, "lora bf16")
+    worst = {}
+    for part, calls, router, T in (("prefill", pre, "router", 256),
+                                   ("decode", dec, "adaptive_router", 8)):
+        w = _check_lora_calls(torch, cfg, calls, check, kc,
+                              f"lora bf16 {part}", router, T)
+        for k, v in w.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+        print(f"lora bf16 {part} (T={T}): every kernel call of {L} layers "
+              f"against its plain version, max |kernel - plain|: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in w.items()))
+    times = {"prefill": _time_lora_layer0(torch, pre, kc),
+             "decode": _time_lora_layer0(torch, dec, kc)}
+    del pre, dec
+    for d, (pre, dec, w) in _one_hot_step_checks(
+            torch, cfg, params, lora, check, kc, "lora bf16").items():
+        for k, v in w.items():
+            worst[f"{d} {k}"] = v
+        for part, calls in (("prefill", pre), ("decode", dec)):
+            times[f"{d} {part}"] = _time_experts_layer0(torch, calls, kc)
+        del pre, dec
+
+    # (d) the FLAME pipeline: phase 5's adapter, per-tier rescalers
+    glora, resc = fed_adapter
+    check(sorted(resc) == [1, 2, 4, 8], f"lora pipeline: tiers {sorted(resc)}")
+    eng = ServingEngine(cfg, params, lora=glora, rescaler_by_k=resc, **base)
+    rep, rec, _ = _spec_run(torch, eng, _spec_requests(cfg, n=8, seed=4))
+    s = rep.summary()
+    check(s["n_requests"] == 8 and s["gen_tokens"] == 8 * 16,
+          f"lora pipeline: {s['n_requests']} requests, {s['gen_tokens']} "
+          "tokens")
+    check(all(np.isfinite(np.asarray(v)).all() for v in rec.rows.values()),
+          "lora pipeline: non-finite logits")
+    print(f"lora pipeline (phase 5's global adapter, rescalers of clients "
+          f"at k={sorted(resc)}, unmerged, 8 requests): every request "
+          f"complete, {len(rec.rows)} logit rows finite, "
+          f"{s['gen_tokens_per_s']:.1f} tokens/s")
+    del eng, lora
+    torch.cuda.empty_cache()
+    print(f"lora serving phase (a, b, d): {time.perf_counter() - t_phase:.1f}"
+          " s")
+    return launches, times, worst, onehot_launches
+
+
+def lora_fp32_phase(torch, cfg2, dev, check, kc) -> None:
+    """(c) The 2-layer full-width model in float32 with a random nonzero
+    adapter, 16 requests: the unmerged engine token for token against the
+    merged one; ragged against dense and against capacity dispatch with
+    capacity_factor = E (capacity cannot bind); speculative decoding (W =
+    4, draft_k = 1) with the adapter against plain decode with it; and the
+    prefix-cached engine with the adapter against a cold one on the
+    traffic phase's shared-prefix trace.  The dense and capacity runs
+    count their launches (``_one_hot_run_checks``), and every kernel call
+    of one prefill call and one decode step under each is held against its
+    plain version (``_one_hot_step_checks``, 1e-4·max at float32)."""
+    import dataclasses
+
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import ServingEngine, SpeculativeConfig
+    t_phase = time.perf_counter()
+    c32 = cfg2.replace(dtype="float32")
+    params = model_lib.init_params(
+        c32, torch.Generator(device=dev).manual_seed(22), dev)
+    lora, _ = _serving_adapter(torch, c32, params, dev, seed=23)
+    base = dict(num_slots=8, slot_len=512, slot_k=TRAFFIC_SLOTS, block_size=16)
+
+    def run(cfg_, p_, lo, reqs, **kw):
+        return ServingEngine(cfg_, p_, lora=lo, **base, **kw).run(
+            reqs).tokens_by_rid()
+
+    def counted(cfg_, d):
+        return _one_hot_run_checks(
+            torch, ServingEngine(cfg_, params, lora=lora, dispatch=d, **base),
+            _spec_requests(c32), check, f"lora fp32 {d}")[0].tokens_by_rid()
+
+    want = run(c32, params, lora, _spec_requests(c32))
+    cap = c32.replace(moe=dataclasses.replace(
+        c32.moe, capacity_factor=float(c32.moe.num_experts)))
+    others = {
+        "merged": run(c32, lora_lib.merge_into_params(
+            params, lora, c32.lora.scale), None, _spec_requests(c32)),
+        "dense": counted(c32, "dense"),
+        "capacity (factor E)": counted(cap, "capacity"),
+        "speculative": run(c32, params, lora, _spec_requests(c32),
+                           speculative=SpeculativeConfig(SPEC_W, 1)),
+    }
+    for name, got in others.items():
+        diff = [r for r in want if not np.array_equal(want[r], got[r])]
+        check(not diff, f"lora fp32 {name}: requests {diff} differ from the "
+              "unmerged ragged engine")
+    cold = run(c32, params, lora, _traffic_trace(c32))
+    warm = run(c32, params, lora, _traffic_trace(c32), prefix_cache=True)
+    diff = [r for r in cold if not np.array_equal(cold[r], warm[r])]
+    check(not diff, f"lora fp32 prefix cache: requests {diff} differ from "
+          "the cold engine")
+    _one_hot_step_checks(torch, c32, params, lora, check, kc, "lora fp32")
+    bare = run(c32, params, None, _spec_requests(c32))
+    n_moved = sum(not np.array_equal(bare[r], want[r]) for r in want)
+    check(n_moved > 8, f"lora fp32: only {n_moved}/16 requests differ "
+          "without the adapter")
+    print(f"lora fp32 (2 layers, full width): the unmerged ragged engine's "
+          f"16 requests equal " + ", ".join(others)
+          + f"; 24 prefix-cached requests equal the cold engine's; "
+          f"{n_moved}/16 differ without the adapter "
+          f"({time.perf_counter() - t_phase:.1f} s)")
+    del params, lora
     torch.cuda.empty_cache()
 
 

@@ -2,7 +2,7 @@
 16L d_model=2048 16H, 64 experts top-8, d_expert=1024, vocab=50304, qk-norm.
 [arXiv:2409.02060]
 
-A copy of ``repro/configs/olmoe_1_3b_6_9b.py`` (FULL and SMOKE)."""
+A copy of ``repro/configs/olmoe_1_3b_6_9b.py`` (FULL, SMOKE and BENCH)."""
 from .base import LoRAConfig, ModelConfig, MoEConfig
 
 FULL = ModelConfig(
@@ -32,4 +32,18 @@ SMOKE = FULL.replace(
     vocab_size=512,
     moe=MoEConfig(num_experts=4, top_k=2, d_expert=64),
     lora=LoRAConfig(rank=4),
+)
+
+# a slightly larger reduced config for the federated quality benchmarks:
+# 8 experts gives routing room for the activation-imbalance phenomenon
+BENCH = FULL.replace(
+    name="olmoe-bench",
+    num_layers=2,
+    d_model=128,
+    n_heads=4,
+    n_kv_heads=4,
+    head_dim=32,
+    vocab_size=512,
+    moe=MoEConfig(num_experts=8, top_k=4, d_expert=64),
+    lora=LoRAConfig(rank=8),
 )

@@ -1,5 +1,5 @@
-"""Parameter, adapter and trainable trees from the JAX package, through
-numpy, and back to numpy for comparison.
+"""Configs, and parameter, adapter and trainable trees, from the JAX
+package, through numpy, and back to numpy for comparison.
 
 ``jax.random`` streams cannot be reproduced in PyTorch, so the tests run
 both packages on weights the JAX package made: the caller turns the JAX
@@ -11,10 +11,13 @@ conversion only changes the container type.  This module imports neither
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from . import configs
 
 
 def _leaf(arr, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -30,6 +33,17 @@ def _tree(tree, device, dtype):
     if isinstance(tree, dict):
         return {k: _tree(v, device, dtype) for k, v in tree.items()}
     return _leaf(tree, device, dtype)
+
+
+def config_from_jax(jcfg) -> configs.ModelConfig:
+    """The port's ModelConfig with the same field values as a JAX
+    package ``ModelConfig`` (read field by field, so no JAX import)."""
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(configs.ModelConfig)}
+    kw["moe"] = configs.MoEConfig(**dataclasses.asdict(jcfg.moe))
+    kw["ssm"] = configs.SSMConfig(**dataclasses.asdict(jcfg.ssm))
+    kw["lora"] = configs.LoRAConfig(**dataclasses.asdict(jcfg.lora))
+    return configs.ModelConfig(**kw)
 
 
 def params_from_jax(tree: Dict[str, Any], device="cuda",

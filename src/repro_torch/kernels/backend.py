@@ -14,11 +14,10 @@ The reference's degenerate-shape rule (``flash_blocks_ok`` /
 jnp path to avoid near-1-wide Pallas grids) has no counterpart: the CUDA
 kernels mask their own ragged edges, so every shape runs the kernel.
 
-Differentiability.  The ops on the training path — ``lora_matmul``,
-``lora_matmul_experts``, ``router`` and ``flash_attention`` — and the
-per-token-budget ``adaptive_router`` are ``torch.autograd.Function``s, as the reference's are ``jax.custom_vjp``s:
-the forward is the kernel (or, on the CPU, the plain version); the
-backward is reference math, as on the TPU, which has no backward kernels:
+Differentiability.  Every op here is a ``torch.autograd.Function``, as
+the reference's are ``jax.custom_vjp``s: the forward is the kernel (or,
+on the CPU, the plain version); the backward is reference math, as on
+the TPU, which has no backward kernels:
 
 * the LoRA matmuls: the analytic rules of ``_lora_matmul_bwd`` /
   ``_lora_experts_bwd`` in fp32, each gradient cast to its input's dtype.
@@ -27,11 +26,17 @@ backward is reference math, as on the TPU, which has no backward kernels:
   OLMoE FULL) is skipped unless the weight requires grad;
 * the two routers and flash attention: the vjp of the plain version,
   recomputed from the saved inputs.  The routers' mask and counts (and
-  ``k_tok``) carry no gradient.
+  ``k_tok``) carry no gradient;
+* the ragged trio: the rules of the reference's ``_ragged_gather_bwd``,
+  ``_ragged_mm_bwd`` / ``_ragged_mm_lora_bwd`` and ``_ragged_combine_bwd``
+  in fp32, each gradient cast to its input's dtype; the integer plan
+  arrays carry none.  The grouped matmul's rules run per run of row
+  blocks that share an expert (one host copy of ``block_expert``), never
+  through a per-block gather of the expert weights, and skip the frozen
+  weight's ``dW`` as the LoRA matmuls do.
 
 Without autograd (serving, ``torch.no_grad``) the Functions cost nothing
-beyond the forward.  The ragged trio serves inference only; its backward
-wrappers come with training on ``dispatch="ragged"``.
+beyond the forward.
 """
 from __future__ import annotations
 
@@ -255,27 +260,132 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 # ==========================================================================
-# ragged (sort-based) MoE dispatch — inference only
+# ragged (sort-based) MoE dispatch
 # ==========================================================================
 
+class _RaggedGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, valid):
+        ctx.x_rows, ctx.x_dtype = x.shape[0], x.dtype
+        ctx.save_for_backward(src, valid)
+        if _on_cuda(x):
+            return _gather_cuda(x.contiguous(), src, valid)
+        return ref.ragged_gather_ref(x, src, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        # dx = scatter-add of g·valid into the rows src names
+        src, valid = ctx.saved_tensors
+        gv = g.to(_F32) * valid.to(_F32)[:, None]
+        dx = torch.zeros((ctx.x_rows, g.shape[1]), dtype=_F32,
+                         device=g.device).index_add_(0, src.long(), gv)
+        return dx.to(ctx.x_dtype), None, None
+
+
 def ragged_gather(x, src, valid):
-    """x (T, D); src, valid (N,) int32 -> xs (N, D)."""
-    if _on_cuda(x):
-        return _gather_cuda(x.contiguous(), src, valid)
-    return ref.ragged_gather_ref(x, src, valid)
+    """Differentiable ragged dispatch gather: x (T, D); src, valid (N,)
+    int32 -> xs (N, D), ``xs[i] = x[src[i]] * valid[i]``."""
+    return _RaggedGather.apply(x, src, valid)
+
+
+def _expert_runs(block_expert: torch.Tensor, bm: int):
+    """[(expert, first row, end row)] for each run of consecutive row
+    blocks that share an expert (one host copy of ``block_expert``; the
+    plan's are expert-major, so about one run per used expert)."""
+    be = block_expert.tolist()
+    runs, start = [], 0
+    for i in range(1, len(be) + 1):
+        if i == len(be) or be[i] != be[start]:
+            runs.append((be[start], start * bm, i * bm))
+            start = i
+    return runs
+
+
+class _RaggedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, block_expert, w, a, b, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(xs, block_expert, w, a, b)
+        if _on_cuda(xs):
+            return _mm_cuda(xs.contiguous(), block_expert, w, a, b,
+                            scale=scale)
+        return ref.ragged_expert_matmul_ref(xs, block_expert, w, a, b, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        # per run of row blocks of expert e (rows i), in fp32:
+        #   dxs_i = g_i W_e^T + (g_i B_e^T) A_e^T s
+        #   dW_e += xs_i^T g_i;  dA_e += xs_i^T (g_i B_e^T) s;
+        #   dB_e += (xs_i A_e)^T g_i s
+        xs, be, w, a, b = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        s = ctx.scale
+        lora = a is not None
+        acc = {j: torch.zeros(t.shape, dtype=_F32, device=t.device)
+               for j, t in ((0, xs), (2, w), (3, a), (4, b))
+               if need[j] and t is not None}
+        for e, r0, r1 in _expert_runs(be, xs.shape[0] // be.shape[0]):
+            gf, xf = g[r0:r1].to(_F32), xs[r0:r1].to(_F32)
+            if lora:
+                af, bf = a[e].to(_F32), b[e].to(_F32)
+                gb = gf @ bf.T                                  # (rows, r)
+            if 0 in acc:
+                dx = gf @ w[e].to(_F32).T
+                if lora:
+                    dx = dx + (gb @ af.T) * s
+                acc[0][r0:r1] = dx
+            if 2 in acc:
+                acc[2][e] += xf.T @ gf
+            if 3 in acc:
+                acc[3][e] += (xf.T @ gb) * s
+            if 4 in acc:
+                acc[4][e] += ((xf @ af).T @ gf) * s
+        inputs = (xs, None, w, a, b)
+        return tuple(acc[j].to(inputs[j].dtype) if j in acc else None
+                     for j in range(5)) + (None,)
 
 
 def ragged_expert_matmul(xs, block_expert, w, a=None, b=None, *,
                          scale: float = 0.0):
-    """xs (N, K); block_expert (N // bm,) int32; w (E, K, H); optional
-    per-expert LoRA a (E, K, r) / b (E, r, H) -> (N, H)."""
-    if _on_cuda(xs):
-        return _mm_cuda(xs.contiguous(), block_expert, w, a, b, scale=scale)
-    return ref.ragged_expert_matmul_ref(xs, block_expert, w, a, b, scale)
+    """Differentiable grouped matmul: xs (N, K); block_expert (N // bm,)
+    int32; w (E, K, H); optional per-expert LoRA a (E, K, r) / b (E, r, H)
+    -> (N, H)."""
+    return _RaggedMatmul.apply(xs, block_expert, w, a, b, float(scale))
+
+
+class _RaggedCombine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, eo, rows, wrank):
+        ctx.save_for_backward(eo, rows, wrank)
+        if _on_cuda(eo):
+            return _combine_cuda(eo.contiguous(), rows, wrank)
+        return ref.ragged_combine_ref(eo, rows, wrank)
+
+    @staticmethod
+    def backward(ctx, g):
+        # deo: scatter-add of wrank·g into the rows each rank names;
+        # dwrank[t, j] = <g_t, eo[rows[t, j]]> at every rank, weight 0
+        # included, as the reference's vjp reads it.  Those ranks name row
+        # 0, which the forward also multiplies (by 0), so dwrank is finite
+        # wherever the output is
+        eo, rows, wrank = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        gf = g.to(_F32)
+        idx = rows.long()
+        deo = dwrank = None
+        if need[0]:
+            contrib = wrank.to(_F32)[..., None] * gf[:, None, :]
+            deo = torch.zeros(eo.shape, dtype=_F32, device=eo.device)
+            deo.index_add_(0, idx.reshape(-1),
+                           contrib.reshape(-1, eo.shape[1]))
+            deo = deo.to(eo.dtype)
+        if need[2]:
+            dwrank = torch.einsum("td,tjd->tj", gf,
+                                  eo[idx].to(_F32)).to(wrank.dtype)
+        return deo, None, dwrank
 
 
 def ragged_combine(eo, rows, wrank):
-    """eo (N, D); rows (T, max_k) int32; wrank (T, max_k) -> (T, D)."""
-    if _on_cuda(eo):
-        return _combine_cuda(eo.contiguous(), rows, wrank)
-    return ref.ragged_combine_ref(eo, rows, wrank)
+    """Differentiable ragged combine: eo (N, D); rows (T, max_k) int32;
+    wrank (T, max_k) -> (T, D)."""
+    return _RaggedCombine.apply(eo, rows, wrank)

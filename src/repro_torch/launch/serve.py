@@ -22,7 +22,9 @@ recorder dumps to ``PATH.crash.json`` if the engine raises),
 Serving extras: ``--kv-layout slotted`` (the monolithic slotted pool, the
 paged pool's differential oracle) and ``--speculate`` (self-speculative
 decoding: ``--window`` drafts per round at ``--draft-k``, verified in one
-full-k step).
+full-k step).  ``--dispatch {ragged,dense,capacity}`` picks the MoE token
+dispatch, as the reference's flag (the engine refuses capacity under
+``--speculate``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --local \\
       --variant full --slots 8 --mix 8:0.25,4:0.25,2:0.25,1:0.25 \\
@@ -33,6 +35,8 @@ full-k step).
       --metrics-out build/serve_metrics.json --expert-telemetry
   PYTHONPATH=src python -m repro_torch.launch.serve --local --device cpu \
       --speculate --window 4 --draft-k 1 --kv-layout slotted
+  PYTHONPATH=src python -m repro_torch.launch.serve --local --device cpu \
+      --dispatch capacity
 
 Flags of the reference launcher that belong to later slices of the port
 are rejected with a message naming the slice.
@@ -51,11 +55,9 @@ from ..obs import MetricsRegistry, Tracer
 from ..serving import (ServingEngine, SpeculativeConfig, WorkloadConfig,
                        make_trace)
 
-_EXTRAS = "the serving-extras slice"
 LATER_FLAGS = {
     "--shape": "the multi-chip slice (the production-mesh serve step)",
     "--multi-pod": "the multi-chip slice (the production-mesh serve step)",
-    "--dispatch": _EXTRAS + " (capacity/dense dispatch in the engine)",
 }
 
 
@@ -135,6 +137,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--new-tokens", type=int, default=8)
     ap.add_argument("--mix", default="",
                     help="tier mix k:frac[,k:frac...]; empty = full top_k")
+    ap.add_argument("--dispatch", choices=("ragged", "dense", "capacity"),
+                    default="ragged",
+                    help="MoE token dispatch: ragged = sort-based, "
+                         "loss-free AND sum(slot_k)-proportional (default); "
+                         "dense = loss-free one-hot at worst-case padding; "
+                         "capacity = GShard capacity-limited throughput "
+                         "mode (batching may change results)")
     ap.add_argument("--speculate", action="store_true",
                     help="self-speculative decoding: draft a window of "
                          "tokens per slot at --draft-k through the same "
@@ -243,7 +252,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                            kv_layout=args.kv_layout,
                            block_size=args.block_size,
                            num_blocks=args.num_blocks,
-                           speculative=spec,
+                           dispatch=args.dispatch, speculative=spec,
                            prefix_cache=args.prefix_cache,
                            preemption=args.preemption, slo_ms=slo,
                            tracer=tracer, metrics=registry,

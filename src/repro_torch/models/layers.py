@@ -100,13 +100,13 @@ def lora_expert_einsum(x: torch.Tensor, w: torch.Tensor,
     ``lora_matmul_experts`` kernel (its plain version on the CPU).  Without:
     a batched product cast once (cuBLAS accumulates bf16 in fp32).
 
-    The reference's grouped 4-D input (G, E, C, d_in) serves
-    ``num_groups > 1`` (sharded routing groups), which the port does not
-    have yet."""
+    Routing groups arrive folded into the slot axis, (E, G·C, d_in); the
+    reference's 4-D (G, E, C, d_in) input serves groups sharded across
+    chips, which come with the multi-chip slice of the port."""
     if x.dim() != 3:
         raise NotImplementedError(
-            "grouped (G, E, C, d) expert slots (num_groups > 1) come with "
-            "the multi-chip slice of the port")
+            "grouped (G, E, C, d) expert slots (groups sharded across "
+            "chips) come with the multi-chip slice of the port")
     if lp is not None:
         return kernel_backend.lora_matmul_experts(x, w, lp["a"], lp["b"],
                                                   scale=scale)

@@ -138,7 +138,8 @@ def _index(tree, i: int):
 def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
                  lora_scale, k, cache=None, cache_pos=None,
                  return_cache=False, slot_mask=None, block_table=None,
-                 page_span=None, dispatch=None, suffix_readonly=False):
+                 page_span=None, dispatch=None, suffix_readonly=False,
+                 num_groups=1):
     lg = lora or {}
     h = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
     h, new_cache = attn_mod.apply_attention(
@@ -153,7 +154,8 @@ def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
         h2, aux = moe_mod.apply_moe(p["moe"], cfg, h2, k=k,
                                     rescaler=rescaler, lora=lg.get("moe"),
                                     lora_scale=lora_scale,
-                                    slot_mask=slot_mask, dispatch=dispatch)
+                                    slot_mask=slot_mask, dispatch=dispatch,
+                                    num_groups=num_groups)
         x = x + h2
     elif "ffn" in p:
         h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
@@ -164,7 +166,7 @@ def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
 def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                cache_pos=None, return_cache=False, slot_mask=None,
                block_table=None, page_span=None, dispatch=None,
-               suffix_readonly=False):
+               suffix_readonly=False, num_groups=1):
     """The layer stack as a loop over the leading n_periods axis; period
     ``i`` reads views of the stacked weights, of the stacked LoRA adapters
     (``trainable["lora"]["blocks"]["pos0"]``) and of the rescalers.
@@ -189,7 +191,7 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
             lora_scale=lora_scale, k=k, cache=h_cache, cache_pos=cache_pos,
             return_cache=return_cache, slot_mask=slot_mask,
             block_table=block_table, page_span=page_span, dispatch=dispatch,
-            suffix_readonly=suffix_readonly)
+            suffix_readonly=suffix_readonly, num_groups=num_groups)
         if aux is not None:
             counts.append(aux.activation_counts)
         kv.append(nc)
@@ -296,17 +298,18 @@ def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
 
 def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             cache_len: Optional[int] = None, slot_mask=None,
-            dispatch: str = "ragged"):
+            dispatch: str = "ragged", num_groups: int = 1):
     """Forward pass that also returns the contiguous decode cache.
     Returns (logits_last (B,1,V), cache) with cache leaves
     (n_periods, B, cache_len_for(cache_len or S), KV, hd), zero-padded
-    past the prompt."""
+    past the prompt.  ``num_groups``: the one-hot dispatch modes' routing
+    groups (:func:`moe_layer.apply_moe`)."""
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens)
     h, _, kv = _run_stack(cfg, params, x, positions, trainable=trainable,
                           k=k, return_cache=True, slot_mask=slot_mask,
-                          dispatch=dispatch)
+                          dispatch=dispatch, num_groups=num_groups)
     target = cache_len_for(cfg, cache_len or S)
     cache = {}
     for leaf in ("k", "v"):
@@ -323,7 +326,7 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
 def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
                    suffix_len, cache, block_table: torch.Tensor, *,
                    page_span: int, trainable=None, k=None, slot_mask=None,
-                   dispatch: str = "ragged"):
+                   dispatch: str = "ragged", num_groups: int = 1):
     """Suffix-only cached prefill against a block-paged pool.
 
     A request whose prompt head is already cached pays compute for the
@@ -340,7 +343,8 @@ def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
     ``suffix_len - 1``.  Returns (logits (B, 1, V), piece) with piece
     leaves (n_periods, B, S, KV, hd) whose column ``c`` holds prompt
     position ``prefix_len[b] + c``: what ``BlockPool.write(...,
-    starts=, piece_col0=)`` scatters."""
+    starts=, piece_col0=)`` scatters.  ``num_groups``: as in
+    :func:`prefill`."""
     B, S = tokens.shape[:2]
     dev = tokens.device
     prefix_len = torch.as_tensor(prefix_len, device=dev).long()
@@ -351,7 +355,8 @@ def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
                           k=k, cache=cache, cache_pos=prefix_len,
                           return_cache=True, slot_mask=slot_mask,
                           block_table=block_table, page_span=page_span,
-                          dispatch=dispatch, suffix_readonly=True)
+                          dispatch=dispatch, suffix_readonly=True,
+                          num_groups=num_groups)
     piece = {leaf: torch.stack([c[leaf] for c in kv]) for leaf in ("k", "v")}
     col = torch.clamp(suffix_len - 1, 0, S - 1)
     last = h[torch.arange(B, device=dev), col]

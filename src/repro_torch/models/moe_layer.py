@@ -13,17 +13,20 @@
      tokens past an expert's capacity (in token order) fall back to the
      residual stream.  The expert SwiGLU runs the ``lora_matmul_experts``
      kernel when the experts carry adapters;
-   * ``"dense"`` — the same one-hot dispatch with ``C = round8(T)``:
-     loss-free, worst-case padding;
+   * ``"dense"`` — the same one-hot dispatch with C = a routing group's
+     token count (rounded up to 8): loss-free, worst-case padding;
    * ``"ragged"`` (serving) — the counting-sort plan, then gather ->
-     grouped expert SwiGLU -> combine through the three ragged kernels;
+     grouped expert SwiGLU -> combine through the three ragged kernels,
+     the expert adapters inside the grouped matmul;
 3. the FLAME rescaler s_i (scalar, or one value per batch row);
 4. shared experts through :func:`apply_ffn`;
 5. ``MoEAux`` activation counts for the activation-aware aggregation.
 
-The port routes every token in one group (the reference's
-``num_groups == 1``); grouped routing for sharded batches comes with the
-multi-chip slice.
+Routing is global; the one-hot modes dispatch over ``num_groups`` equal
+routing groups of the batch (GShard groups, each with its own capacity:
+the serving engine's dense prefill runs one group per row, so the one-hot
+tensors grow with the bucket and not with its square).  Groups sharded
+across chips come with the multi-chip slice.
 """
 from __future__ import annotations
 
@@ -77,49 +80,58 @@ def resolve_dispatch(dispatch, no_drop: bool) -> str:
     return dispatch
 
 
-def _one_hot_expert_ffn(p: dict, cfg, x2d: torch.Tensor, weights, mask, *,
+def _one_hot_expert_ffn(p: dict, cfg, xg: torch.Tensor, weights, mask, *,
                         dispatch: str, k: Optional[int],
                         n_assign: Optional[int], lora: dict,
                         lora_scale: float) -> torch.Tensor:
-    """GShard one-hot dispatch + expert SwiGLU + combine over one routing
-    group.  ``x2d``: (T, D); ``weights``/``mask``: (T, E).  A token's place
-    in an expert's queue is its rank in token order among the tokens routed
-    there; places past C are dropped."""
+    """GShard one-hot dispatch + expert SwiGLU + combine.  ``xg``: (G, Tg,
+    D) grouped tokens; ``weights``/``mask``: (G, Tg, E).  A token's place
+    in an expert's queue is its rank in token order among its group's
+    tokens routed there; places past C are dropped.  The G groups' slots
+    meet in one (E, G·C, D) expert product."""
     m = cfg.moe
-    T, D = x2d.shape
+    G, Tg, D = xg.shape
     E = m.num_experts
     if dispatch == "dense":
-        C = dense_capacity(T)
+        C = dense_capacity(Tg)
     elif n_assign is not None:
         C = _capacity_from_assignments(n_assign, E, m.capacity_factor)
     else:
-        C = _capacity(T, E, k, m.capacity_factor)
-    pos = (torch.cumsum(mask, dim=0) - 1.0) * mask                # (T, E)
+        C = _capacity(Tg, E, k, m.capacity_factor)
+    pos = (torch.cumsum(mask, dim=1) - 1.0) * mask                # (G,Tg,E)
     keep = (pos < C) & (mask > 0)
     # the one-hot in the compute dtype: F.one_hot would be int64 (344 MB
     # at OLMoE FULL, T=2048, E=64, C=328); the comparison is a bool
-    slot = torch.arange(C, device=x2d.device, dtype=pos.dtype)
-    dispatch_oh = ((pos[..., None] == slot) & keep[..., None]).to(x2d.dtype)
-    combine = dispatch_oh * weights[..., None].to(x2d.dtype)      # (T,E,C)
+    slot = torch.arange(C, device=xg.device, dtype=pos.dtype)
+    dispatch_oh = ((pos[..., None] == slot) & keep[..., None]).to(xg.dtype)
+    combine = dispatch_oh * weights[..., None].to(xg.dtype)    # (G,Tg,E,C)
 
-    slots = torch.einsum("tec,td->ecd", dispatch_oh, x2d)        # (E, C, D)
+    slots = torch.einsum("gtec,gtd->egcd", dispatch_oh, xg).reshape(
+        E, G * C, D)
     ex = p["experts"]
     gate = lora_expert_einsum(slots, ex["w1"], lora.get("w1"), lora_scale)
     up = lora_expert_einsum(slots, ex["w3"], lora.get("w3"), lora_scale)
     h = F.silu(gate.to(_F32)).to(up.dtype) * up
     eo = lora_expert_einsum(h, ex["w2"], lora.get("w2"), lora_scale)
-    return torch.einsum("tec,ecd->td", combine, eo)               # (T, D)
+    return torch.einsum("gtec,egcd->gtd", combine,
+                        eo.reshape(E, G, C, D))                   # (G,Tg,D)
 
 
 def _ragged_expert_ffn(p: dict, x2d: torch.Tensor, weights, mask, *,
-                       budget: int, max_k: int) -> torch.Tensor:
+                       budget: int, max_k: int, lora: dict,
+                       lora_scale: float) -> torch.Tensor:
+    """Counting-sort plan, gather, grouped expert SwiGLU (each expert's
+    adapter ``{a, b}`` rides in the grouped matmul), combine."""
     plan = ragged_plan(mask, weights, budget=budget, max_k=max_k)
     xs = kernel_backend.ragged_gather(x2d, plan.src, plan.valid)
     ex = p["experts"]
 
     def mm(inp, key):
-        return kernel_backend.ragged_expert_matmul(inp, plan.block_expert,
-                                                   ex[key])
+        lp = lora.get(key)
+        return kernel_backend.ragged_expert_matmul(
+            inp, plan.block_expert, ex[key],
+            None if lp is None else lp["a"], None if lp is None else lp["b"],
+            scale=lora_scale)
 
     gate = mm(xs, "w1")
     up = mm(xs, "w3")
@@ -132,7 +144,7 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
               rescaler: Optional[torch.Tensor] = None,
               lora: Optional[dict] = None, lora_scale: float = 0.0,
               slot_mask: Optional[torch.Tensor] = None,
-              dispatch: Optional[str] = None):
+              dispatch: Optional[str] = None, num_groups: int = 1):
     """x: (B, S, D) -> (out (B, S, D), MoEAux).
 
     ``k``: an int for every token, or a length-B tuple of per-row budgets
@@ -141,18 +153,17 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
     0 route to zero experts.  ``rescaler``: scalar or (B,) s_i.
     ``dispatch``: ``"capacity"`` (default), ``"dense"`` or ``"ragged"``.
     ``lora``: the block's ``{"experts": {w1, w2, w3}, "shared": ...}``
-    adapters."""
+    adapters.  ``num_groups``: the one-hot modes' routing groups (equal
+    slices of the B·S tokens; per-row budgets under capacity need one)."""
     dispatch = resolve_dispatch(dispatch, False)
     le = (lora or {}).get("experts") or {}
-    if dispatch == "ragged" and le:
-        raise NotImplementedError(
-            "expert LoRA adapters on ragged dispatch (LoRA serving) come "
-            "with a later slice of the port, the ROADMAP's \"Expert LoRA "
-            "on ragged dispatch and LoRA serving\" item")
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
     E = m.num_experts
+    G = num_groups
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
     x2d = x.reshape(T, D)
 
     if isinstance(k, (tuple, list)):
@@ -161,6 +172,12 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
         if len(set(k)) == 1 and slot_mask is None:
             k = int(k[0])                 # uniform budgets: static-int path
     adaptive = isinstance(k, (tuple, list)) or slot_mask is not None
+    if G > 1 and (dispatch == "ragged" or (adaptive
+                                           and dispatch == "capacity")):
+        # ragged routes globally; per-row budgets would need per-group
+        # capacities (the dense capacity does not depend on them)
+        raise ValueError(f"num_groups={G} with {dispatch} dispatch"
+                         + (" and per-row k" if adaptive else ""))
     if adaptive:
         k_slots = (tuple(int(v) for v in k)
                    if isinstance(k, (tuple, list)) else (int(k),) * B)
@@ -187,13 +204,14 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
 
     if dispatch == "ragged":
         out = _ragged_expert_ffn(p, x2d, weights, mask, budget=budget,
-                                 max_k=max_k)
+                                 max_k=max_k, lora=le, lora_scale=lora_scale)
     else:
         out = _one_hot_expert_ffn(
-            p, cfg, x2d, weights, mask, dispatch=dispatch,
+            p, cfg, x2d.reshape(G, T // G, D), weights.reshape(G, T // G, E),
+            mask.reshape(G, T // G, E), dispatch=dispatch,
             k=None if adaptive else k,
             n_assign=budget if adaptive else None, lora=le,
-            lora_scale=lora_scale)
+            lora_scale=lora_scale).reshape(T, D)
 
     if rescaler is not None:
         r = rescaler.to(out.dtype)

@@ -60,14 +60,26 @@ run's step histograms; ``expert_telemetry=True`` makes each decode step
 return its per-expert counts, brought to the host in the same transfer as
 the logits, into ``report.expert_load``.
 
-Prefill groups run at their own batch size: the reference pads them to
-power-of-two buckets to bound recompiles, which eager PyTorch does not
-have, and ragged dispatch is row-isolated, so padding rows could not
-change a result anyway.  Every engine step runs under
-``torch.inference_mode()``.
+LoRA serving: ``lora=`` serves a FLAME global adapter unmerged (at bf16,
+merging a small ΔW into W rounds much of it away).  The adapters ride in
+launches the engine makes anyway: ``lora_matmul`` takes the place of the
+plain q/k/v/o products, and each expert's ``{a, b}`` enters the grouped
+ragged matmul.  One engine serves one adapter, so the prefix cache's
+tier salt still keys its K/V.
 
-LoRA adapters and the one-hot dispatch modes come with later slices and
-raise ``NotImplementedError``.
+Dispatch: ``"ragged"`` (the default), ``"dense"`` (one-hot, capacity the
+token count: loss-free) or ``"capacity"`` (GShard capacity; batching may
+change results; refused under speculation); ``no_drop`` is the
+reference's legacy alias.  Prefill groups run at their own batch size
+under the loss-free modes: the reference pads them to power-of-two
+buckets to bound recompiles, which eager PyTorch does not have, and a
+padding row cannot change a loss-free result.  Under ``"capacity"`` the
+expert capacity follows the batch's size, so the groups are padded to the
+reference's buckets (masked rows: they route nowhere, but size C as
+there).  ``"dense"`` routes a prefill or suffix group one routing group
+per row, as the reference does, so its one-hot tensors grow with the
+group and not with its square.  Every engine step runs under
+``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -80,6 +92,7 @@ import numpy as np
 import torch
 
 from ..models import model as model_lib
+from ..models.moe_layer import resolve_dispatch
 from ..obs.expert_load import ExpertLoadTracker
 from ..obs.metrics import Histogram, MetricsRegistry
 from ..obs.trace import NULL_TRACER, PID_ENGINE, PID_REQUESTS, Tracer
@@ -90,10 +103,6 @@ from .speculative import SpeculativeConfig, SpeculativeDecoder
 from .workload import percentile
 
 PyTree = Any
-
-_EXTRAS = "the ROADMAP's \"Serving extras\" item"
-_LORA = ("the ROADMAP's \"Expert LoRA on ragged dispatch and LoRA "
-         "serving\" item")
 
 
 def _log_softmax_np(x: np.ndarray) -> np.ndarray:
@@ -258,8 +267,10 @@ class ServingEngine:
     and per group in prefill.  ``sampler``, ``seed``, ``speculative``,
     ``prefix_cache``, ``slo_ms``, ``preemption``, ``max_preemptions``,
     ``tracer``, ``metrics`` and ``expert_telemetry``: see the module
-    docstring.  ``lora`` and a ``dispatch`` other than ``"ragged"`` come
-    with later slices and raise ``NotImplementedError``."""
+    docstring.  ``lora``: the unmerged adapter tree (``{"blocks": ...}``,
+    on the engine's device and dtype).  ``dispatch``: ``"ragged"``
+    (default), ``"dense"`` or ``"capacity"``; ``no_drop`` the legacy alias
+    (True -> dense, False -> capacity) when ``dispatch`` is unset."""
 
     def __init__(self, cfg, params: PyTree, *, lora: Optional[PyTree] = None,
                  rescaler_by_k: Optional[Dict[int, PyTree]] = None,
@@ -267,7 +278,8 @@ class ServingEngine:
                  slot_k: Optional[Sequence[int]] = None,
                  kv_layout: str = "paged", block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 dispatch: str = "ragged",
+                 no_drop: Optional[bool] = None,
+                 dispatch: Optional[str] = None,
                  sampler: Optional[SamplerConfig] = None,
                  speculative: Optional[SpeculativeConfig] = None,
                  prefix_cache: bool = False,
@@ -279,6 +291,9 @@ class ServingEngine:
                  metrics: Optional[MetricsRegistry] = None,
                  expert_telemetry: bool = False):
         # the reference's guards first, with its errors
+        dispatch = (resolve_dispatch(dispatch, no_drop)
+                    if dispatch is not None or no_drop is not None
+                    else "ragged")
         if kv_layout not in ("paged", "slotted"):
             raise ValueError(f"kv_layout={kv_layout!r}: paged or slotted")
         if prefix_cache and kv_layout != "paged":
@@ -307,15 +322,6 @@ class ServingEngine:
                 "speculative verify requires a loss-free dispatch mode "
                 "(ragged/dense): capacity dispatch makes the verify "
                 "distribution depend on co-batched rows")
-        unsupported = {
-            "lora": (lora is not None, _LORA),
-            f"dispatch={dispatch!r}": (dispatch != "ragged", _EXTRAS),
-        }
-        for name, (asked, item) in unsupported.items():
-            if asked:
-                raise NotImplementedError(
-                    f"ServingEngine {name}: comes with a later slice of the "
-                    f"port, {item}")
         if cfg.num_codebooks:
             raise ValueError("serving engine: text models only")
         self.cfg = cfg
@@ -343,6 +349,7 @@ class ServingEngine:
             self.slot_k = (None,) * num_slots
             self._moe_k = None
 
+        self._lora = lora
         self._rescaler_by_k = rescaler_by_k
         self._decode_trainable = self._build_decode_trainable()
 
@@ -403,34 +410,41 @@ class ServingEngine:
 
     # ------------------------------------------------------------- trainables
     def _build_decode_trainable(self) -> Optional[PyTree]:
-        if not self._rescaler_by_k:
-            return None
-        ks = [k for k in self.slot_k if k is not None]
-        missing = sorted(set(ks) - set(self._rescaler_by_k))
-        if missing:
-            raise ValueError(f"rescaler_by_k missing tiers {missing}")
-        # stack tiers per slot: (n_periods,) -> (n_periods, num_slots); the
-        # stack loop slices the leading axis, so each MoE layer sees a
-        # (num_slots,) vector — the per-slot rescaler of apply_moe
-        return {"rescaler": {
-            pos: torch.stack([self._rescaler_by_k[k][pos] for k in ks],
-                             dim=-1).to(self.device)
-            for pos in self._rescaler_by_k[ks[0]]}}
+        tr: dict = {}
+        if self._lora is not None:
+            tr["lora"] = self._lora
+        if self._rescaler_by_k:
+            ks = [k for k in self.slot_k if k is not None]
+            missing = sorted(set(ks) - set(self._rescaler_by_k))
+            if missing:
+                raise ValueError(f"rescaler_by_k missing tiers {missing}")
+            # stack tiers per slot: (n_periods,) -> (n_periods, num_slots);
+            # the stack loop slices the leading axis, so each MoE layer
+            # sees a (num_slots,) vector — the per-slot rescaler of
+            # apply_moe
+            tr["rescaler"] = {
+                pos: torch.stack([self._rescaler_by_k[k][pos] for k in ks],
+                                 dim=-1).to(self.device)
+                for pos in self._rescaler_by_k[ks[0]]}
+        return tr or None
 
     def _build_draft_trainable(self, draft_k: int) -> Optional[PyTree]:
-        """The draft window's trainables: every slot at the scalar
-        ``draft_k``, so the ``draft_k`` tier's rescaler when one was given
-        (otherwise the draft runs unrescaled: any draft distribution keeps
-        the rule exact, only the acceptance rate moves)."""
-        if self._rescaler_by_k and draft_k in self._rescaler_by_k:
-            return self._prefill_trainable(draft_k)
-        return None
+        """The draft window's trainables: the adapter, and every slot at
+        the scalar ``draft_k``, so the ``draft_k`` tier's rescaler when one
+        was given (otherwise the draft runs unrescaled: any draft
+        distribution keeps the rule exact, only the acceptance rate
+        moves)."""
+        known = bool(self._rescaler_by_k) and draft_k in self._rescaler_by_k
+        return self._prefill_trainable(draft_k if known else None)
 
     def _prefill_trainable(self, k: Optional[int]) -> Optional[PyTree]:
+        tr: dict = {}
+        if self._lora is not None:
+            tr["lora"] = self._lora
         if self._rescaler_by_k and k is not None:
-            return {"rescaler": {pos: r.to(self.device) for pos, r in
-                                 self._rescaler_by_k[k].items()}}
-        return None
+            tr["rescaler"] = {pos: r.to(self.device) for pos, r in
+                              self._rescaler_by_k[k].items()}
+        return tr or None
 
     # ------------------------------------------------------------------ admit
     @staticmethod
@@ -623,16 +637,24 @@ class ServingEngine:
                     r.prompt_len - st for r, _, st, _ in items)
                 targs = {"batch": nb, "suffix_bucket": width}
             else:
-                prompts = torch.as_tensor(
-                    np.stack([r.prompt for r, _, _, _ in items]),
-                    dtype=torch.int64, device=self.device)
+                prompts = np.stack([r.prompt for r, _, _, _ in items])
+                real = self._capacity_rows(nb)
+                if real is not None:
+                    # the reference's bucket rows (copies of the first
+                    # prompt, routed nowhere)
+                    prompts = np.concatenate(
+                        [prompts, np.repeat(prompts[:1], len(real) - nb, 0)])
+                    real = torch.as_tensor(real, device=self.device)
                 # only the first L columns are scattered, so the prefill
                 # cache needs no padding to slot_len
                 logits, cache = model_lib.prefill(
-                    self.cfg, self.params, prompts,
+                    self.cfg, self.params,
+                    torch.as_tensor(prompts, dtype=torch.int64,
+                                    device=self.device),
                     trainable=self._prefill_trainable(kk), k=kk,
-                    dispatch=self.dispatch)
-                logits = logits[:, 0].float()
+                    slot_mask=real, dispatch=self.dispatch,
+                    num_groups=self._groups(len(prompts)))
+                logits = logits[:nb, 0].float()
                 # under the prefix cache the match/attach/alloc already
                 # ran: scatter past the matched span only (a same-pass
                 # duplicate recomputes its prompt but must not rewrite the
@@ -660,42 +682,66 @@ class ServingEngine:
                 self._emit(slot, a, logits_np[j], drawn[j], report)
         return len(assignments)
 
+    def _capacity_rows(self, nb: int) -> Optional[np.ndarray]:
+        """Under capacity dispatch (MoE): the 0/1 real-row vector of the
+        reference's power-of-two prefill bucket, whose size sets the
+        expert capacity; otherwise None (groups run at their own size)."""
+        if self.dispatch != "capacity" or not self.cfg.moe.enabled:
+            return None
+        return (np.arange(_bucket(nb)) < nb).astype(np.float32)
+
+    def _groups(self, rows: int) -> int:
+        """Routing groups of a prefill or suffix call: one per row under
+        dense dispatch (the reference's), else one."""
+        return rows if self.dispatch == "dense" else 1
+
     def _prefill_suffix_group(self, items, kk: Optional[int]) -> torch.Tensor:
         """One suffix-prefill call for a group; scatters the new K/V past
         each row's matched span and returns the rows' last logits (fp32,
-        on the device).  The
-        token block is as wide as the group's longest suffix; when rows'
-        suffixes differ, per-token budgets route the padding columns to
-        no expert."""
+        on the device).  The token block is as wide as the group's
+        longest suffix (under capacity dispatch: the reference's shape,
+        the group's suffix bucket wide and the rows padded to the batch
+        bucket, pad rows with prefix 0 and suffix 1); when rows' suffixes
+        differ, per-token budgets route the padding columns to no
+        expert."""
         nb = len(items)
         pref = np.asarray([st for _, _, st, _ in items], np.int64)
         suf = np.asarray([r.prompt_len - st for r, _, st, _ in items],
                          np.int64)
-        S = int(suf.max())
-        toks = np.zeros((nb, S), np.int64)
+        real = self._capacity_rows(nb)
+        S, rows = int(suf.max()), nb
+        if real is not None:
+            S, rows = _bucket(S), len(real)
+            pref = np.concatenate([pref, np.zeros(rows - nb, np.int64)])
+            suf = np.concatenate([suf, np.ones(rows - nb, np.int64)])
+        toks = np.zeros((rows, S), np.int64)
         for j, (req, _slot, st, _cov) in enumerate(items):
             toks[j, :suf[j]] = req.prompt[st:]
         # only prefix positions < pref are read: gather just their blocks
         span_b = -(-int(pref.max()) // self.pool.block_size)
-        tbl = np.stack([self.pool.block_table[s, :span_b]
-                        for _, s, _, _ in items])
+        tbl = np.zeros((rows, span_b), self.pool.block_table.dtype)
+        for j, (_req, s, _st, _cov) in enumerate(items):
+            tbl[j] = self.pool.block_table[s, :span_b]
         k, mask = kk, None
-        if self.cfg.moe.enabled and (suf < S).any():
-            k = (kk,) * nb
-            mask = torch.as_tensor(np.arange(S)[None, :] < suf[:, None],
-                                   dtype=torch.float32, device=self.device)
+        if self.cfg.moe.enabled and (real is not None or (suf < S).any()):
+            k = (kk,) * rows
+            live = np.arange(S)[None, :] < suf[:, None]
+            if real is not None:
+                live = live * real[:, None]
+            mask = torch.as_tensor(live, dtype=torch.float32,
+                                   device=self.device)
         logits, piece = model_lib.prefill_suffix(
             self.cfg, self.params,
             torch.as_tensor(toks, device=self.device), pref, suf,
             self.pool.cache, torch.as_tensor(tbl, device=self.device),
             page_span=span_b * self.pool.block_size,
             trainable=self._prefill_trainable(kk), k=k, slot_mask=mask,
-            dispatch=self.dispatch)
+            dispatch=self.dispatch, num_groups=self._groups(rows))
         self.pool.write([s for _, s, _, _ in items], piece,
                         [r.prompt_len for r, _, _, _ in items],
                         starts=[cov for _, _, _, cov in items],
-                        piece_col0=pref.tolist())
-        return logits[:, 0].float()
+                        piece_col0=pref[:nb].tolist())
+        return logits[:nb, 0].float()
 
     # --------------------------------------------------------------- sampling
     def _draw(self, a: _ActiveSlot) -> float:

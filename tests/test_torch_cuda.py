@@ -625,6 +625,166 @@ def test_cuda_autograd_wrappers_match_plain_grads(cuda, op):
         torch.testing.assert_close(gw, gp, rtol=1e-4, atol=1e-4)
 
 
+def _mixed_plan(cuda, T=32, E=16, budgets=(1, 2, 8, 0)):
+    """A ragged plan on the card at mixed per-token budgets (a 0 deselects
+    the token), with padding rows in the segments and after them."""
+    g = torch.Generator().manual_seed(T + E)
+    logits = torch.randn(T, E, generator=g).to(cuda)
+    k_tok = torch.tensor(budgets * (T // len(budgets)), dtype=torch.int32,
+                         device=cuda)
+    w_, m_, _ = tref.adaptive_topk_router_ref(logits, k_tok, max(budgets))
+    plan = trd.ragged_plan(m_, w_, budget=int(k_tok.sum()),
+                           max_k=max(budgets))
+    assert int(plan.valid.sum()) < plan.valid.numel()
+    return plan
+
+
+@pytest.mark.parametrize("op", ["ragged_gather", "ragged_expert_matmul",
+                                "ragged_expert_matmul_lora",
+                                "ragged_combine"])
+def test_cuda_ragged_functions_match_plain_grads(cuda, op):
+    """The ragged trio's autograd Functions on the card (kernel forward,
+    reference backward) against autograd through their plain versions,
+    float32, adapter b != 0, mixed budgets (1, 2, 8, 0) with padding
+    rows; every gradient nonzero."""
+    plan = _mixed_plan(cuda)
+    N, E, D, H = plan.src.shape[0], 16, 64, 48
+    g = torch.Generator(device=cuda).manual_seed(11)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=cuda) * scale
+    if op == "ragged_gather":
+        inputs = (rn(32, D),)
+        wrap = lambda x: backend.ragged_gather(x, plan.src, plan.valid)
+        plain = lambda x: tref.ragged_gather_ref(x, plan.src, plan.valid)
+    elif op.startswith("ragged_expert_matmul"):
+        inputs = (rn(N, D), rn(E, D, H, scale=D ** -0.5))
+        if op.endswith("lora"):
+            inputs += (rn(E, D, 20, scale=D ** -0.5), rn(E, 20, H))
+        be = plan.block_expert
+        wrap = lambda *t: backend.ragged_expert_matmul(t[0], be, *t[1:],
+                                                       scale=0.7)
+        plain = lambda *t: tref.ragged_expert_matmul_ref(t[0], be, *t[1:],
+                                                         scale=0.7)
+    else:
+        inputs = (rn(N, D), plan.wrank)
+        wrap = lambda eo, w: backend.ragged_combine(eo, plan.rows, w)
+        plain = lambda eo, w: tref.ragged_combine_ref(eo, plan.rows, w)
+    cot = rn(*plain(*inputs).shape)
+    kname = op.replace("_lora", "")
+    before = _build.LAUNCHES[kname]
+    out_w, grads_w = _grads(wrap, inputs, cot)
+    assert _build.LAUNCHES[kname] == before + 1
+    out_p, grads_p = _grads(plain, inputs, cot)
+    torch.testing.assert_close(out_w, out_p, rtol=1e-4, atol=1e-4)
+    for gw, gp in zip(grads_w, grads_p):
+        torch.testing.assert_close(gw, gp, rtol=1e-4, atol=1e-4)
+        assert gw.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("K,H", [(2048, 1024), (1024, 2048)])
+def test_cuda_ragged_lora_route_at_the_decode_shape(cuda, dtype, K, H):
+    """The grouped matmul with expert adapters (rank 20) at OLMoE's decode
+    step: 8 slots at tiers (8,8,4,4,2,2,1,1), 64 experts, w1/w3 (2048 ->
+    1024) and w2 (1024 -> 2048), against its plain version."""
+    g = torch.Generator().manual_seed(K)
+    logits = torch.randn(8, 64, generator=g).to(cuda)
+    k_tok = torch.tensor((8, 8, 4, 4, 2, 2, 1, 1), dtype=torch.int32,
+                         device=cuda)
+    w_, m_, _ = tref.adaptive_topk_router_ref(logits, k_tok, 8)
+    plan = trd.ragged_plan(m_, w_, budget=30, max_k=8)
+    xs, w, a, b = _lora_operands(cuda, (), plan.src.shape[0], K, H, 20,
+                                 dtype)
+    E = 64
+    w = w.expand(E, K, H).contiguous()
+    a = a.expand(E, K, 20).contiguous() * torch.linspace(
+        0.5, 1.5, E, device=cuda, dtype=dtype)[:, None, None]
+    b = b.expand(E, 20, H).contiguous()
+    got = trd.ragged_expert_matmul(xs, plan.block_expert, w, a, b, scale=1.25)
+    _check_lora(got, tref.ragged_expert_matmul_ref(xs, plan.block_expert, w,
+                                                   a, b, scale=1.25))
+
+
+def test_cuda_ragged_lm_loss_grads_match_dense(cuda):
+    """The gradient of every trainable leaf of a two-layer smoke model's
+    LM loss on the card: dispatch="ragged" (the trio's Functions) against
+    dispatch="dense", float32, adapter b != 0, relative L2 <= 1e-4."""
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator(device=cuda)
+                                .manual_seed(3), cuda)
+    lora = tlora.init_lora(torch.Generator(device=cuda).manual_seed(4), cfg,
+                           params)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for _, leaf in _b_leaves(lora):
+        leaf.normal_(0.0, 0.3, generator=gen)
+    tok = torch.randint(0, cfg.vocab_size, (2, 24), generator=gen,
+                        device=cuda)
+    grads = {}
+    for mode in ("ragged", "dense"):
+        tr = {"lora": _tree_clone(lora),
+              "rescaler": tlora.init_rescalers(cfg, 1, device=cuda)}
+        leaves = _tree_leaves(tr)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss, _ = tmodel.lm_loss(cfg, params, tok, tok.roll(-1, 1),
+                                 trainable=tr, k=2, dispatch=mode)
+        grads[mode] = torch.autograd.grad(loss, leaves)
+    for r, d in zip(grads["ragged"], grads["dense"]):
+        assert ((r - d).norm() / d.norm()).item() <= 1e-4
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in _tree_leaves(tree[k])]
+    return [tree]
+
+
+def _tree_clone(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _b_leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _b_leaves(v, path + (k,))
+    elif path[-1] == "b":
+        yield path, tree
+
+
+def test_cuda_lora_engine_matches_merged(cuda):
+    """The smoke model served with an adapter unmerged (expert adapters in
+    the ragged LoRA route, q/k/v/o through lora_matmul) against the
+    engine on the merged weights, float32: the same tokens, and both
+    kernels launched."""
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator(device=cuda)
+                                .manual_seed(6), cuda)
+    lora = tlora.init_lora(torch.Generator(device=cuda).manual_seed(7), cfg,
+                           params)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for _, leaf in _b_leaves(lora):
+        leaf.normal_(0.0, 0.3, generator=gen)
+
+    def reqs():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, (12,))
+                        .astype(np.int32), max_new_tokens=6, k=(2, 1)[i % 2])
+                for i in range(6)]
+    kw = dict(num_slots=4, slot_len=24, slot_k=(2, 2, 1, 1), block_size=4)
+    merged = tlora.merge_into_params(params, lora, cfg.lora.scale)
+    want = ServingEngine(cfg, merged, **kw).run(reqs()).tokens_by_rid()
+    before = dict(_build.LAUNCHES)
+    got = ServingEngine(cfg, params, lora=lora, **kw).run(
+        reqs()).tokens_by_rid()
+    for name in ("lora_matmul", "ragged_expert_matmul"):
+        assert _build.LAUNCHES[name] > before[name]
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+
+
 def test_cuda_local_update_matches_cpu(cuda):
     """A two-step local round of the smoke model (float32) on the card and
     on the CPU from the same weights, adapters and batches; the card's

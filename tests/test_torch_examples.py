@@ -1,7 +1,9 @@
 """The port's entry points on the CPU (``--device cpu``, the kernels' plain
 versions): the training launcher's checkpoint flags and the twins of
-``examples/quickstart.py`` and ``examples/federated_finetune.py``."""
+``examples/quickstart.py``, ``examples/federated_finetune.py`` and
+``examples/adaptive_serving.py``."""
 import importlib
+import math
 import sys
 
 import pytest
@@ -49,8 +51,27 @@ def test_federated_finetune_twin_resumes(tmp_path, monkeypatch, capsys):
     assert "round 1:" in second and "round 0:" not in second
 
 
+def test_adaptive_serving_twin_runs_on_cpu(monkeypatch, capsys):
+    """One FLAME round on BENCH, merged, every tier served teacher-forced
+    in one engine: the per-tier table has a finite NLL per tier, and the
+    active parameters and FLOPs fall with k."""
+    _run_module("repro_torch.examples.adaptive_serving",
+                ["--device", "cpu", "--new-tokens", "3", "--batch", "2"],
+                monkeypatch)
+    out = capsys.readouterr().out
+    assert "serving olmoe-bench on cpu" in out and "tiers k=[4, 2, 1]" in out
+    lines = out.split("k,active_params_M,decode_GFLOPs_per_tok,nll,"
+                      "latency_p50_ms\n")[1].splitlines()[:3]
+    rows = [[float(v) for v in line.split(",")] for line in lines]
+    assert [r[0] for r in rows] == [4, 2, 1]
+    assert rows[0][1] > rows[1][1] > rows[2][1]
+    assert all(math.isfinite(r[3]) and r[3] > 0 for r in rows)
+    assert "engine: 2 mixed-k decode steps" in out
+
+
 @pytest.mark.parametrize("name", ["repro_torch.examples.quickstart",
-                                  "repro_torch.examples.federated_finetune"])
+                                  "repro_torch.examples.federated_finetune",
+                                  "repro_torch.examples.adaptive_serving"])
 def test_example_twins_refuse_a_missing_card(name, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -6,7 +6,6 @@ port.  The JAX side runs its ``backend="reference"`` path (the default on
 the CPU).  Tolerances: layers 1e-5, logits 1e-4 (float32 on both sides,
 different summation order, two layers).
 """
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +18,8 @@ from repro.core import lora as jlora
 from repro.models import layers as jlayers
 from repro.models import model as jmodel
 from repro_torch import configs as tconfigs
-from repro_torch.convert import params_from_jax, rescalers_from_jax
+from repro_torch.convert import (config_from_jax, params_from_jax,
+                                 rescalers_from_jax)
 from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models.moe_layer import apply_moe
@@ -28,12 +28,7 @@ from repro_torch.serving import BlockPool
 
 def port_cfg(jcfg) -> tconfigs.ModelConfig:
     """The port's ModelConfig with the same fields as a JAX one."""
-    kw = {f.name: getattr(jcfg, f.name)
-          for f in dataclasses.fields(tconfigs.ModelConfig)}
-    kw["moe"] = tconfigs.MoEConfig(**dataclasses.asdict(jcfg.moe))
-    kw["ssm"] = tconfigs.SSMConfig(**dataclasses.asdict(jcfg.ssm))
-    kw["lora"] = tconfigs.LoRAConfig(**dataclasses.asdict(jcfg.lora))
-    return tconfigs.ModelConfig(**kw)
+    return config_from_jax(jcfg)
 
 
 JCFG = tiny_moe()
@@ -247,9 +242,3 @@ def test_later_slice_branches_raise():
     with pytest.raises(NotImplementedError, match="sliding-window"):
         tmodel.decode_step(ring, TPARAMS, tmodel.init_cache(ring, 4, 8, "cpu"),
                            x[:, :1], 0, k=2)
-    expert_lora = {"experts": {"w1": {"a": torch.ones(1), "b": torch.ones(1)}}}
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        apply_moe(jax.tree.map(lambda a: a[0],
-                               TPARAMS["blocks"]["pos0"]["moe"]),
-                  TCFG, torch.ones(1, 2, 64), k=2, lora=expert_lora,
-                  dispatch="ragged")

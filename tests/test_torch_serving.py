@@ -4,9 +4,11 @@ Same weights (converted from the JAX package), same numpy-made requests,
 both engines paged with ragged dispatch and greedy sampling: the generated
 tokens must be identical per request.  Also the numpy-only copies
 (workload traces, histogram) against their originals, the serving
-launcher, and the options that later slices bring (the traffic layer
-and its observability: ``tests/test_torch_traffic.py``; speculative and
-sampled decoding and the slotted pool: ``tests/test_torch_speculative.py``).
+launcher.  The other options have files of their own: the traffic layer
+and its observability ``tests/test_torch_traffic.py``; speculative and
+sampled decoding and the slotted pool ``tests/test_torch_speculative.py``;
+LoRA serving and the dense and capacity dispatch modes
+``tests/test_torch_lora_serving.py``.
 """
 import jax
 import numpy as np
@@ -122,15 +124,6 @@ def test_workload_and_histogram_copies_match_the_originals():
     assert jh.snapshot() == th.snapshot()
 
 
-@pytest.mark.parametrize("kw", [
-    dict(dispatch="capacity"), dict(dispatch="dense"),
-    dict(lora={"blocks": {}}, kv_layout="slotted"), dict(lora={"blocks": {}}),
-])
-def test_engine_later_slice_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="later|slice"):
-        ServingEngine(TCFG, TPARAMS, num_slots=2, slot_len=16, **kw)
-
-
 def test_sampler_is_greedy_only():
     """Greedy by default; the sampled kinds (ported since the serving
     extras, ``tests/test_torch_speculative.py``) keep the reference's
@@ -155,7 +148,6 @@ def test_serve_launcher_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--local", "--dispatch", "dense"], "serving-extras"),
     (["--local", "--multi-pod"], "multi-chip"),
     (["--device", "cpu"], "multi-chip"),
 ])
