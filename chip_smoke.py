@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
 federated training round, checkpoints and resume, the three baselines,
-the serving engine's traffic layer, self-speculative decoding and LoRA
-serving (the federated adapter unmerged) — on one NVIDIA GPU.
+the serving engine's traffic layer, self-speculative decoding, LoRA
+serving (the federated adapter unmerged), the registry's other archs and
+the single-device train step — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -150,7 +151,33 @@ nothing else of the network or the filesystem.  Phases:
    version; dense at bf16 FULL against ragged by the near-tie rule; (d)
    phase 5's global adapter with one client's rescaler per tier served
    unmerged at FULL: every request complete, finite logits;
-13. summary — a ``{"kernels": [...]}`` line, then the last line
+13. archs — the registry's dense-FFN archs and the shared-expert MoE
+   (olmo-1.3b, qwen3-1.7b, phi4-mini-3.8b, qwen2-moe-a2.7b, granite-20b,
+   chameleon-34b) at full width, bf16, random seeded weights, one model
+   on the card at a time, each at the largest depth (up to FULL) at which
+   its weights, an 8 x 512 KV pool and a 6 GiB reserve fit: the engine
+   serves 8 requests of 128/256-token prompts, 16 new tokens each (tiers
+   4,4,2,2,1,1,1,1 for the MoE, one tier for a dense arch), counts zeroed
+   just before and read just after (a dense arch launches flash once per
+   layer and prefill call and no router, ragged or LoRA kernel; the MoE
+   the serving path's five kernels once per layer and engine call);
+   every kernel call of one prefill call (T = 256) and one decode step
+   held against its plain version; layer 0's flash (GQA 24/8 on
+   phi4-mini, MQA 48/1 on granite) and the MoE's router and ragged trio
+   at E = 60, k = 4 timed beside their bounds and library calls; then
+   OLMo-1.3B FULL runs one HLoRA round of 4 clients at the dense rank
+   grid (40/24/16/12) with the FFN adapters, and ``lora_matmul`` is held
+   and timed at its FFN shapes (2048 <-> 8192, r = 40, M = 2048) with its
+   fp32 backward timed;
+14. train step — ``launch/steps.py`` ``build_train`` on OLMo-1.3B FULL
+   at train_4k's sequence length (4096) with the global batch cut to 8:
+   the knobs it chose, s/step, tokens/s, peak memory, a finite loss and
+   Adam's step at 1; at batch 1 with and without layer checkpointing on
+   the same batch: the same loss within bf16 tolerance and a lower peak
+   with it; flash at S = 4096 timed; ``build_prefill`` and
+   ``build_serve`` once at a small shape in fp32, logits and caches
+   against the plain versions on the card;
+15. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -853,6 +880,7 @@ def main() -> int:
             check(row_rel.median().item() <= 2e-2,
                   "bf16 end-to-end median row error above 2e-2")
             check(agree >= 0.9, "bf16 end-to-end argmax agreement below 0.9")
+    del pc, pg, lg, lc
 
     train_e2e_phase(torch, cfg2, dev, check)
 
@@ -957,12 +985,559 @@ def main() -> int:
     lora_fp32_phase(torch, cfg2, dev, check, kc)
     print(f"LoRA serving phase: {time.perf_counter() - t0:.1f} s")
 
-    # ------------------------------------------------ 13. summary
+    # ------------------------------------------------ 13. archs
+    t0 = time.perf_counter()
+    rows += archs_phase(torch, dev, check, kc)
+    print(f"archs phase: {time.perf_counter() - t0:.1f} s")
+
+    # ------------------------------------------------ 14. train step
+    rows.append(train_step_phase(torch, dev, check, kc))
+
+    # ------------------------------------------------ 15. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+ARCH_ORDER = ("olmo-1.3b", "qwen3-1.7b", "phi4-mini-3.8b", "qwen2-moe-a2.7b",
+              "granite-20b", "chameleon-34b")
+ARCH_MOE_SLOTS = (4, 4, 2, 2, 1, 1, 1, 1)
+ARCH_RESERVE = 6 * 2 ** 30       # activations, workspaces, a flush buffer
+
+
+def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
+         launches, library_what=None):
+    """A ``kernels`` line entry, printed as ``record`` prints one;
+    ``bound``: ``bound_ms``'s (ms, "bytes" | "operations")."""
+    b_ms, b_by = bound
+    lib = "-" if library_ms is None else f"{library_ms:.4f}"
+    if library_what:
+        lib += f" ({library_what})"
+    print(f"kernel {name}: max_abs_err {err:.3e}, {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, library {lib} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}), {launches} launches")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + source,
+            "replaces": "src/repro/kernels/" + replaces, "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
+
+
+def _fit_depth(torch, cfg, num_slots, slot_len):
+    """The largest depth <= num_layers at which the weights, the KV pool
+    (``num_slots`` x ``slot_len`` tokens) and ``ARCH_RESERVE`` fit in the
+    card's free memory; (depth, bytes a layer, bytes outside the stack)."""
+    from repro_torch.launch.steps import abstract_params, state_bytes
+    one = state_bytes(abstract_params(cfg.replace(num_layers=1)))
+    per_layer = state_bytes(abstract_params(cfg.replace(num_layers=2))) - one
+    kv = 2 * num_slots * slot_len * cfg.n_kv_heads * cfg.head_dim_ * 2
+    free, _ = torch.cuda.mem_get_info()
+    fit = int((free - ARCH_RESERVE - (one - per_layer)) // (per_layer + kv))
+    return min(cfg.num_layers, fit), per_layer, one - per_layer
+
+
+def _arch_requests(cfg, tiers, n=8, new=16, seed=0):
+    """8 requests of 128/256-token prompts in turn at the tiers in turn
+    (no budget for a dense arch), ``new`` new tokens, seeded."""
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab_size, ((128, 256)[i % 2],)).astype(np.int32),
+        max_new_tokens=new, k=tiers[i % len(tiers)] if tiers else None)
+        for i in range(n)]
+
+
+def _arch_step_calls(torch, cfg, params, tiers, check, what):
+    """Every kernel call of one prefill call (one 256-token prompt) and of
+    one decode step (8 busy slots) on the engine of the archs phase.
+    Returns (prefill calls, decode calls)."""
+    from repro_torch.serving import ServingEngine
+    from repro_torch.serving.engine import ServingReport
+    eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+                        slot_k=tiers, block_size=16)
+    report = ServingReport(completions=[])
+    eng._t0 = time.perf_counter()
+    reqs = _arch_requests(cfg, tiers, n=8, new=4, seed=5)
+    check(reqs[1].prompt_len == 256, f"{what}: request 1 not 256 tokens")
+    with torch.inference_mode():
+        eng.scheduler.add(reqs[1])
+        _, pre = _recorded(torch, lambda: eng._admit(report))
+        for r in reqs[:1] + reqs[2:]:
+            eng.scheduler.add(r)
+        eng._admit(report)
+        check(eng.n_active == 8, f"{what}: {eng.n_active} slots busy")
+        _, dec = _recorded(torch, lambda: eng._decode_once(report))
+        while eng.n_active:
+            eng._decode_once(report)
+    eng.pool.check_invariants()
+    check(eng.pool.blocks_in_use == 0, f"{what}: blocks held after the run")
+    return pre, dec
+
+
+def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T):
+    """Each recorded call of one engine call against its plain version at
+    every layer: flash once per layer at prefill; an MoE arch's router
+    (static at prefill, per-token at decode) at ``T`` tokens and the
+    ragged trio once per layer (the grouped matmul three times), a dense
+    arch none of them.  Routers exact (weights within 1e-6), the gather
+    exact, the rest within ``kc["close"]``.  Returns {name: max err}."""
+    from repro_torch.kernels import ref
+    close = kc["close"]
+    L = cfg.num_layers
+    names = [c[0] for c in calls]
+    want_n = {"flash_attention": L if prefill else 0}
+    if cfg.moe.enabled:
+        want_n.update({("router" if prefill else "adaptive_router"): L,
+                       "ragged_gather": L, "ragged_combine": L,
+                       "ragged_expert_matmul": 3 * L})
+    for name, n in want_n.items():
+        check(names.count(name) == n, f"{what}: {names.count(name)} {name} "
+              f"calls, not {n}")
+    check(len(names) == sum(want_n.values()), f"{what}: other calls "
+          f"{sorted(set(names) - set(want_n))}")
+    worst = {}
+    for name, a, kw, out in calls:
+        tag = f"{what} {name}"
+        if name == "flash_attention":
+            q, k, v = (t.transpose(1, 2) for t in a)
+            check(q.shape[1] == cfg.n_heads and k.shape[1] == cfg.n_kv_heads,
+                  f"{tag}: heads {q.shape[1]}/{k.shape[1]}")
+            err = close(out, ref.flash_attention_ref(
+                q, k, v, causal=kw["causal"],
+                window=kw["window"]).transpose(1, 2), tag)
+        elif name in ("router", "adaptive_router"):
+            check(a[0].shape == (T, cfg.moe.num_experts),
+                  f"{tag} at {tuple(a[0].shape)}")
+            plain = (ref.topk_router_ref if name == "router"
+                     else ref.adaptive_topk_router_ref)
+            err = kc["router"](out, plain(*a), tag)
+        elif name == "ragged_gather":
+            check(torch.equal(out, ref.ragged_gather_ref(*a)),
+                  f"{tag} differs from the plain version")
+            err = 0.0
+        elif name == "ragged_expert_matmul":
+            err = close(out, ref.ragged_expert_matmul_ref(*a, **kw), tag)
+        else:
+            err = close(out, ref.ragged_combine_ref(*a), tag)
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def _time_flash(torch, call, kc):
+    """A recorded flash call ((B, S, H, D) model layout): (ms, plain ms,
+    bytes, FLOPs, SDPA ms on contiguous (B, H, S, D) copies)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    (q, k, v), kw = call[1], call[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    B, H, S, D = qt.shape
+    KV = kt.shape[1]
+    qc, kc_, vc = (x.contiguous() for x in (qt, kt, vt))
+    return (t(lambda: backend.flash_attention(q, k, v, **kw)),
+            t(lambda: ref.flash_attention_ref(qt, kt, vt, **kw)),
+            (2 * B * H * S * D + 2 * B * KV * S * D) * q.element_size(),
+            4.0 * D * B * H * S * (S + 1) // 2,
+            t(lambda: F.scaled_dot_product_attention(
+                qc, kc_, vc, is_causal=True, enable_gqa=KV != H)))
+
+
+def _lora_ffn_rows(torch, dev, check, kc, launches):
+    """``lora_matmul`` at OLMo-1.3B's FFN shapes in a training step (M =
+    16 x 128 tokens, 2048 -> 8192 and 8192 -> 2048, r = 40, bf16): held
+    against its plain version (close_16bit), timed beside its bound and
+    the library's base product, and the training backward (dx, dA, dB,
+    the reference's fp32 rules) timed.  Returns two kernel rows."""
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    rows, M, r, sc = [], 2048, 40, 0.4
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    for K, N in ((2048, 8192), (8192, 2048)):
+        x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
+        a, b = randn(K, r, scale=K ** -0.5), randn(r, N, scale=0.5)
+        err = kc["close"](backend.lora_matmul(x, w, a, b, scale=sc),
+                          ref.lora_matmul_ref(x, w, a, b, sc),
+                          f"lora_matmul {K}->{N} r={r}")
+        xg, ag, bg = (u.clone().requires_grad_(True) for u in (x, a, b))
+        y = backend.lora_matmul(xg, w, ag, bg, scale=sc)
+        g = randn(M, N)
+        bwd = t(lambda: torch.autograd.grad(y, (xg, ag, bg), g,
+                                            retain_graph=True))
+        print(f"lora_matmul backward {K}->{N} r={r} M={M} (dx, dA, dB; the "
+              f"reference's fp32 rules, plain PyTorch): {bwd:.4f} ms")
+        rows.append(_row(
+            f"lora_matmul (OLMo-1.3B FFN {K}->{N}, r={r}, M={M})",
+            "lora_matmul.cu", "lora_matmul.py:63", err,
+            t(lambda: backend.lora_matmul(x, w, a, b, scale=sc)),
+            t(lambda: ref.lora_matmul_ref(x, w, a, b, sc)),
+            bound_ms(2 * (M * K + K * N + K * r + r * N + M * N),
+                     2.0 * M * (K * N + K * r + r * N), BF16_FLOPS),
+            t(lambda: torch.matmul(x, w)), launches,
+            "torch.matmul(x, W), base product only"))
+        del x, w, a, b, xg, ag, bg, y, g
+    return rows
+
+
+def _arch_train_round(torch, cfg, params, dev, check):
+    """OLMo-1.3B FULL: one HLoRA round (the dense rank grid) of 4 clients
+    with the FFN adapters, the default batched engine; returns the
+    round's launch counts."""
+    from repro_torch.configs import FederatedConfig, TrainConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.federated import client as client_lib
+    from repro_torch.federated.server import DENSE_BUDGET_RANKS
+    from repro_torch.federated.simulation import build_experiment
+    from repro_torch.kernels import _build
+    fed = FederatedConfig(num_clients=4, rounds=1, method="hlora")
+    tc = TrainConfig()
+    exp = build_experiment(cfg, fed=fed, tc=tc,
+                           data=DataConfig(vocab_size=512, n_examples=200,
+                                           seq_len=128),
+                           base_params=params, device=dev)
+    server = exp.server
+    check([c.rank for c in server.clients] == list(
+        DENSE_BUDGET_RANKS.values()), "client ranks are not 40/24/16/12")
+    ffn = server.global_lora["blocks"]["pos0"]["ffn"]
+    check(set(ffn) == {"w1", "w2", "w3"}, "no FFN adapters")
+    steps = sum(client_lib.make_batch_plan(c, tc, fed.seed * 1000).n_steps
+                for c in server.clients)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = server.run_round(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(all(np.isfinite(res.client_losses)),
+          f"OLMo round losses {res.client_losses}")
+    check(launches["lora_matmul"] > 0 and launches["flash_attention"] > 0,
+          f"OLMo round launches {launches}")
+    for name, n in launches.items():
+        if name not in ("lora_matmul", "flash_attention"):
+            check(n == 0, f"the dense round launched {name}")
+    print(f"archs olmo-1.3b training: one HLoRA round, clients (rank, "
+          f"examples) " + ", ".join(f"({c.rank}, {c.dataset_size})"
+                                     for c in server.clients)
+          + f", {steps} steps in {dt:.3f} s ({dt / max(steps, 1):.3f} s/"
+          f"step), losses {[round(x, 4) for x in res.client_losses]}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{json.dumps(launches)}")
+    del exp, server
+    return launches
+
+
+def _arch_kernel_rows(torch, arch, cfg, params, tiers, launches, check,
+                      kc):
+    """Every kernel call of one prefill call and one decode step of an
+    arch held against its plain version; layer 0's flash timed, and the
+    MoE's routers and ragged trio.  Returns the ``kernels`` line's rows of
+    the new shapes: flash at GQA 24/8 (phi4-mini) and MQA 48/1 (granite),
+    the two router entries and the ragged trio at E = 60, k = 4
+    (qwen2-moe), with the serving run's ``launches``."""
+    pre, dec = _arch_step_calls(torch, cfg, params, tiers, check, arch)
+    worst = {"prefill": _check_arch_calls(torch, cfg, pre, check, kc,
+                                          f"{arch} prefill", True, 256),
+             "decode": _check_arch_calls(torch, cfg, dec, check, kc,
+                                         f"{arch} decode", False, 8)}
+    print(f"archs {arch}: every kernel call of one prefill call (T=256) "
+          f"and one decode step (8 slots), {cfg.num_layers} layers, against "
+          "its plain version; max |kernel - plain|: " + "; ".join(
+              f"{part} " + (", ".join(f"{n} {e:.3e}" for n, e in w.items())
+                            or "no kernel") for part, w in worst.items()))
+    rows = []
+    f_ms, f_pl, f_nb, f_fl, f_lib = _time_flash(
+        torch, next(c for c in pre if c[0] == "flash_attention"), kc)
+    shape = f"H={cfg.n_heads} KV={cfg.n_kv_heads} S=256 B=1 D={cfg.head_dim_}"
+    kind = {"phi4-mini-3.8b": "GQA 3", "granite-20b": "MQA"}.get(arch)
+    if kind:
+        rows.append(_row(f"flash_attention ({kind}, {arch} prefill, {shape})",
+                         "flash_attention.cu", "flash_attention.py:92",
+                         worst["prefill"]["flash_attention"], f_ms, f_pl,
+                         bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
+                         launches["flash_attention"],
+                         "scaled_dot_product_attention"))
+    else:
+        print(f"archs {arch}: flash layer 0 ({shape}) {f_ms:.4f} ms (plain "
+              f"{f_pl:.4f}, SDPA {f_lib:.4f}, bound "
+              f"{bound_ms(f_nb, f_fl, BF16_FLOPS)[0]:.4f})")
+    if not cfg.moe.enabled:
+        return rows
+    times = {"prefill": _time_layer0(
+                 torch, [c for c in pre if c[0] != "flash_attention"][:6], kc),
+             "decode": _time_layer0(torch, dec[:6], kc)}
+    E, kk = cfg.moe.num_experts, cfg.moe.top_k
+    for part, key, kname, replaces, what in (
+            ("prefill", "router", "topk_router", "topk_router.py:59",
+             f"T=256 k={kk}"),
+            ("decode", "adaptive_router", "adaptive_topk_router",
+             "topk_router.py:59", "T=8"),
+            ("prefill", "ragged_gather", "ragged_gather",
+             "ragged_dispatch.py:146", f"k={kk}"),
+            ("prefill", "ragged_expert_matmul w1/w3", "ragged_expert_matmul",
+             "ragged_dispatch.py:189",
+             f"k={kk}, w1 {cfg.d_model}->{cfg.moe.d_expert}"),
+            ("prefill", "ragged_combine", "ragged_combine",
+             "ragged_dispatch.py:248", f"k={kk}")):
+        ms, pl, b_ms, b_by, lib = times[part][key]
+        rows.append(_row(f"{kname} (E={E}, {arch} {part} {what})",
+                         "topk_router.cu" if "router" in key
+                         else "ragged_dispatch.cu", replaces,
+                         worst[part][key.split()[0]], ms, pl, (b_ms, b_by),
+                         lib, launches[kname]))
+    w2 = times["prefill"]["ragged_expert_matmul w2"]
+    print(f"archs {arch}: grouped w2 ({cfg.moe.d_expert}->{cfg.d_model}) "
+          f"{w2[0]:.4f} ms (bound {w2[2]:.4f}, grouped_mm "
+          f"{'-' if w2[4] is None else f'{w2[4]:.4f}'})")
+    return rows
+
+
+def archs_phase(torch, dev, check, kc):
+    """Phase 13: the registry's dense-FFN archs and the shared-expert MoE
+    at full width, bf16, random seeded weights, one model on the card at a
+    time.  Returns the new kernel rows."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import ServingEngine
+    # earlier phases' engines and servers sit in reference cycles that
+    # hold OLMoE's weights (and phase 12's merged copy) until collected
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    print(f"archs: {base / 2 ** 30:.2f} GiB allocated at the start")
+    rows = []
+    for i, arch in enumerate(ARCH_ORDER):
+        t_arch = time.perf_counter()
+        held = torch.cuda.memory_allocated() - base
+        check(held < 2 ** 28, f"{arch}: {held / 2 ** 30:.2f} GiB more than "
+              "at the phase's start still allocated before its model is "
+              "built")
+        full = get_config(arch, "full")
+        depth, per_layer, outside = _fit_depth(torch, full, 8, 512)
+        check(depth >= 1, f"{arch}: not one layer fits")
+        cfg = full.replace(num_layers=depth)
+        t0 = time.perf_counter()
+        params = model_lib.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(100 + i), dev)
+        torch.cuda.synchronize()
+        n_params = sum(x.numel() for x in _leaves(params))
+        print(f"archs {arch}: depth {depth} of {full.num_layers} (a layer "
+              f"{per_layer / 1e9:.3f} GB, embedding and head "
+              f"{outside / 1e9:.3f} GB), {n_params / 1e9:.3f} B params "
+              f"bf16, init {time.perf_counter() - t0:.1f} s")
+        tiers = ARCH_MOE_SLOTS if cfg.moe.enabled else None
+        eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+                            slot_k=tiers)
+        eng.run(_arch_requests(cfg, tiers, n=2, new=2, seed=9))  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        report = eng.run(_arch_requests(cfg, tiers))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        summ = report.summary()
+        check(summ["n_requests"] == 8 and summ["gen_tokens"] == 8 * 16,
+              f"{arch}: served {summ['n_requests']} requests / "
+              f"{summ['gen_tokens']} tokens")
+        for c in report.completions:
+            check(bool(((c.tokens >= 0) & (c.tokens < cfg.vocab_size))
+                       .all()), f"{arch} request {c.rid}: ids out of range")
+        n_pre, n_dec, L = len(report.prefill_s), summ["decode_steps"], depth
+        check(launches["flash_attention"] == L * n_pre,
+              f"{arch}: flash launched {launches['flash_attention']} times "
+              f"for {n_pre} prefill calls x {L} layers")
+        if cfg.moe.enabled:
+            check(launches["topk_router"] == L * n_pre and
+                  launches["adaptive_topk_router"] == L * n_dec,
+                  f"{arch}: router launches {launches}")
+            for name in ("ragged_gather", "ragged_combine"):
+                check(launches[name] == L * (n_pre + n_dec),
+                      f"{arch}: {name} launched {launches[name]} times")
+            check(launches["ragged_expert_matmul"] == 3 * L * (n_pre + n_dec),
+                  f"{arch}: ragged_expert_matmul launches {launches}")
+        for name, n in launches.items():
+            if name.startswith("lora") or (not cfg.moe.enabled
+                                           and name != "flash_attention"):
+                check(n == 0, f"{arch}: the serving run launched {name}")
+        print(f"archs {arch} serving: {summ['gen_tokens']} tokens in "
+              f"{summ['wall_s']:.3f} s, {summ['gen_tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {summ['ttft_p50_ms']:.1f} ms, decode step "
+              f"p50 {summ['decode_step_ms_p50']:.2f} ms ({n_dec} steps), "
+              f"{n_pre} prefill calls (p50 "
+              f"{float(np.median(report.prefill_s)) * 1e3:.1f} ms), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches {json.dumps(launches)}")
+        del eng
+        rows += _arch_kernel_rows(torch, arch, cfg, params, tiers, launches,
+                                  check, kc)
+        if arch == "olmo-1.3b":
+            lm_launches = _arch_train_round(torch, cfg, params, dev, check)
+            rows += _lora_ffn_rows(torch, dev, check, kc,
+                                   lm_launches["lora_matmul"])
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"archs {arch}: {time.perf_counter() - t_arch:.1f} s")
+    return rows
+
+
+def _plain_versions(torch, fn):
+    """``fn()`` with every wrapper of ``kernels.backend`` running its plain
+    version on the card (the device test sees no CUDA tensor)."""
+    from repro_torch.kernels import backend
+    orig = backend._on_cuda
+    backend._on_cuda = lambda t: False
+    try:
+        return fn()
+    finally:
+        backend._on_cuda = orig
+
+
+def train_step_phase(torch, dev, check, kc):
+    """Phase 14: ``launch/steps.py`` on OLMo-1.3B FULL at train_4k's
+    sequence length.  Returns the flash row at S = 4096."""
+    import gc
+
+    from repro_torch.configs import INPUT_SHAPES, ShapeConfig, get_config
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.kernels import _build, backend
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adam
+    t_phase = time.perf_counter()
+    cfg = get_config("olmo-1.3b", "full")
+    S = INPUT_SHAPES["train_4k"].seq_len
+    B = 8
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(21), dev)
+    lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(22),
+                              cfg, params)
+    # b drawn off zero, so every adapter factor gets a gradient
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for _, pair in _pairs(lora):
+        pair["b"] = (torch.randn(pair["b"].shape, generator=gen, device=dev)
+                     * 0.01).to(pair["b"].dtype)
+    batch_gen = torch.Generator(device=dev).manual_seed(24)
+
+    def run(bundle, shape):
+        trainable = {"lora": lora}
+        opt = adam.init(trainable)
+        batch = synthetic_batch(cfg, shape, batch_gen, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        new_tr, new_opt, m = bundle.fn(params, trainable, opt, *batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        return (loss, new_opt, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated(), dict(_build.LAUNCHES))
+
+    one = ShapeConfig("train_4k_b1", S, 1, "train")
+    on = steps.build_train(cfg, one, device=dev)
+    off = steps.build_train(cfg, one, remat=False, remat_chunk=0, device=dev)
+    run(on, one)                                   # warm-up
+    batch_gen.manual_seed(24)
+    l_off, _, t_off, p_off, _ = run(off, one)
+    batch_gen.manual_seed(24)                      # the same batch
+    l_on, _, t_on, p_on, _ = run(on, one)
+    print(f"train step remat, B=1 S={S}: loss on {l_on:.6f} / off "
+          f"{l_off:.6f}; peak on {p_on / 2 ** 30:.2f} GiB (chunk "
+          f"{on.meta['remat_chunk']}) / off {p_off / 2 ** 30:.2f} GiB; "
+          f"{t_on:.3f} / {t_off:.3f} s")
+    check(abs(l_on - l_off) <= 1e-2 * abs(l_off),
+          "remat changes the loss beyond bf16 tolerance")
+    check(p_on < p_off, "remat does not lower the peak")
+
+    shape = ShapeConfig("train_4k_cut", S, B, "train")
+    bundle = steps.build_train(cfg, shape, device=dev)
+    print(f"train step: {cfg.name} FULL, S={S}, global batch {B} (train_4k "
+          f"takes 256), knobs {bundle.meta}, act budget "
+          f"{bundle.meta['act_budget'] / 2 ** 30:.2f} GiB, estimated "
+          f"{bundle.meta['act_bytes'] / 2 ** 30:.2f} GiB a microbatch")
+    loss, opt, dt, peak, launches = run(bundle, shape)
+    check(np.isfinite(loss), f"train step loss {loss}")
+    check(opt.step == 1, f"Adam step {opt.step} after one step")
+    check(launches["lora_matmul"] > 0 and launches["flash_attention"] > 0,
+          f"train step launches {launches}")
+    print(f"train step: loss {loss:.4f}, {dt:.3f} s/step, "
+          f"{B * S / dt:.1f} tokens/s, peak {peak / 2 ** 30:.2f} GiB "
+          f"(parameters {bundle.meta['param_bytes'] / 2 ** 30:.2f} GiB), "
+          f"launches {json.dumps(launches)}")
+
+    # flash at S = 4096, a microbatch of one sequence
+    gen = torch.Generator(device=dev).manual_seed(25)
+    q, k, v = ((torch.randn((1, S, cfg.n_heads, cfg.head_dim_),
+                            generator=gen, device=dev)).to(torch.bfloat16)
+               for _ in range(3))
+    call = ("flash_attention", (q, k, v), {"causal": True, "window": 0})
+    err = kc["close"](backend.flash_attention(q, k, v, causal=True,
+                                              window=0),
+                      _plain_versions(torch, lambda: backend.flash_attention(
+                          q, k, v, causal=True, window=0)),
+                      "flash S=4096")
+    f_ms, f_pl, f_nb, f_fl, f_lib = _time_flash(torch, call, kc)
+    row = _row(f"flash_attention (S={S}, OLMo-1.3B train step, B=1 H=16 "
+               f"D=128)", "flash_attention.cu", "flash_attention.py:92", err,
+               f_ms, f_pl, bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
+               launches["flash_attention"], "scaled_dot_product_attention")
+    del q, k, v, call
+
+    # build_prefill / build_serve at a small shape, the card's kernels
+    # against the plain versions, fp32 (summation order only)
+    c32 = cfg.replace(dtype="float32")
+    p32 = _cast(params, torch.float32, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tr32 = {"lora": _cast(lora, torch.float32, dev)}
+    pre = steps.build_prefill(c32, ShapeConfig("p", 64, 2, "prefill"))
+    tok = torch.randint(0, cfg.vocab_size, (2, 64), generator=batch_gen,
+                        device=dev, dtype=torch.int32)
+    lg, cache = pre.fn(p32, tr32, tok)
+    lg_p, cache_p = _plain_versions(torch, lambda: pre.fn(p32, tr32, tok))
+    srv = steps.build_serve(c32, ShapeConfig("d", 128, 2, "decode"))
+    full = model_lib.init_cache(c32, 2, 128, device=dev)
+    for leaf in ("k", "v"):
+        full["pos0"]["attn"][leaf][:, :, :64] = cache["pos0"]["attn"][leaf]
+    full_p = _clone(full)
+    nxt = lg.argmax(-1).to(torch.int32)
+    pos = torch.tensor(64, dtype=torch.int32, device=dev)
+    ld, _ = srv.fn(p32, tr32, full, nxt, pos)
+    ld_p, _ = _plain_versions(torch, lambda: srv.fn(p32, tr32, full_p, nxt,
+                                                    pos))
+    errs = []
+    for what, got, want in (("prefill logits", lg, lg_p),
+                            ("prefill cache k",
+                             cache["pos0"]["attn"]["k"],
+                             cache_p["pos0"]["attn"]["k"]),
+                            ("serve logits", ld, ld_p),
+                            ("serve cache v", full["pos0"]["attn"]["v"],
+                             full_p["pos0"]["attn"]["v"])):
+        err = (got - want).abs().max().item()
+        check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
+              f"steps {what}: max |kernels - plain| {err:.3e}")
+        errs.append(f"{what} {err:.3e}")
+    print(f"steps build_prefill (B=2 S=64) / build_serve (one token at "
+          f"position 64 of a 128-deep cache), OLMo FULL fp32, kernels "
+          f"against plain versions: " + ", ".join(errs)
+          + f"; meta {pre.meta} / {srv.meta}")
+    del p32, tr32, lora, full, full_p, cache, cache_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train step phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
 
 
 def backward_phase(torch, backend, ref, dev, check) -> None:

@@ -1,7 +1,9 @@
-"""Architecture registry of the port: only the archs it can serve.
+"""Architecture registry of the port: only the archs it can serve and train.
 
 The reference registry (``repro/configs/registry.py``) knows twelve archs;
-the port adds each one with the slice that brings its layers.  Asking for
+the port knows the seven whose layers it has (attention with a dense FFN,
+a routed MoE, or a routed MoE with shared experts) and adds each other one
+with the slice that brings its layers.  Asking for
 an arch the port does not know yet raises ``KeyError`` naming that slice.
 """
 from __future__ import annotations
@@ -11,22 +13,23 @@ from importlib import import_module
 from .base import ModelConfig
 
 _ARCH_MODULES = {
+    "qwen3-1.7b": "qwen3_1_7b",
+    "granite-20b": "granite_20b",
+    "chameleon-34b": "chameleon_34b",
+    "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    # the paper's own evaluation models
+    "olmo-1.3b": "olmo_1_3b",
     "olmoe-1.3b-6.9b": "olmoe_1_3b_6_9b",
 }
 
 # archs of the reference registry that later slices of the port bring
 _LATER = {
-    "qwen3-1.7b": "the dense-FFN slice",
     "qwen3-moe-235b-a22b": "the multi-chip slice",
     "mamba2-780m": "the SSM slice",
-    "granite-20b": "the dense-FFN slice",
-    "chameleon-34b": "the dense-FFN slice",
-    "qwen2-moe-a2.7b": "the shared-expert slice",
-    "phi4-mini-3.8b": "the dense-FFN slice",
     "jamba-v0.1-52b": "the SSM slice",
     "llama3-405b": "the multi-chip slice",
     "musicgen-large": "the audio-codebook slice",
-    "olmo-1.3b": "the dense-FFN slice",
 }
 
 

@@ -1,23 +1,36 @@
-"""Training launcher of the port: the federated simulation on one device.
+"""Training launcher of the port: on one device.
 
-``--federated`` assembles an experiment (``build_experiment``: base model,
-global LoRA, Dirichlet-partitioned synthetic corpus, budgeted clients)
-and runs every round of FLAME on the reference's default engine (batched
-cohorts) and the host driver, then evaluates the global adapter.
-``--checkpoint-to`` writes a resumable checkpoint after every round and
-``--resume-from`` continues from one.  It runs on the CUDA kernels unless
-given ``--device cpu`` (their plain versions).  ``--variant`` defaults to
-the reduced smoke config, as the reference's launcher does; the data
-vocabulary is the model's, capped at 512 tokens (a full-width model keeps
-its 50,304-wide embedding and head: the synthetic corpus builds a dense
-vocab x vocab transition matrix per cluster, ~10 GB at full width).
+Two modes, as the reference launcher's:
+
+  * ``--federated`` assembles an experiment (``build_experiment``: base
+    model, global LoRA, Dirichlet-partitioned synthetic corpus, budgeted
+    clients) and runs every round of FLAME on the reference's default
+    engine (batched cohorts) and the host driver, then evaluates the
+    global adapter.  ``--checkpoint-to`` writes a resumable checkpoint
+    after every round and ``--resume-from`` continues from one.  The data
+    vocabulary is the model's, capped at 512 tokens (a full-width model
+    keeps its full embedding and head: the synthetic corpus builds a dense
+    vocab x vocab transition matrix per cluster, ~10 GB at 50,304 tokens).
+  * ``--local`` runs the single-device train step (``launch/steps.py``
+    ``build_train``: microbatches, layer checkpointing, Adam on the
+    adapters) at the reference's ``local_train`` shape, 8 sequences of 64
+    tokens, for ``--steps`` steps on seeded random weights and random
+    token batches: it prints the chosen knobs, then each step's loss and
+    time, and stops if a loss is not finite.
+
+Both run on the CUDA kernels unless given ``--device cpu`` (their plain
+versions).  ``--variant`` defaults to the reduced smoke config, as the
+reference's launcher does; ``--arch`` takes any arch of the port's
+registry.
 
   PYTHONPATH=src python -m repro_torch.launch.train --federated \\
       --device cpu --clients 4 --rounds 2 --checkpoint-to build/fed.ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --local \\
+      --arch olmo-1.3b --device cpu --steps 2
 
-The reference launcher's other modes — ``--local`` and the production
-mesh step — and its device round driver come with later slices of the
-port and are refused with a message naming the slice.
+The reference launcher's production-mesh step (``--shape``,
+``--multi-pod``) and its device round driver come with later slices of
+the port and are refused with a message naming the slice.
 """
 from __future__ import annotations
 
@@ -29,16 +42,18 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..configs import FederatedConfig, TrainConfig, get_config
+from ..configs import FederatedConfig, ShapeConfig, TrainConfig, get_config
+from ..core import lora as lora_lib
 from ..data.synthetic import DataConfig
 from ..federated.simulation import build_experiment, run_experiment
+from ..models import model as model_lib
+from ..optim import adam
+from . import steps as steps_lib
 
-_MULTI_CHIP = "the multi-chip slice (the sharded train step)"
+_MULTI_CHIP = "the multi-chip slice (the production-mesh train step)"
 LATER_FLAGS = {
-    "--local": _MULTI_CHIP,
     "--shape": _MULTI_CHIP,
     "--multi-pod": _MULTI_CHIP,
-    "--steps": _MULTI_CHIP,
 }
 _DEVICE_DRIVER = ("the device round driver: the ROADMAP's \"Device round "
                   "driver\" item")
@@ -48,6 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--federated", action="store_true",
                     help="run the federated simulation end to end")
+    ap.add_argument("--local", action="store_true",
+                    help="run the single-device train step on random "
+                         "batches")
+    ap.add_argument("--steps", type=int, default=5,
+                    help="--local: train steps to run")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
     ap.add_argument("--variant", default="smoke", help="full | smoke")
     ap.add_argument("--device", default="cuda",
@@ -57,7 +77,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--participation", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--k", type=int, default=None,
-                    help="evaluation expert budget (default: top_k)")
+                    help="--federated: evaluation expert budget; --local: "
+                         "the client's expert budget k_i (default: top_k)")
     ap.add_argument("--round-driver", default="host",
                     choices=("host", "device"),
                     help="host = per-round Python loop (device: not ported)")
@@ -80,23 +101,77 @@ def _refuse_later_flags(argv: Sequence[str]) -> None:
                              f"{LATER_FLAGS[flag]}")
 
 
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible "
+                         "(pass --device cpu for the plain versions)")
+    return device
+
+
+def synthetic_batch(cfg, shape: ShapeConfig, generator: torch.Generator,
+                    device):
+    """Random tokens (B, S) over the model's vocabulary, next-token labels
+    (the sequence rolled by one, as the reference's) and an all-ones mask."""
+    B, S = shape.global_batch, shape.seq_len
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=generator,
+                           device=device, dtype=torch.int32)
+    labels = torch.roll(tokens, -1, dims=1)
+    mask = torch.ones((B, S), dtype=torch.float32, device=device)
+    return tokens, labels, mask
+
+
+def run_local(args) -> None:
+    """--local: the train step of ``launch/steps.py`` on this device."""
+    device = _device(args.device)
+    cfg = get_config(args.arch, args.variant)
+    shape = ShapeConfig("local_train", seq_len=64, global_batch=8,
+                        kind="train")
+    bundle = steps_lib.build_train(cfg, shape, k=args.k, tc=TrainConfig(),
+                                   device=device)
+    print(f"{cfg.name} x {shape.name} on {device}: knobs={bundle.meta}")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
+    lora = lora_lib.init_lora(
+        torch.Generator(device=device).manual_seed(args.seed + 1), cfg,
+        params)
+    resc = (lora_lib.init_rescalers(cfg, bundle.meta["k"] or 1,
+                                    device=device)
+            if cfg.moe.enabled else None)
+    trainable = lora_lib.make_trainable(lora, resc)
+    opt = adam.init(trainable)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 100)
+    for step in range(args.steps):
+        tokens, labels, mask = synthetic_batch(cfg, shape, gen, device)
+        t0 = time.perf_counter()
+        trainable, opt, metrics = bundle.fn(params, trainable, opt, tokens,
+                                            labels, mask)
+        loss = float(metrics["loss"])
+        print(f"step {step}: loss {loss:.4f} "
+              f"({time.perf_counter() - t0:.2f}s)")
+        if not np.isfinite(loss):
+            raise SystemExit(f"step {step}: the loss is not finite")
+    print("done")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     _refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
+    if args.local:
+        run_local(args)
+        return
     if not args.federated:
-        raise SystemExit("only --federated is ported; the sharded train "
-                         f"step comes with {_MULTI_CHIP}")
+        raise SystemExit("pass --federated or --local: without them the "
+                         "reference runs the production-mesh train step, "
+                         "which comes with the multi-chip slice")
     if args.round_driver == "device":
         raise SystemExit("--round-driver device: not ported yet, it comes "
                          f"with {_DEVICE_DRIVER}")
     if args.checkpoint_every != 1:
         raise SystemExit("--checkpoint-every other than 1: not ported yet, "
                          f"it comes with {_DEVICE_DRIVER}")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is visible "
-                         "(pass --device cpu for the plain versions)")
+    device = _device(args.device)
 
     cfg = get_config(args.arch, args.variant)
     fed = FederatedConfig(num_clients=args.clients, rounds=args.rounds,

@@ -22,6 +22,7 @@ from __future__ import annotations
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from . import attention as attn_mod
 from . import moe_layer as moe_mod
@@ -166,11 +167,20 @@ def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
 def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                cache_pos=None, return_cache=False, slot_mask=None,
                block_table=None, page_span=None, dispatch=None,
-               suffix_readonly=False, num_groups=1):
+               suffix_readonly=False, num_groups=1, remat=False,
+               remat_chunk=0):
     """The layer stack as a loop over the leading n_periods axis; period
     ``i`` reads views of the stacked weights, of the stacked LoRA adapters
     (``trainable["lora"]["blocks"]["pos0"]``) and of the rescalers.
-    Returns (h, counts {pos0: (n_periods, E)}, new K/V per period)."""
+    Returns (h, counts {pos0: (n_periods, E)}, new K/V per period).
+
+    ``remat`` (cacheless calls only, as the reference's): each period runs
+    under ``torch.utils.checkpoint``, so autograd keeps only its input and
+    recomputes it in the backward pass; with ``1 < remat_chunk <
+    n_periods`` the periods go in groups of ``remat_chunk`` (lowered to a
+    divisor of n_periods) checkpointed at both levels, the reference's
+    two-level (√L) scheme: n_periods/g + g saved inputs for one more
+    forward.  Loss and gradients are those of the plain loop."""
     _check_supported(cfg)
     trainable = trainable or {}
     lora_blocks = ((trainable.get("lora") or {}).get("blocks") or {}).get(
@@ -181,8 +191,8 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
     n = cfg.num_layers // cfg.pattern_period
     blocks = params["blocks"]["pos0"]
     layer_cache = (cache or {}).get("pos0", {}).get("attn")
-    counts, kv = [], []
-    for i in range(n):
+
+    def period(i, x):
         h_cache = None if layer_cache is None else _index(layer_cache, i)
         x, aux, nc = _apply_block(
             cfg, _index(blocks, i), x, positions,
@@ -192,11 +202,40 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
             return_cache=return_cache, slot_mask=slot_mask,
             block_table=block_table, page_span=page_span, dispatch=dispatch,
             suffix_readonly=suffix_readonly, num_groups=num_groups)
-        if aux is not None:
-            counts.append(aux.activation_counts)
-        kv.append(nc)
+        return x, None if aux is None else aux.activation_counts, nc
+
+    counts, kv = [], []
+    if not remat or cache is not None or return_cache:
+        for i in range(n):
+            x, c, nc = period(i, x)
+            counts.append(c)
+            kv.append(nc)
+    elif 1 < remat_chunk < n:
+        g = remat_chunk
+        while n % g:
+            g -= 1
+
+        def group(x, g0):
+            cs = []
+            for i in range(g0, g0 + g):
+                x, c, _ = _checkpoint(period, i, x)
+                cs.append(c)
+            return x, cs
+
+        for g0 in range(0, n, g):
+            x, cs = _checkpoint(group, x, g0)
+            counts.extend(cs)
+    else:
+        for i in range(n):
+            x, c, _ = _checkpoint(period, i, x)
+            counts.append(c)
+    counts = [c for c in counts if c is not None]
     out_counts = {"pos0": torch.stack(counts)} if counts else {}
     return x, out_counts, kv
+
+
+def _checkpoint(fn, *args):
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
 
 
 # ==========================================================================
@@ -204,16 +243,20 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
 # ==========================================================================
 
 def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
-                   k=None, positions=None, dispatch=None):
+                   k=None, positions=None, dispatch=None, remat=False,
+                   remat_chunk=0, num_groups=1):
     """tokens (B, S) -> (final hidden states (B, S, D) after the final
     norm, activation counts {pos0: (n_periods, E)}).  MoE layers dispatch
-    on ``capacity`` unless told otherwise, as in the reference."""
+    on ``capacity`` unless told otherwise, as in the reference, over
+    ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
+    checkpointing (:func:`_run_stack`)."""
     S = tokens.shape[1]
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens)
     h, counts, _ = _run_stack(cfg, params, x, positions, trainable=trainable,
-                              k=k, dispatch=dispatch)
+                              k=k, dispatch=dispatch, num_groups=num_groups,
+                              remat=remat, remat_chunk=remat_chunk)
     return rms_norm(params["final_norm"], h, cfg.rms_eps), counts
 
 
@@ -251,10 +294,11 @@ def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
 
 
 def lm_loss(cfg, params, tokens, labels, mask=None, *, trainable=None,
-            k=None, dispatch=None):
+            k=None, dispatch=None, remat=False, remat_chunk=0, num_groups=1):
     """Full LM loss.  Returns (loss, activation counts)."""
     h, counts = forward_hidden(cfg, params, tokens, trainable=trainable,
-                               k=k, dispatch=dispatch)
+                               k=k, dispatch=dispatch, remat=remat,
+                               remat_chunk=remat_chunk, num_groups=num_groups)
     return chunked_ce_loss(cfg, params, h, labels, mask), counts
 
 

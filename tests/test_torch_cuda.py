@@ -76,6 +76,8 @@ def _budgets(T, max_k, g, device):
 # grid (each warp loops); k: none to all
 _ROUTER_CASES = [(E, k) for E in (8, 33, 64, 128, 512)
                  for k in sorted({0, 1, 2, 8, E})]
+# qwen2-moe-a2.7b: 60 experts, two per lane with the last lane's empty
+_ROUTER_CASES += [(60, 4), (60, 60)]
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -171,6 +173,10 @@ def test_cuda_router_call_is_one_kernel(cuda, T):
 
 _FLASH_CASES = [(256, 16, 16, 128, 0, 0), (100, 8, 2, 64, 0, 0),
                 (77, 4, 4, 32, 16, 0)]
+# the registry's head layouts: GQA 24/8 (phi4-mini), MQA 48/1 (granite),
+# 64/8 (chameleon), and a 1024-token training sequence
+_FLASH_CASES += [(256, 24, 8, 128, 0, 0), (256, 48, 1, 128, 0, 0),
+                 (130, 64, 8, 128, 0, 0), (1024, 16, 16, 128, 0, 0)]
 # the tile edges of the tensor-core kernel (64-query blocks, 64-key tiles)
 _FLASH_CASES += [(S, 8, KV, D, window, 0) for S in (1, 63, 65, 128, 256)
                  for D in (32, 64, 128) for KV in (8, 2) for window in (0, 16)]
@@ -531,7 +537,8 @@ def test_cuda_ragged_expert_matmul_matches_plain(cuda, dtype, kind, K, H, r):
                                      (1, 5, 3, 64), (1, 64, 256, 1),
                                      (37, 128, 512, 64), (2047, 256, 384, 20),
                                      (2047, 100, 77, 4), (37, 2048, 256, 20),
-                                     (1, 100, 77, 20)])
+                                     (1, 100, 77, 20), (2048, 2048, 8192, 40),
+                                     (2048, 8192, 2048, 40)])
 def test_cuda_lora_matmul_matches_plain(cuda, dtype, M, K, N, r):
     x, w, a, b = _lora_operands(cuda, (), M, K, N, r, dtype)
     before = _build.LAUNCHES["lora_matmul"]
@@ -901,3 +908,79 @@ def test_cuda_checkpoint_roundtrip(cuda, tmp_path):
         assert torch.equal(a, b)
     for a, b in zip(fresh.clients, srv.clients):
         assert torch.equal(a.rescaler["pos0"], b.rescaler["pos0"])
+
+
+_ARCHS = ["olmo-1.3b", "qwen3-1.7b", "phi4-mini-3.8b", "granite-20b",
+          "chameleon-34b", "qwen2-moe-a2.7b"]
+
+
+@pytest.mark.parametrize("arch", _ARCHS)
+def test_cuda_arch_engines_match_cpu_engine(cuda, arch):
+    """Each registry arch's SMOKE config at float32: the engine on the card
+    emits the CPU engine's greedy tokens; a dense arch launches flash and
+    nothing else, the MoE arch the five serving kernels."""
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(num_slots=4, slot_len=20, block_size=4)
+    tiers = (None,)
+    if cfg.moe.enabled:
+        kw["slot_k"] = tiers = (2, 2, 1, 1)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, (int(rng.integers(4, 11)),))
+             .astype(np.int32), tiers[i % len(tiers)]) for i in range(6)]
+
+    def run(p):
+        return ServingEngine(cfg, p, **kw).run(
+            [Request(rid=i, prompt=pr, max_new_tokens=4, k=k)
+             for i, (pr, k) in enumerate(reqs)]).tokens_by_rid()
+
+    cpu = run(params)
+    _build.reset_launches()
+    gpu = run(_to(params, cuda))
+    for name, n in _build.LAUNCHES.items():
+        used = name == "flash_attention" or (
+            cfg.moe.enabled and not name.startswith("lora"))
+        assert (n > 0) if used else (n == 0), (name, _build.LAUNCHES)
+    for rid in cpu:
+        np.testing.assert_array_equal(gpu[rid], cpu[rid], err_msg=f"rid {rid}")
+
+
+@pytest.mark.parametrize("arch", ["olmo-1.3b", "qwen2-moe-a2.7b"])
+def test_cuda_train_step_matches_cpu(cuda, arch):
+    """``launch/steps.py``'s train step at float32 (SMOKE widths, 4 layers,
+    two microbatches, √L checkpointing) on the card against the CPU:
+    loss within 1e-4 relative, counts exactly, Adam's moment within 1e-5;
+    with and without checkpointing the card's loss is the same."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    from repro_torch.tree import leaves
+    cfg = get_config(arch, "smoke").replace(dtype="float32", num_layers=4)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lora = tlora.init_lora(torch.Generator().manual_seed(1), cfg, params)
+    g = torch.Generator().manual_seed(2)
+    lora = {"blocks": {"pos0": _map_b(lora["blocks"]["pos0"], g)}}
+    resc = tlora.init_rescalers(cfg, 1, device="cpu")
+    shape = ShapeConfig("t", 32, 4, "train")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+                           dtype=torch.int32)
+    batch = (tokens, tokens.roll(-1, 1), torch.ones(4, 32))
+    out = {}
+    for where, remat in (("cpu", True), ("cuda", True), ("cuda", False)):
+        dev = torch.device(where)
+        tr = tlora.make_trainable(_to(lora, dev), None if resc is None
+                                  else _to(resc, dev))
+        b = steps.build_train(cfg, shape, n_micro=2, remat=remat,
+                              remat_chunk=2 if remat else 0, device=dev)
+        out[where, remat] = b.fn(_to(params, dev), tr, adam.init(tr),
+                                 *(t.to(dev) for t in batch))
+    (_, o_c, m_c), (_, o_g, m_g) = out["cpu", True], out["cuda", True]
+    torch.testing.assert_close(m_g["loss"].cpu(), m_c["loss"], rtol=1e-4,
+                               atol=0)
+    torch.testing.assert_close(out["cuda", False][2]["loss"], m_g["loss"],
+                               rtol=1e-6, atol=0)
+    for key in m_c["counts"]:
+        assert torch.equal(m_g["counts"][key].cpu(), m_c["counts"][key])
+    assert o_g.step == o_c.step == 1
+    for a, b in zip(leaves(o_g.mu), leaves(o_c.mu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)

@@ -45,10 +45,7 @@ def test_flops_and_param_counts_match_jax(arch, variant):
 def test_table1_grid_matches_jax():
     j = jflops.table1_grid(jreg.get_config("olmo-1.3b"),
                            jreg.get_config("olmoe-1.3b-6.9b"))
-    jd = jreg.get_config("olmo-1.3b")
-    # the port has no dense arch yet: its copy of OLMo's config fields
-    # through the port's ModelConfig
-    from test_torch_model import port_cfg
-    t = tflops.table1_grid(port_cfg(jd), get_config("olmoe-1.3b-6.9b"))
+    t = tflops.table1_grid(get_config("olmo-1.3b"),
+                           get_config("olmoe-1.3b-6.9b"))
     assert [tuple(vars(r).values()) for r in t] == \
         [tuple(vars(r).values()) for r in j]

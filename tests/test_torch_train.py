@@ -471,7 +471,7 @@ def test_train_launcher_runs_on_cpu(capsys):
     (["--federated", "--round-driver", "device"], "device round driver"),
     (["--federated", "--checkpoint-every", "2"], "device round driver"),
     (["--federated", "--shape", "train_4k"], "multi-chip"),
-    (["--local"], "multi-chip"),
+    (["--local", "--multi-pod"], "multi-chip"),
 ])
 def test_train_launcher_rejects_later_slice_flags(argv, match):
     with pytest.raises(SystemExit, match=match):
