@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port of FLAME — serving, the reference's default
 federated training round, checkpoints and resume, the three baselines,
 the serving engine's traffic layer, self-speculative decoding, LoRA
-serving (the federated adapter unmerged), the registry's other archs and
-the single-device train step — on one NVIDIA GPU.
+serving (the federated adapter unmerged), the registry's other archs,
+the single-device train step, the device round driver and the
+sliding-window ``swa`` variant — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,8 @@ nothing else of the network or the filesystem.  Phases:
    the tolerance stated beside each check — flash, the LoRA matmuls and
    the grouped ragged matmul in bf16 and fp16 (their tensor-core kernels)
    and float32 (their FMA kernels), the grouped matmul also with a LoRA
-   rank above 64 (its FMA route); flash also checked and timed at the
+   rank above 64 (its FMA route); flash also checked with a window that
+   is not a tile multiple (1000 at S = 2000) and checked and timed at the
    training round's shape, the expert kernel checked and timed at each
    tier, and the ragged trio checked (bf16, fp16; the gather and the
    combine also float32) and timed at the serving path's other shapes —
@@ -177,7 +179,24 @@ nothing else of the network or the filesystem.  Phases:
    with it; flash at S = 4096 timed; ``build_prefill`` and
    ``build_serve`` once at a small shape in fp32, logits and caches
    against the plain versions on the card;
-15. summary — a ``{"kernels": [...]}`` line, then the last line
+15. device round driver — ``round_driver="device"`` on OLMoE FULL
+   (phase 5's ``FederatedConfig`` at participation 0.75, 3 rounds,
+   ``checkpoint_every=2``: a 2-round and a 1-round segment, a checkpoint
+   at each end) against the host driver from the same seeded start: the
+   global LoRA, every rescaler, per-client losses and frequencies within
+   rtol 2e-5 / atol 1e-6, and whether they are bit-equal; s/round and
+   launches per round on each driver, the host syncs inside each
+   segment's rounds under ``torch.cuda.set_sync_debug_mode("warn")``,
+   the checkpoint's round index;
+16. swa — ``get_config("olmoe-1.3b-6.9b", "swa")`` (window 8192) on the
+   same weights: 4 requests of 8,180 / 9,000 / 10,240 / 12,288-token
+   prompts (32 new tokens, tiers 8, 4, 2, 1) on 8,192-token ring caches,
+   paged then slotted: tokens equal or near-ties, every request complete,
+   launch counts, every kernel call of a decode step against its plain
+   version, layer 0's flash of the 12,288-token prefill against its plain
+   version and timed beside its bound and SDPA with a band mask, TTFT of
+   the longest prompt and decode p50;
+17. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -443,6 +462,21 @@ def main() -> int:
                   f"{err:.3e}")
             if dtype == torch.bfloat16 and kv == 16 and window == 0:
                 flash_err, fq, fk, fv = err, qt, kt, vt
+    # the swa path's band: a window that is not a tile multiple at a
+    # sequence that is not one either (key tiles before a query block's
+    # window skipped, the band's edge masked inside a tile)
+    Sw, Ww = 2000, 1000
+    for dtype in (torch.bfloat16, torch.float16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q = randn(1, Sw, H, D, dtype=dtype).transpose(1, 2)
+        k, v = (randn(1, Sw, 4, D, dtype=dtype).transpose(1, 2)
+                for _ in range(2))
+        err = close_any(flash_attention(q, k, v, window=Ww),
+                        ref.flash_attention_ref(q, k, v, window=Ww),
+                        f"flash {dn} S={Sw} window={Ww}")
+        print(f"flash check {dn} S={Sw} KV=4 window={Ww}: max_abs_err "
+              f"{err:.3e}")
+    del q, k, v
     qc, kc, vc = (t.contiguous() for t in (fq, fk, fv))
     pairs = B * H * S * (S + 1) // 2            # causal band
     record("flash_attention", src + "flash_attention.cu",
@@ -993,7 +1027,23 @@ def main() -> int:
     # ------------------------------------------------ 14. train step
     rows.append(train_step_phase(torch, dev, check, kc))
 
-    # ------------------------------------------------ 15. summary
+    # ------------------------------------------------ 15-16. device round
+    #                                    driver, sliding-window swa variant
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    device_driver_phase(torch, cfg, params, dev, check)
+    cfg_swa = get_config("olmoe-1.3b-6.9b", "swa")
+    check(cfg_swa == cfg.replace(attention_window=8192),
+          "the swa variant is not FULL with an 8192-token window")
+    rows.append(swa_phase(torch, cfg_swa, params, dev, check, kc))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 17. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1537,6 +1587,331 @@ def train_step_phase(torch, dev, check, kc):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"train step phase: {time.perf_counter() - t_phase:.1f} s")
+    return row
+
+
+def device_driver_phase(torch, cfg, params, dev, check) -> None:
+    """Phase 15: the device round driver (``round_driver="device"``) at
+    OLMoE FULL, bf16, against the host driver from the same seeded start:
+    phase 5's ``FederatedConfig`` (8 clients, two per tier k = 8, 4, 2, 1,
+    learnable rescalers, batch 16 x 128) at participation 0.75 (6 clients
+    a round, so cohorts run short and padding slots occur), 3 rounds,
+    ``checkpoint_every=2`` (a 2-round segment, then a 1-round one, a
+    checkpoint streamed at each end).  The two agree within rtol 2e-5 /
+    atol 1e-6 (the reference's ``tests/test_round_driver.py`` tolerance):
+    the global LoRA, every rescaler, per-client losses and frequencies.
+    Printed: bit-equality, s/round and launches per round on each driver
+    (checkpoint saves timed apart), the host syncs counted inside each
+    segment's rounds (and each host-driver round) under
+    ``torch.cuda.set_sync_debug_mode("warn")``, the checkpoint's round."""
+    import dataclasses
+    import gc
+    import warnings
+
+    from repro_torch.configs import FederatedConfig, TrainConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.federated import client as client_lib
+    from repro_torch.federated.simulation import build_experiment
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    fed = FederatedConfig(num_clients=8, rounds=3, method="flame",
+                          rescaler="learnable", participation=0.75,
+                          checkpoint_every=2)
+    tc = TrainConfig()
+    data = DataConfig(vocab_size=512, n_examples=320, seq_len=128)
+    ckpt = ROOT / "build" / "chip_smoke" / "driver.npz"
+    runs = {}
+    for driver in ("device", "host"):
+        exp = build_experiment(cfg, fed=dataclasses.replace(
+            fed, round_driver=driver), tc=tc, data=data, base_params=params,
+            device=dev)
+        srv = exp.server
+        if driver == "device":
+            # warm-up off the clock: one step of a 2-row batch
+            c0 = srv.clients[0]
+            plan = client_lib.make_batch_plan(c0, tc, 10_000)
+            client_lib.local_update(
+                cfg, params, {"lora": srv.global_lora,
+                              "rescaler": c0.rescaler},
+                plan.tokens[:1, :2], plan.labels[:1, :2],
+                plan.mask[:1, :2], plan.valid[:1], k=c0.k, tc=tc,
+                rescaler_trainable=True)
+        saves, syncs = [], []
+        save = srv.save_checkpoint
+
+        def timed_save(path, save=save, saves=saves, srv=srv):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save(path)
+            saves.append((len(srv.history), time.perf_counter() - t0))
+
+        # the device driver's rounds inside a segment; the host driver's
+        # whole rounds (their host reads included)
+        name = "_device_round" if driver == "device" else "run_round"
+        orig = getattr(srv, name)
+
+        def counted(*a, orig=orig, syncs=syncs, **kw):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = orig(*a, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            # the mode's one-time notice is no sync
+            syncs.append(sum("called a synchronizing CUDA operation"
+                             in str(w.message) for w in caught))
+            return out
+
+        srv.save_checkpoint = timed_save
+        setattr(srv, name, counted)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        hist = srv.run(checkpoint_to=str(ckpt))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        meta = json.loads(ckpt.with_name(ckpt.name + ".meta.json")
+                          .read_text())
+        save_s = sum(s for _, s in saves)
+        per_round = (wall - save_s) / len(hist)
+        runs[driver] = (srv, hist)
+        print(f"driver {driver}: {len(hist)} rounds in {wall:.3f} s "
+              f"({per_round:.3f} s/round without the {len(saves)} "
+              f"checkpoint saves at rounds {[n for n, _ in saves]}, "
+              f"{save_s:.3f} s); participants "
+              f"{[r.participating for r in hist]}; launches per round "
+              f"{json.dumps({k: v / len(hist) for k, v in launches.items()})}"
+              f"; host syncs per "
+              f"{'round inside its segment' if driver == 'device' else 'round'}"
+              f" {syncs}; checkpoint round_idx {meta['round_idx']}")
+        check(len(hist) == 3 and meta["round_idx"] == 3,
+              f"driver {driver}: {len(hist)} rounds, checkpoint at round "
+              f"{meta['round_idx']}")
+        check(all(len(r.participating) == 6 for r in hist),
+              f"driver {driver}: not 6 participants a round")
+        if driver == "device":
+            check([n for n, _ in saves] == [2, 3],
+                  f"device driver checkpointed after rounds {saves}")
+            # two clients a tier: a round without both of a tier's clients
+            # runs that cohort short (a padding slot)
+            ks = [[srv.clients[i].k for i in r.participating] for r in hist]
+            check(any(row.count(k) < 2 for row in ks for k in (8, 4, 2, 1)),
+                  f"device driver: no cohort ran short ({ks})")
+        for kname in ("lora_matmul", "lora_matmul_experts", "topk_router",
+                      "flash_attention"):
+            check(launches[kname] > 0, f"driver {driver}: no {kname}")
+        for kname in ("ragged_gather", "ragged_expert_matmul",
+                      "ragged_combine", "adaptive_topk_router"):
+            check(launches[kname] == 0, f"driver {driver} launched {kname}")
+        runs[driver] += (launches,)
+        del exp
+    ckpt.unlink()
+    ckpt.with_name(ckpt.name + ".meta.json").unlink()
+
+    (ds, dh, dl), (hs, hh, hl) = runs["device"], runs["host"]
+    check(dl == hl, f"device and host drivers differ in launches: {dl} / {hl}")
+    worst, bits = 0.0, True
+
+    def agree(a, b, what):
+        nonlocal worst, bits
+        a, b = a.float(), b.float()
+        d = (a - b).abs()
+        bits = bits and torch.equal(a, b)
+        ok = bool((d <= 2e-5 * b.abs() + 1e-6).all())
+        check(ok, f"device vs host driver: {what} max |d| "
+                  f"{d.max().item():.3e} beyond rtol 2e-5 / atol 1e-6")
+        worst = max(worst, d.max().item())
+
+    for (path, a), (_, b) in zip(_paths(ds.global_lora),
+                                 _paths(hs.global_lora)):
+        agree(a, b, "global LoRA " + "/".join(path))
+    for c_d, c_h in zip(ds.clients, hs.clients):
+        agree(c_d.rescaler["pos0"], c_h.rescaler["pos0"],
+              f"client {c_d.client_id}'s rescaler")
+    for rd, rh in zip(dh, hh):
+        check(rd.participating == rh.participating,
+              f"round {rd.round_idx}: participants differ")
+        agree(torch.tensor(rd.client_losses), torch.tensor(rh.client_losses),
+              f"round {rd.round_idx} client losses")
+        for fd, fh in zip(rd.client_freqs, rh.client_freqs):
+            agree(torch.from_numpy(np.asarray(fd["pos0"])),
+                  torch.from_numpy(np.asarray(fh["pos0"])),
+                  f"round {rd.round_idx} frequencies")
+    check(all(np.isfinite(r.client_losses).all() for r in dh),
+          "device driver: a loss is not finite")
+    print(f"driver device vs host: global LoRA, rescalers, losses and "
+          f"frequencies within rtol 2e-5 / atol 1e-6 (max |d| {worst:.3e}); "
+          f"bit-equal: {bits} ({time.perf_counter() - t_phase:.1f} s)")
+    del ds, hs, dh, hh, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SWA_LENS = (8180, 9000, 10240, 12288)
+SWA_TIERS = (8, 4, 2, 1)
+SWA_NEW = 32
+SWA_SLOT_LEN = 12352
+
+
+def swa_phase(torch, cfg, params, dev, check, kc):
+    """Phase 16: ``cfg``, the ``swa`` variant of OLMoE-1.3B/6.9B (window
+    8192), at full width, bf16, on ``params``: 4 requests of 8,180 / 9,000 / 10,240 /
+    12,288-token prompts, 32 new tokens each, tiers 8, 4, 2, 1, slot_len
+    12,352 (a ring of 8,192 per slot, 4 GiB), on the paged layout and
+    then the slotted one: three prompts exceed the window (prefill skips
+    key tiles, the cache is the rolled ring) and the first prompt's ring
+    wraps during decode.  Tokens equal across layouts or the first
+    divergence a near-tie (phase 11's rule); every request complete with
+    finite logits; counts zeroed just before each run (flash and the
+    static router once per layer and prefill call, the per-token router
+    once per layer and decode step); every kernel call of one decode step
+    against its plain version; layer 0's flash call of the 12,288-token
+    prefill against its plain version (close_16bit) and timed beside its
+    bound (4·H·D·Σ_q min(q + 1, w) FLOPs) and SDPA with a boolean band
+    mask.  Returns the kernel row 2W."""
+    import gc
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, backend, ref
+    from repro_torch.serving import Request, ServingEngine
+
+    t_phase = time.perf_counter()
+    w = cfg.attention_window
+    check(SWA_LENS[0] < w < SWA_LENS[0] + SWA_NEW,
+          "the first prompt's ring does not wrap during decode")
+    rng = np.random.default_rng(16)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in SWA_LENS]
+
+    def requests():
+        return [Request(rid=i, prompt=p, max_new_tokens=SWA_NEW,
+                        k=SWA_TIERS[i]) for i, p in enumerate(prompts)]
+
+    L = cfg.num_layers
+    runs, layer0, dec_calls = {}, {}, {}
+    orig_flash = backend.flash_attention
+
+    def flash_rec(q, k, v, **kw):
+        out = orig_flash(q, k, v, **kw)
+        if q.shape[1] == SWA_LENS[-1] and "call" not in layer0:
+            layer0["call"] = (q, k, v, kw, out)
+        return out
+
+    for layout in ("paged", "slotted"):
+        eng = ServingEngine(cfg, params, num_slots=4, slot_len=SWA_SLOT_LEN,
+                            slot_k=SWA_TIERS, kv_layout=layout)
+        check(eng.pool.attn_len == w, f"swa {layout}: ring of "
+              f"{eng.pool.attn_len}")
+        if layout == "paged":
+            check(eng.pool.blocks_per_slot == w // eng.pool.block_size,
+                  "swa paged: blocks per slot not capped by the ring")
+        rec = _SpecRecorder(eng)
+        decode = eng._decode_once
+
+        def first_decode(report, decode=decode, layout=layout):
+            if layout in dec_calls:
+                return decode(report)
+            _, dec_calls[layout] = _recorded(torch, lambda: decode(report))
+
+        eng._decode_once = first_decode
+        backend.flash_attention = flash_rec
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            rep = eng.run(requests())
+            torch.cuda.synchronize()
+        finally:
+            backend.flash_attention = orig_flash
+            rec.close()
+        launches = dict(_build.LAUNCHES)
+        s = rep.summary()
+        n_pre, n_dec = len(rep.prefill_s), s["decode_steps"]
+        for c in rep.completions:
+            check(c.n_generated == SWA_NEW and not c.truncated,
+                  f"swa {layout}: request {c.rid} generated "
+                  f"{c.n_generated} tokens (truncated {c.truncated})")
+        check(all(np.isfinite(r).all() for r in rec.rows.values()
+                  if not isinstance(r, tuple)),
+              f"swa {layout}: a logit row is not finite")
+        check(launches["flash_attention"] == L * n_pre
+              and launches["topk_router"] == L * n_pre
+              and launches["adaptive_topk_router"] == L * n_dec,
+              f"swa {layout}: launches {launches} for {n_pre} prefill calls "
+              f"and {n_dec} decode steps")
+        for kname, n in launches.items():
+            check((n == 0) if kname.startswith("lora") else (n > 0),
+                  f"swa {layout}: {kname} launched {n} times")
+        ttft = {c.rid: c.ttft for c in rep.completions}
+        print(f"swa {layout} (window {w}, ring {eng.pool.attn_len}, "
+              f"prompts {SWA_LENS}, tiers {SWA_TIERS}): {s['gen_tokens']} "
+              f"tokens in {s['wall_s']:.3f} s, TTFT of the "
+              f"{SWA_LENS[-1]}-token prompt {ttft[3] * 1e3:.1f} ms (its "
+              f"prefill call {rep.prefill_s[-1] * 1e3:.1f} ms; prefill "
+              f"calls {[round(x * 1e3, 1) for x in rep.prefill_s]} ms), "
+              f"decode step p50 {s['decode_step_ms_p50']:.2f} ms "
+              f"({n_dec} steps), peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches {json.dumps(launches)}")
+        runs[layout] = (rep.tokens_by_rid(), rec, launches)
+        del eng
+    (pt, prec, pl), (st, srec, _) = runs["paged"], runs["slotted"]
+    div = _first_divergences(prec, pt, srec, st)
+    for rid, t, gap, d in div:
+        check(gap <= d, f"swa: request {rid} differs across layouts at "
+              f"position {t}, where the paged top-2 gap {gap:.3e} exceeds "
+              f"max |slotted - paged| {d:.3e} (not a near-tie)")
+    print(f"swa slotted vs paged: {4 - len(div)}/4 requests token-identical"
+          + ("" if not div else " (first divergences: " + "; ".join(
+              f"rid {r} at {t}: gap {g:.3e} <= {d:.3e}"
+              for r, t, g, d in div) + ")"))
+    for layout, calls in dec_calls.items():
+        worst = _check_arch_calls(torch, cfg, calls, check, kc,
+                                  f"swa {layout} decode step", False,
+                                  len(SWA_TIERS))
+        print(f"swa {layout} decode step, every kernel call vs plain at "
+              f"every layer: max err {json.dumps(worst)}")
+    del runs, prec, srec, dec_calls
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # layer 0's flash call of the 12,288-token prefill (paged run)
+    q, k, v, kw, out = layer0.pop("call")
+    check(kw == {"causal": True, "window": w},
+          f"swa prefill flash called with {kw}")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    B, H, S, D = qt.shape
+    KV = kt.shape[1]
+    err = kc["close"](out, ref.flash_attention_ref(qt, kt, vt, causal=True,
+                                                   window=w).transpose(1, 2),
+                      "swa layer-0 flash S=12288 w=8192")
+    t = kc["time_ms"]
+    ms = t(lambda: backend.flash_attention(q, k, v, **kw))
+    plain_ms = t(lambda: ref.flash_attention_ref(qt, kt, vt, **kw))
+    qc, kc_, vc = (x.contiguous() for x in (qt, kt, vt))
+    pos = torch.arange(S, device=dev)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    sdpa = F.scaled_dot_product_attention(qc, kc_, vc, attn_mask=band,
+                                          enable_gqa=KV != H)
+    sdpa_err = (sdpa.float() - out.transpose(1, 2).float()).abs().max().item()
+    lib_ms = t(lambda: F.scaled_dot_product_attention(
+        qc, kc_, vc, attn_mask=band, enable_gqa=KV != H))
+    pairs = w * (w + 1) // 2 + (S - w) * w       # Σ_q min(q + 1, w)
+    bound = bound_ms((2 * B * H * S * D + 2 * B * KV * S * D)
+                     * q.element_size(), 4.0 * D * B * H * pairs, BF16_FLOPS)
+    print(f"swa flash layer 0 (B={B} H={H} KV={KV} S={S} D={D} w={w}): "
+          f"SDPA with the band mask max |d| to the kernel {sdpa_err:.3e}")
+    row = _row(f"flash_attention (swa prefill, S={S}, window {w})",
+               "flash_attention.cu", "flash_attention.py:92", err, ms,
+               plain_ms, bound, lib_ms, pl["flash_attention"],
+               library_what="SDPA, boolean band mask")
+    del q, k, v, out, qt, kt, vt, qc, kc_, vc, band, sdpa
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"swa phase: {time.perf_counter() - t_phase:.1f} s")
     return row
 
 

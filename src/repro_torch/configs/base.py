@@ -189,13 +189,7 @@ class TrainConfig:
 @dataclass(frozen=True)
 class FederatedConfig:
     """Server-side orchestration hyper-parameters, the reference's fields
-    and defaults.  The port runs every method on both round engines
-    (``cohort_backend`` "vmap" and "map" both run a cohort's members in
-    turn) with ``round_driver="host"``; ``FederatedServer`` refuses
-    ``round_driver="device"`` until its ROADMAP item lands, and
-    ``checkpoint_every`` belongs to that driver (the host driver writes a
-    checkpoint after every round; the port's launcher refuses any other
-    value than 1)."""
+    and defaults."""
 
     num_clients: int = 4
     rounds: int = 2
@@ -205,7 +199,21 @@ class FederatedConfig:
     method: str = "flame"             # flame|trivial|hlora|flexlora
     rescaler: str = "learnable"       # learnable|static|none
     seed: int = 0
+    # round execution engine: "batched" runs each budget cohort's local
+    # training through one cohort_update call on stacked inputs;
+    # "looped" is the sequential per-client reference oracle.
     round_engine: str = "batched"     # batched|looped
+    # the reference's batched-engine lowering ("vmap" batches clients,
+    # "map" runs them in turn); the port's kernels are ctypes calls that
+    # vmap cannot batch, so both run a cohort's members in turn.
     cohort_backend: str = "vmap"      # vmap|map
+    # round-loop driver: "host" iterates run_round in Python (the oracle);
+    # "device" runs a checkpoint segment's rounds, per-round subsampled
+    # cohorts AND streaming FLAME aggregation with no host read inside
+    # the segment (FLAME only — see federated/server.py, round drivers).
     round_driver: str = "host"        # host|device
+    # device driver: rounds per segment — the driver syncs to the host
+    # every `checkpoint_every` rounds to stream a resumable checkpoint
+    # (run(checkpoint_to=...)); with no checkpoint target the whole run
+    # is one segment.
     checkpoint_every: int = 1

@@ -31,3 +31,5 @@ SMOKE = FULL.replace(
     vocab_size=512,
     lora=LoRAConfig(rank=8),
 )
+
+SWA_WINDOW = 8192

@@ -47,3 +47,5 @@ BENCH = FULL.replace(
     moe=MoEConfig(num_experts=8, top_k=4, d_expert=64),
     lora=LoRAConfig(rank=8),
 )
+
+SWA_WINDOW = 8192

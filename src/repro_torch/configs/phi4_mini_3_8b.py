@@ -30,3 +30,5 @@ SMOKE = FULL.replace(
     vocab_size=512,
     lora=LoRAConfig(rank=4),
 )
+
+SWA_WINDOW = 8192

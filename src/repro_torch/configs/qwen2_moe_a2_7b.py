@@ -37,3 +37,5 @@ SMOKE = FULL.replace(
                   num_shared_experts=1, d_shared_expert=256),
     lora=LoRAConfig(rank=4),
 )
+
+SWA_WINDOW = 8192

@@ -38,7 +38,9 @@ def list_archs():
 
 
 def get_config(arch: str, variant: str = "full") -> ModelConfig:
-    """variant: full | smoke."""
+    """variant: full | smoke | swa (full with sliding-window attention,
+    the sub-quadratic option required for long_500k on attention archs:
+    ``attention_window`` = the module's ``SWA_WINDOW``, default 8192)."""
     if arch not in _ARCH_MODULES:
         if arch in _LATER:
             raise KeyError(f"arch {arch!r} is not ported yet: it comes with "
@@ -49,8 +51,25 @@ def get_config(arch: str, variant: str = "full") -> ModelConfig:
         cfg = module.FULL
     elif variant == "smoke":
         cfg = module.SMOKE
+    elif variant == "swa":
+        cfg = module.FULL
+        if cfg.family != "ssm" and cfg.n_heads > 0:
+            window = getattr(module, "SWA_WINDOW", 8192)
+            cfg = cfg.replace(attention_window=window)
     else:
-        raise ValueError(f"unknown variant {variant!r} (full | smoke; the "
-                         "sliding-window variant comes with a later slice)")
+        raise ValueError(f"unknown variant {variant!r}")
     cfg.validate()
     return cfg
+
+
+def supports_long_context(arch: str) -> bool:
+    """True when long_500k decode is runnable: native for SSM/hybrid, via the
+    sliding-window variant for attention archs."""
+    return True  # every arch has a sub-quadratic path
+
+
+def long_context_variant(arch: str) -> str:
+    cfg = get_config(arch, "full")
+    if cfg.family in ("ssm",):
+        return "full"           # attention-free: natively sub-quadratic
+    return "swa"

@@ -53,7 +53,10 @@ def _template(trees):
 
 
 def _sizes(sizes: Sequence[float], device) -> torch.Tensor:
-    """|D_i| as an fp32 vector on ``device``."""
+    """|D_i| as an fp32 vector on ``device`` (a tensor already there is
+    used as it is: the device round driver's sizes)."""
+    if isinstance(sizes, torch.Tensor):
+        return sizes.to(device=device, dtype=_F32)
     return torch.as_tensor(np.asarray(sizes, np.float32), device=device)
 
 

@@ -23,16 +23,35 @@ Round engines (``fed.round_engine``):
 * ``"looped"`` — one ``client.local_train`` per participant, the
   reference oracle the batched engine is tested against.
 
-Every round runs on the host driver (``run`` iterates :meth:`run_round`).
-The reference's device driver (``round_driver="device"``, one ``lax.scan``
-program per checkpoint segment) is not ported yet and raises
-``NotImplementedError`` naming the ROADMAP item.
+Round drivers (``fed.round_driver``):
+
+* ``"host"`` (the default, the oracle) — ``run`` iterates
+  :meth:`run_round`; each cohort's losses and frequencies come back to
+  the host as it finishes.
+* ``"device"`` (FLAME only) — the reference folds a checkpoint segment's
+  rounds into one ``lax.scan`` program; here the segment is a loop over
+  its rounds with **no host read inside it**.  Every remaining round's
+  participants are drawn up front from the same sampling stream as the
+  host loop (:meth:`_prep_device_rounds`), cohorts run against a static
+  key set (a cohort short of its capacity in a round runs
+  ``client.empty_plan`` slots: exact no-ops of weight 0), the client
+  rescalers live in a stacked device bank gathered and scattered by
+  client slot, and each round merges its cohorts' FLAME accumulators.
+  The plans go to the device when the segment starts; losses, counts and
+  token counts are read back when it ends, and the rounds'
+  :class:`RoundResult` objects are rebuilt from them.  A checkpoint is
+  written at every segment end (``fed.checkpoint_every`` rounds); resume
+  replays the sampling stream, so either driver resumes the other's
+  checkpoint.
 
 ``tracer`` (a :class:`repro_torch.obs.Tracer`) records the reference's
 round spans on the federated track: ``round N`` enclosing ``distribute``
 → ``local_train`` (looped) or ``cohort_update`` (batched) per client or
 cohort, then ``aggregate``; ``run(trace_to=...)`` writes them as Chrome
 trace-event JSON.  The spans read the host clock and add no device sync.
+On the device driver each ``round N`` span is the segment's wall clock
+amortised evenly over its rounds (``args``: ``driver: "device"``,
+``amortized: True``), as the reference's.
 """
 from __future__ import annotations
 
@@ -51,7 +70,7 @@ from ..obs.metrics import MetricsRegistry
 from ..obs.trace import NULL_TRACER, PID_FEDERATED, Tracer
 from ..tree import leaves, tree_map
 from . import client as client_lib
-from .cohort import build_cohorts
+from .cohort import CohortKey, build_cohorts, group_by_key
 
 PyTree = Any
 
@@ -59,9 +78,6 @@ PyTree = Any
 FLAME_BUDGET_K = {"b1": 8, "b2": 4, "b3": 2, "b4": 1}
 MOE_BUDGET_RANKS = {"b1": 20, "b2": 12, "b3": 8, "b4": 6}
 DENSE_BUDGET_RANKS = {"b1": 40, "b2": 24, "b3": 16, "b4": 12}
-
-_LATER = ("is not ported yet: it comes with the ROADMAP's \"Device round "
-          "driver\" item (Modules to port)")
 
 
 @dataclass
@@ -90,10 +106,6 @@ class FederatedServer:
                  fed: FederatedConfig, tc: TrainConfig,
                  tracer: Optional[Tracer] = None,
                  metrics: Optional[MetricsRegistry] = None):
-        if fed.round_driver != "host":
-            raise NotImplementedError(
-                f"FederatedServer round_driver={fed.round_driver!r} {_LATER}"
-                "; the port runs round_driver='host'")
         self.cfg = cfg
         self.params = params
         self.global_lora = global_lora
@@ -324,6 +336,265 @@ class FederatedServer:
         self.history.append(res)
         return res
 
+    # ---------------------------------------------------- device round driver
+    def _device_validate(self) -> None:
+        """Only the FLAME path (streaming accumulator, the same full-rank
+        adapter for everyone) runs on the device driver."""
+        if self.fed.method != "flame":
+            raise ValueError(
+                "round_driver='device' supports method='flame' only "
+                f"(got {self.fed.method!r}) — the compression baselines "
+                "need host-side rank surgery between rounds")
+        if self.fed.round_engine != "batched":
+            raise ValueError(
+                "round_driver='device' requires round_engine='batched' "
+                f"(got {self.fed.round_engine!r})")
+        if self.fed.checkpoint_every < 1:
+            raise ValueError("checkpoint_every must be >= 1")
+        has = [c.rescaler is not None for c in self.clients]
+        if any(has) and not all(has):
+            raise ValueError(
+                "round_driver='device' needs homogeneous rescaler presence "
+                "across the registry (the rescaler bank is one stacked "
+                "tree) — got a mix of with/without")
+
+    def _prep_device_rounds(self, start: int):
+        """Host-side prep for rounds ``[start, fed.rounds)``, as the
+        reference's.
+
+        Draws every remaining round's participants from the same stream
+        the host loop consumes (:meth:`_sample_participants`), groups each
+        round's participants by cohort key, and fixes the static key set:
+        the union of keys over the rounds in first-appearance order, each
+        with capacity = the most members it has in any round.  A round
+        where a key runs short (or not at all) fills the gap with
+        ``client.empty_plan`` slots: every step invalid and dataset size
+        0, so they change nothing.
+
+        Returns ``(keys, caps, xs, meta)``: ``xs[f"k{i}"]`` holds numpy
+        arrays with a leading round axis (``tokens``/``labels``/``mask``/
+        ``valid`` slot-stacked plans, ``slot`` client ids with
+        ``n_clients`` marking padding, ``size`` fp32 dataset sizes);
+        ``meta[r]`` maps a round's outputs back to participant order."""
+        rounds = list(range(start, self.fed.rounds))
+        per_round = []
+        for r in rounds:
+            parts = self._sample_participants()
+            order, members = group_by_key([self.clients[i] for i in parts],
+                                          self.tc, rank_of=self._dist_rank)
+            per_round.append((r, parts, order, members))
+
+        keys: List[CohortKey] = []
+        for _, _, order, _ in per_round:
+            for key in order:
+                if key not in keys:
+                    keys.append(key)
+        caps = [max(len(members.get(key, []))
+                    for _, _, _, members in per_round) for key in keys]
+
+        # every (round, key) plan list, and each key's most steps
+        plans: Dict[int, List[List[client_lib.BatchPlan]]] = {
+            i: [] for i in range(len(keys))}
+        steps = [1] * len(keys)
+        for r, parts, _, members in per_round:
+            seed = self.fed.seed * 1000 + r
+            for i, key in enumerate(keys):
+                ps = [client_lib.make_batch_plan(
+                          self.clients[parts[pos]], self.tc, seed)
+                      for pos in members.get(key, [])]
+                steps[i] = max([steps[i]] + [p.n_steps for p in ps])
+                plans[i].append(ps)
+
+        meta = [{"round": r, "parts": parts,
+                 "members": {i: members.get(keys[i], [])
+                             for i in range(len(keys))}}
+                for r, parts, _, members in per_round]
+        n_clients = len(self.clients)
+        xs: Dict[str, Dict[str, np.ndarray]] = {}
+        for i, key in enumerate(keys):
+            template = client_lib.pad_plan(
+                next(p for ps in plans[i] for p in ps), steps[i])
+            cols: Dict[str, list] = {n: [] for n in (
+                "tokens", "labels", "mask", "valid", "slot", "size")}
+            for ri, (r, parts, _, members) in enumerate(per_round):
+                padded = [client_lib.pad_plan(p, steps[i])
+                          for p in plans[i][ri]]
+                mem = members.get(key, [])
+                pad_n = caps[i] - len(padded)
+                padded += [client_lib.empty_plan(template)] * pad_n
+                stacked = client_lib.stack_plans(padded)
+                for name in ("tokens", "labels", "mask", "valid"):
+                    cols[name].append(getattr(stacked, name))
+                cols["slot"].append(np.asarray(
+                    [parts[pos] for pos in mem] + [n_clients] * pad_n,
+                    np.int32))
+                cols["size"].append(np.asarray(
+                    [float(self.clients[parts[pos]].dataset_size)
+                     for pos in mem] + [0.0] * pad_n, np.float32))
+            xs[f"k{i}"] = {name: np.stack(v) for name, v in cols.items()}
+        return keys, caps, xs, meta
+
+    def _upload_segment(self, xs, rows: slice) -> List[List[Dict]]:
+        """A segment's inputs on the device before it starts, per round and
+        cohort: the plans (``valid`` stays numpy: it is host knowledge),
+        dataset sizes, the rescaler bank's gather rows (padding slots read
+        the last row, their update is dropped) and the real slots'
+        scatter rows."""
+        device, n_clients = self.device, len(self.clients)
+
+        def dev(a):
+            return torch.as_tensor(np.ascontiguousarray(a)).to(device)
+
+        out = []
+        for ri in range(rows.start, rows.stop):
+            per_key = []
+            for i in range(len(xs)):
+                xk = {name: arr[ri] for name, arr in xs[f"k{i}"].items()}
+                slot = xk["slot"].astype(np.int64)
+                real = slot[slot < n_clients]
+                per_key.append({
+                    "tokens": dev(xk["tokens"]),
+                    "labels": dev(xk["labels"]),
+                    "mask": dev(xk["mask"]),
+                    "valid": xk["valid"],
+                    "size": dev(xk["size"]),
+                    "gather": dev(np.minimum(slot, n_clients - 1)),
+                    "scatter": dev(real),
+                    "n_real": len(real)})
+            out.append(per_key)
+        return out
+
+    def _device_round(self, keys: List[CohortKey], caps: List[int],
+                      gl: PyTree, bank: PyTree, xr: List[Dict],
+                      meta_row: Dict):
+        """One round of the segment on the device: every static cohort
+        trains from the broadcast global adapter and its bank rows, the
+        real slots' rescalers go back into ``bank`` (in place), each
+        cohort streams into a fresh accumulator, and the accumulators
+        left-fold-merge into the next global adapter.  The fold takes the
+        round's cohorts in the host loop's order (first appearance among
+        the participants), then the absent ones (all padding: zero sums):
+        merging into a zero-initialised accumulator is exact, so the sums
+        are the host loop's bit for bit.  Returns ``(global_lora,
+        outs)``, ``outs[i]`` cohort ``i``'s device sums and frequencies."""
+        accs, outs = [], []
+        for i, key in enumerate(keys):
+            k, _rank, _bs, has_resc, mode = key
+            xk = xr[i]
+            stacked_tr = {"lora": tree_map(
+                lambda l: l.expand((caps[i],) + l.shape), gl)}
+            if has_resc:
+                stacked_tr["rescaler"] = tree_map(
+                    lambda l: l[xk["gather"]], bank)
+            out_tr, counts, tok, loss_sum, n_valid = \
+                client_lib.cohort_update(
+                    self.cfg, self.params, stacked_tr, xk["tokens"],
+                    xk["labels"], xk["mask"], xk["valid"], k=k, tc=self.tc,
+                    rescaler_trainable=(mode == "learnable"),
+                    backend=self.fed.cohort_backend)
+            if has_resc and xk["n_real"]:
+                n = xk["n_real"]
+                tree_map(lambda bl, nl: bl.index_copy_(0, xk["scatter"],
+                                                       nl[:n]),
+                         bank, out_tr["rescaler"])
+            denom = torch.clamp(tok, min=1.0)[:, None, None]
+            freqs = {pos: c / denom for pos, c in counts.items()}
+            accs.append(agg.flame_acc_update(
+                agg.flame_acc_init(gl), out_tr["lora"], freqs, xk["size"],
+                self.fed.temperature))
+            outs.append({"loss_sum": loss_sum, "n_valid": n_valid,
+                         "freqs": freqs})
+            del out_tr
+        members = meta_row["members"]
+        order = sorted((i for i in members if members[i]),
+                       key=lambda i: members[i][0])
+        order += [i for i in range(len(keys)) if not members[i]]
+        acc = accs[order[0]]
+        for i in order[1:]:
+            acc = agg.flame_acc_merge(acc, accs[i])
+        return agg.flame_acc_finalize(acc, prev_lora=gl), outs
+
+    def _device_round_result(self, outs, meta_row) -> RoundResult:
+        """One round's :class:`RoundResult` from its host copies, mapped
+        back to participant order (losses as the host driver's:
+        ``loss_sum / n_valid`` in fp32, nan for a client with no step)."""
+        parts = meta_row["parts"]
+        losses: Dict[int, float] = {}
+        freqs: Dict[int, Dict[str, np.ndarray]] = {}
+        for i, mem in meta_row["members"].items():
+            yk = outs[i]
+            n_valid = yk["n_valid"]
+            loss_means = np.where(
+                n_valid > 0, yk["loss_sum"] / np.maximum(n_valid, 1.0),
+                np.nan)
+            for s, pos in enumerate(mem):
+                losses[pos] = float(loss_means[s])
+                freqs[pos] = {p: f[s] for p, f in yk["freqs"].items()}
+        return RoundResult(meta_row["round"],
+                           [losses[i] for i in range(len(parts))],
+                           [freqs[i] for i in range(len(parts))], parts)
+
+    def _run_rounds_device(self, start: int,
+                           checkpoint_to: Optional[str]) -> List[RoundResult]:
+        """Rounds ``[start, fed.rounds)`` in segments of
+        ``checkpoint_every`` rounds when checkpointing, else one segment;
+        the host reads nothing between a segment's first and last round."""
+        self._device_validate()
+        if start >= self.fed.rounds:
+            return []
+        keys, caps, xs, meta = self._prep_device_rounds(start)
+        bank = (lora_lib.stack_adapters([c.rescaler for c in self.clients])
+                if self.clients and self.clients[0].rescaler is not None
+                else {})
+        gl = self.global_lora
+        n_rounds = self.fed.rounds - start
+        seg_len = (min(self.fed.checkpoint_every, n_rounds)
+                   if checkpoint_to else n_rounds)
+        tr = self._tracer
+        out: List[RoundResult] = []
+        for a in range(start, self.fed.rounds, seg_len):
+            b = min(a + seg_len, self.fed.rounds)
+            n_seg = b - a
+            xseg = self._upload_segment(xs, slice(a - start, b - start))
+            t0 = tr.now()
+            seg_outs = []
+            for j, xr in enumerate(xseg):
+                gl, outs = self._device_round(keys, caps, gl, bank, xr,
+                                              meta[a - start + j])
+                seg_outs.append(outs)
+            # the segment's host reads, after its last round: every
+            # round's sums
+            host = [[tree_map(lambda t: t.cpu().numpy(), o) for o in outs]
+                    for outs in seg_outs]
+            t1 = tr.now()
+            del xseg, seg_outs
+
+            self.global_lora = gl
+            # bank rows back into client-local state (clones: the bank is
+            # written in place by the next segment)
+            if bank:
+                for i, c in enumerate(self.clients):
+                    c.rescaler = tree_map(lambda l, i=i: l[i].clone(), bank)
+            for j in range(n_seg):
+                res = self._device_round_result(host[j], meta[a - start + j])
+                res.activation_drift = self._round_drift(res)
+                self.history.append(res)
+                out.append(res)
+                if tr.enabled:
+                    # the segment's wall clock amortised evenly over its
+                    # rounds: no per-round host sync to time exactly
+                    rt0 = t0 + (t1 - t0) * j / n_seg
+                    rt1 = t0 + (t1 - t0) * (j + 1) / n_seg
+                    tr.complete(f"round {res.round_idx}", rt0, rt1,
+                                pid=PID_FEDERATED, cat="federated",
+                                args={"participants": len(res.participating),
+                                      "method": self.fed.method,
+                                      "driver": "device", "amortized": True})
+                self._emit_round_metrics(res)
+            if checkpoint_to:
+                self.save_checkpoint(checkpoint_to)
+        return out
+
     # ------------------------------------------------------------ checkpoints
     def save_checkpoint(self, path: str) -> None:
         """Persist the round-resumable state: the global LoRA, every
@@ -366,12 +637,14 @@ class FederatedServer:
             checkpoint_to: Optional[str] = None,
             metrics_to: Optional[str] = None,
             trace_to: Optional[str] = None) -> List[RoundResult]:
-        """Run the remaining rounds on the host driver.
+        """Run the remaining rounds on ``fed.round_driver``.
 
         ``resume_from``: a checkpoint written by :meth:`save_checkpoint`
         (or a previous ``run(checkpoint_to=...)``): loads the global LoRA,
         rescalers and round index, and continues from there.
-        ``checkpoint_to``: write a checkpoint after every round.
+        ``checkpoint_to``: write a checkpoint after every round (host
+        driver) or every ``fed.checkpoint_every`` rounds (device driver:
+        the segment ends are its host sync points).
         ``metrics_to``/``trace_to``: a registry snapshot (JSON) and a Chrome
         trace-event file of the round spans, written when the rounds
         finish; each creates its object when the server has none."""
@@ -380,11 +653,14 @@ class FederatedServer:
         if trace_to and not self._tracer.enabled:
             self._set_tracer(Tracer())
         start = self.restore_checkpoint(resume_from) if resume_from else 0
-        out = []
-        for r in range(start, self.fed.rounds):
-            out.append(self.run_round(r))
-            if checkpoint_to:
-                self.save_checkpoint(checkpoint_to)
+        if self.fed.round_driver == "device":
+            out = self._run_rounds_device(start, checkpoint_to)
+        else:
+            out = []
+            for r in range(start, self.fed.rounds):
+                out.append(self.run_round(r))
+                if checkpoint_to:
+                    self.save_checkpoint(checkpoint_to)
         if metrics_to:
             self._metrics.dump(metrics_to)
         if trace_to:

@@ -5,8 +5,9 @@ workload — a real request queue, the block-paged KV pool, grouped prefill
 and one mixed-k decode step per iteration — and prints throughput and
 TTFT/latency percentiles.  It runs on the CUDA kernels unless given
 ``--device cpu`` (their plain versions).  ``--variant full`` serves the
-arch's full-size config; the default, like the reference's ``--local``,
-is the reduced smoke config.  Weights are random (seed 0), as is the
+arch's full-size config and ``--variant swa`` the full-size config with
+sliding-window attention (ring KV caches of the window's length); the
+default, like the reference's ``--local``, is the reduced smoke config.  Weights are random (seed 0), as is the
 trace (the reference's 8- and 16-token prompts).
 
 Production-traffic knobs, as the reference's: ``--prefix-cache`` (shared
@@ -109,7 +110,8 @@ def parse_slo(spec: str):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
-    ap.add_argument("--variant", choices=("smoke", "full"), default="smoke")
+    ap.add_argument("--variant", choices=("smoke", "full", "swa"),
+                    default="smoke")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--k", type=int, default=None,
@@ -265,6 +267,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                  f"-token KV blocks" if engine.paged else "slotted KV pool")
     spec_desc = (f", speculative W={args.window} draft_k={args.draft_k}"
                  if spec else "")
+    if cfg.attention_window:
+        pool_desc += (f", sliding window {cfg.attention_window}: ring of "
+                      f"{engine.pool.attn_len}")
     print(f"{cfg.name} on {device}: {args.slots} slots × {args.slot_len} "
           f"tokens ({pool_desc}), slot_k={engine.slot_k}, "
           f"dispatch={engine.dispatch}{spec_desc}"

@@ -5,9 +5,12 @@ Two modes, as the reference launcher's:
   * ``--federated`` assembles an experiment (``build_experiment``: base
     model, global LoRA, Dirichlet-partitioned synthetic corpus, budgeted
     clients) and runs every round of FLAME on the reference's default
-    engine (batched cohorts) and the host driver, then evaluates the
-    global adapter.  ``--checkpoint-to`` writes a resumable checkpoint
-    after every round and ``--resume-from`` continues from one.  The data
+    engine (batched cohorts) on the round driver ``--round-driver``
+    (``host``, the default, or ``device``: a checkpoint segment's rounds
+    with no host read inside it), then evaluates the global adapter.
+    ``--checkpoint-to`` writes a resumable checkpoint after every round
+    (host driver) or every ``--checkpoint-every`` rounds (device driver),
+    and ``--resume-from`` continues from one, on either driver.  The data
     vocabulary is the model's, capped at 512 tokens (a full-width model
     keeps its full embedding and head: the synthetic corpus builds a dense
     vocab x vocab transition matrix per cluster, ~10 GB at 50,304 tokens).
@@ -25,12 +28,15 @@ registry.
 
   PYTHONPATH=src python -m repro_torch.launch.train --federated \\
       --device cpu --clients 4 --rounds 2 --checkpoint-to build/fed.ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train --federated \\
+      --device cpu --clients 4 --rounds 3 --round-driver device \\
+      --checkpoint-every 2 --checkpoint-to build/fed.ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --local \\
       --arch olmo-1.3b --device cpu --steps 2
 
 The reference launcher's production-mesh step (``--shape``,
-``--multi-pod``) and its device round driver come with later slices of
-the port and are refused with a message naming the slice.
+``--multi-pod``) comes with the multi-chip slice of the port and is
+refused with a message naming it.
 """
 from __future__ import annotations
 
@@ -55,8 +61,6 @@ LATER_FLAGS = {
     "--shape": _MULTI_CHIP,
     "--multi-pod": _MULTI_CHIP,
 }
-_DEVICE_DRIVER = ("the device round driver: the ROADMAP's \"Device round "
-                  "driver\" item")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +73,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=5,
                     help="--local: train steps to run")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
-    ap.add_argument("--variant", default="smoke", help="full | smoke")
+    ap.add_argument("--variant", default="smoke",
+                    help="full | smoke | swa (full with sliding-window "
+                         "attention)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--clients", type=int, default=8)
@@ -81,13 +87,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "the client's expert budget k_i (default: top_k)")
     ap.add_argument("--round-driver", default="host",
                     choices=("host", "device"),
-                    help="host = per-round Python loop (device: not ported)")
+                    help="host = per-round Python loop (oracle); device = "
+                         "a checkpoint segment's rounds with no host read "
+                         "inside it")
     ap.add_argument("--checkpoint-every", type=int, default=1,
-                    help="rounds per checkpoint; the host driver writes "
-                         "one after every round, so only 1 (other values "
-                         "need the device driver: not ported)")
+                    help="device driver: rounds per checkpoint segment")
     ap.add_argument("--checkpoint-to", default=None,
-                    help="write a resumable checkpoint after every round")
+                    help="write a resumable checkpoint after every round "
+                         "(host) or segment (device)")
     ap.add_argument("--resume-from", default=None,
                     help="continue from a checkpoint")
     return ap
@@ -165,12 +172,6 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("pass --federated or --local: without them the "
                          "reference runs the production-mesh train step, "
                          "which comes with the multi-chip slice")
-    if args.round_driver == "device":
-        raise SystemExit("--round-driver device: not ported yet, it comes "
-                         f"with {_DEVICE_DRIVER}")
-    if args.checkpoint_every != 1:
-        raise SystemExit("--checkpoint-every other than 1: not ported yet, "
-                         f"it comes with {_DEVICE_DRIVER}")
     device = _device(args.device)
 
     cfg = get_config(args.arch, args.variant)
@@ -199,7 +200,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
               f"mean loss {mean:.4f}")
     print(f"val_loss {metrics['val_loss']:.4f}, test_loss "
           f"{metrics['test_loss']:.4f}, score {metrics['score']:.2f} "
-          f"({dt:.2f} s for {metrics['rounds']} rounds and evaluation)")
+          f"({dt:.2f} s for {metrics['rounds']} rounds via the "
+          f"{fed.round_driver!r} driver and evaluation)")
     if args.checkpoint_to:
         print(f"checkpoint: {args.checkpoint_to}")
     print("done")

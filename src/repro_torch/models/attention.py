@@ -3,12 +3,16 @@
 
 * training and prefill (no cache): the flash-attention kernel through
   :func:`repro_torch.kernels.backend.flash_attention` (differentiable),
-  with optional LoRA adapters on q/k/v/o through ``lora_matmul``;
+  with the config's sliding window (``attention_window``; the kernel
+  skips the key tiles before a query block's window), and optional LoRA
+  adapters on q/k/v/o through ``lora_matmul``.  With a window ``w`` and
+  ``S >= w`` the returned cache is the reference's ring: the last ``w``
+  tokens, token ``t`` at slot ``t % w``;
 * single-token decode, block-paged (:func:`paged_decode_write`,
   :func:`paged_gather`, :func:`decode_attention`) or slotted (a per-row
-  scatter at ``cache_pos`` into the (B, Sc, KV, D) rows, then the same
-  :func:`decode_attention`), plain PyTorch as in the reference (which
-  keeps them outside Pallas too);
+  scatter at ``cache_pos`` — ``cache_pos % Sc`` on a ring — into the
+  (B, Sc, KV, D) rows, then the same :func:`decode_attention`), plain
+  PyTorch as in the reference (which keeps them outside Pallas too);
 * suffix-only cached prefill (``suffix_readonly``): the suffix rows attend
   each row's gathered prefix pages plus the in-flight suffix through
   :func:`suffix_attention`, which runs the flash kernel of the cold
@@ -22,14 +26,15 @@
 * speculative verify (S > 1 with a cache): :func:`verify_attention` reads
   the cache before any write (the window's positions may hold nothing
   the full-k pass should see), then the window's K/V are written at
-  ``cache_pos + s``, through :func:`paged_verify_write` or a per-row
-  scatter;
+  ``cache_pos + s`` (mod the ring span on a ring), through
+  :func:`paged_verify_write` or a per-row scatter;
 * speculative draft: :func:`apply_draft_attention` /
   :func:`draft_attention`, one reduced-k step against a read-only prefix
   and a small (B, W, KV, D) window buffer (``model.draft_window``).
 
-Sliding-window ring caches in the slotted layout and logit softcap come
-with a later slice and raise ``NotImplementedError``.
+The suffix branch refuses a ring, as the reference's pools do (a
+``BlockPool`` with a prefix cache needs a linear cache); logit softcap
+comes with a later slice.  Both raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -224,13 +229,16 @@ def paged_verify_write(k_pool: torch.Tensor, v_pool: torch.Tensor,
 
 
 def _slotted_write(cache: dict, k: torch.Tensor, v: torch.Tensor,
-                   cache_pos) -> None:
+                   cache_pos, *, window: int) -> None:
     """Scatter an S-token window's K/V into the slotted rows in place:
-    row ``b`` writes indices ``cache_pos[b] + s`` of its (Sc, KV, D) row."""
+    row ``b`` writes indices ``cache_pos[b] + s`` of its (Sc, KV, D) row,
+    taken mod ``Sc`` on a ring (``window > 0``)."""
     B, S = k.shape[:2]
     dev = cache["k"].device
     cp = torch.as_tensor(cache_pos, device=dev).expand(B).long()
     cols = cp[:, None] + torch.arange(S, device=dev)[None, :]
+    if window > 0:
+        cols = cols % cache["k"].shape[1]
     rows = torch.arange(B, device=dev)[:, None]
     cache["k"][rows, cols] = k.to(cache["k"].dtype)
     cache["v"][rows, cols] = v.to(cache["v"].dtype)
@@ -271,10 +279,15 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
-def _no_ring(cfg) -> None:
-    if cfg.attention_window > 0:
-        raise NotImplementedError(
-            "sliding-window (ring) caches come with a later slice")
+def _ring_piece(t: torch.Tensor, window: int) -> torch.Tensor:
+    """A prefill's K or V (B,S,KV,D) as the decode cache: on a ring
+    (``0 < window <= S``) the last ``window`` tokens, rolled so token ``t``
+    sits at slot ``t % window`` and the next decode write overwrites the
+    oldest entry; else the whole sequence."""
+    S = t.shape[1]
+    if window <= 0 or S < window:
+        return t
+    return torch.roll(t[:, S - window:], S % window, dims=1)
 
 
 def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -305,14 +318,19 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     new_cache = None
     if cache is None:
-        _no_ring(cfg)
-        out = kernel_backend.flash_attention(q, k, v, causal=True, window=0)
+        out = kernel_backend.flash_attention(q, k, v, causal=True,
+                                             window=window)
         if return_cache:
-            new_cache = {"k": k, "v": v}
+            new_cache = {"k": _ring_piece(k, window),
+                         "v": _ring_piece(v, window)}
     elif suffix_readonly:
         # checked before the decode branches: a one-token suffix must not
-        # write the pool either
-        _no_ring(cfg)
+        # write the pool either.  Prefix sharing needs a linear cache
+        # (BlockPool refuses prefix_cache with a window)
+        if window > 0:
+            raise NotImplementedError(
+                "suffix-only prefill attends a linear cache; a "
+                "sliding-window (ring) model has no prefix cache")
         out = suffix_attention(q, k, v, cache["k"], cache["v"], block_table,
                                cache_pos, page_span)
         new_cache = {"k": k, "v": v}
@@ -325,9 +343,9 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = decode_attention(q, kg, vg, cache_pos, window=window)
         new_cache = cache
     elif S == 1:
-        _no_ring(cfg)
-        _slotted_write(cache, k, v, cache_pos)
-        out = decode_attention(q, cache["k"], cache["v"], cache_pos)
+        _slotted_write(cache, k, v, cache_pos, window=window)
+        out = decode_attention(q, cache["k"], cache["v"], cache_pos,
+                               window=window)
         new_cache = cache
     elif block_table is not None:
         # paged verify: attend the gathered pages before the write, then
@@ -339,9 +357,9 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                            cache_pos, page_span=page_span, window=window)
         new_cache = cache
     else:
-        _no_ring(cfg)
-        out = verify_attention(q, k, v, cache["k"], cache["v"], cache_pos)
-        _slotted_write(cache, k, v, cache_pos)
+        out = verify_attention(q, k, v, cache["k"], cache["v"], cache_pos,
+                               window=window)
+        _slotted_write(cache, k, v, cache_pos, window=window)
         new_cache = cache
 
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim_)

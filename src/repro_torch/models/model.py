@@ -346,8 +346,10 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     """Forward pass that also returns the contiguous decode cache.
     Returns (logits_last (B,1,V), cache) with cache leaves
     (n_periods, B, cache_len_for(cache_len or S), KV, hd), zero-padded
-    past the prompt.  ``num_groups``: the one-hot dispatch modes' routing
-    groups (:func:`moe_layer.apply_moe`)."""
+    past the prompt.  With a sliding window ``w <= S`` the leaves are the
+    ring of :func:`attention.apply_attention` (w columns, token ``t`` at
+    ``t % w``) and need no padding.  ``num_groups``: the one-hot dispatch
+    modes' routing groups (:func:`moe_layer.apply_moe`)."""
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens)
@@ -357,9 +359,10 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     target = cache_len_for(cfg, cache_len or S)
     cache = {}
     for leaf in ("k", "v"):
-        stacked = torch.stack([c[leaf] for c in kv])   # (n, B, S, KV, hd)
-        if target > S:
-            pad = stacked.new_zeros(stacked.shape[:2] + (target - S,)
+        stacked = torch.stack([c[leaf] for c in kv])  # (n, B, Sc, KV, hd)
+        cur = stacked.shape[2]
+        if target > cur:
+            pad = stacked.new_zeros(stacked.shape[:2] + (target - cur,)
                                     + stacked.shape[3:])
             stacked = torch.cat([stacked, pad], dim=2)
         cache[leaf] = stacked

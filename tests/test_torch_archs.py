@@ -92,8 +92,11 @@ def test_registry_knows_seven_archs_and_names_the_rest():
     for arch, slice_ in registry._LATER.items():
         with pytest.raises(KeyError, match=slice_):
             tconfigs.get_config(arch)
-    with pytest.raises(ValueError, match="sliding-window"):
-        tconfigs.get_config("olmo-1.3b", "swa")
+    # the sliding-window variant (a later slice once, ported now)
+    assert tconfigs.get_config("olmo-1.3b", "swa") == config_from_jax(
+        jreg.get_config("olmo-1.3b", "swa"))
+    with pytest.raises(ValueError, match="unknown variant"):
+        tconfigs.get_config("olmo-1.3b", "long")
 
 
 def test_init_params_matches_the_reference_layout(case):

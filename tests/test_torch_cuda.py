@@ -984,3 +984,85 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
     assert o_g.step == o_c.step == 1
     for a, b in zip(leaves(o_g.mu), leaves(o_c.mu)):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+# the swa path's bands: windows that are not a tile multiple (64-query
+# blocks, 64-key tiles), at sequences that are not one either
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("S,window", [(2048, 1000), (2000, 1000), (300, 100),
+                                      (200, 65), (129, 1)])
+def test_cuda_flash_window_not_a_tile_multiple(cuda, dtype, S, window):
+    """The model-layout entry (``backend.flash_attention``, as prefill
+    calls it with the config's window) against the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(S + window)
+    q = torch.randn(2, S, 8, 128, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(2, S, 2, 128, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = _build.LAUNCHES["flash_attention"]
+    got = backend.flash_attention(q, k, v, causal=True, window=window)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    want = tref.flash_attention_ref(
+        *(t.transpose(1, 2) for t in (q, k, v)), window=window).transpose(1, 2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close_16bit(got, want)
+
+
+@pytest.mark.parametrize("layout", ["paged", "slotted"])
+def test_cuda_ring_engine_matches_cpu_engine(cuda, layout):
+    """A sliding-window model (window 6, float32) on a wrapping ring:
+    15-token prompts, 8 new tokens; the engine on the card emits the CPU
+    engine's greedy tokens and launches flash with the window."""
+    cfg = get_config("olmoe-1.3b-6.9b", "smoke").replace(
+        dtype="float32", attention_window=6)
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(num_slots=4, slot_len=23, slot_k=(2, 2, 1, 1),
+              kv_layout=layout)
+    rng = np.random.default_rng(4)
+    prompts = rng.integers(0, cfg.vocab_size, (6, 15)).astype(np.int32)
+
+    def run(p):
+        eng = ServingEngine(cfg, p, **kw)
+        assert eng.pool.attn_len == 6
+        return eng.run([Request(rid=i, prompt=pr, max_new_tokens=8,
+                                k=(2, 1)[i % 2])
+                        for i, pr in enumerate(prompts)]).tokens_by_rid()
+
+    cpu = run(params)
+    _build.reset_launches()
+    gpu = run(_to(params, cuda))
+    assert _build.LAUNCHES["flash_attention"] > 0
+    for rid in cpu:
+        assert len(cpu[rid]) == 8
+        np.testing.assert_array_equal(gpu[rid], cpu[rid], err_msg=f"rid {rid}")
+
+
+def test_cuda_device_driver_matches_host_driver(cuda, tmp_path):
+    """The device round driver on the card (the smoke model's 2 layers,
+    float32, 3 rounds at participation 0.75, checkpoint_every=2) against
+    the host driver from the same start: participants equal, launches
+    equal, losses, frequencies, the global adapter and the rescalers
+    within rtol 2e-5 / atol 1e-6."""
+    servers = {}
+    for driver in ("device", "host"):
+        exp = _round_experiment(cuda, "float32", rounds=3, participation=0.75,
+                                round_driver=driver, checkpoint_every=2)
+        _build.reset_launches()
+        exp.server.run(checkpoint_to=str(tmp_path / f"{driver}.npz"))
+        servers[driver] = (exp.server, dict(_build.LAUNCHES))
+    (ds, dl), (hs, hl) = servers["device"], servers["host"]
+    assert dl == hl and dl["lora_matmul_experts"] > 0
+    for rd, rh in zip(ds.history, hs.history):
+        assert rd.participating == rh.participating
+        np.testing.assert_allclose(rd.client_losses, rh.client_losses,
+                                   rtol=2e-5, atol=1e-6)
+        for fd, fh in zip(rd.client_freqs, rh.client_freqs):
+            np.testing.assert_allclose(fd["pos0"], fh["pos0"], rtol=2e-5,
+                                       atol=1e-6)
+    for a, b in zip(_leaves(ds.global_lora), _leaves(hs.global_lora)):
+        assert a.device.type == "cuda"
+        torch.testing.assert_close(a, b, rtol=2e-5, atol=1e-6)
+    for a, b in zip(ds.clients, hs.clients):
+        torch.testing.assert_close(a.rescaler["pos0"], b.rescaler["pos0"],
+                                   rtol=2e-5, atol=1e-6)

@@ -6,6 +6,7 @@ port.  The JAX side runs its ``backend="reference"`` path (the default on
 the CPU).  Tolerances: layers 1e-5, logits 1e-4 (float32 on both sides,
 different summation order, two layers).
 """
+import os
 
 import jax
 import jax.numpy as jnp
@@ -24,6 +25,22 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import model as tmodel
 from repro_torch.models.moe_layer import apply_moe
 from repro_torch.serving import BlockPool
+
+
+def share_cores_among_workers() -> None:
+    """Under pytest-xdist each worker takes its share of the CPU cores for
+    PyTorch's intra-op threads (at least one).  Without it every worker
+    runs as many threads as there are cores, and the spinning thread pools
+    of six workers slow each port test by an order of magnitude.  Every
+    worker imports this module while collecting, before any test runs;
+    a run without workers keeps PyTorch's default."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+    if workers > 1:
+        torch.set_num_threads(
+            max(1, len(os.sched_getaffinity(0)) // workers))
+
+
+share_cores_among_workers()
 
 
 def port_cfg(jcfg) -> tconfigs.ModelConfig:
@@ -236,9 +253,18 @@ def test_later_slice_branches_raise():
                                    None, 1.0)
     with pytest.raises(NotImplementedError, match="softcap"):
         tmodel.prefill(TCFG.replace(attn_logit_softcap=30.0), TPARAMS, x, k=2)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tmodel.prefill(TCFG.replace(attention_window=4), TPARAMS, x, k=2)
+    # the sliding-window ring (a later slice once, ported now): prefill
+    # returns the rolled ring and decode writes it at pos % w, as JAX's
     ring = TCFG.replace(attention_window=4)
-    with pytest.raises(NotImplementedError, match="sliding-window"):
-        tmodel.decode_step(ring, TPARAMS, tmodel.init_cache(ring, 4, 8, "cpu"),
-                           x[:, :1], 0, k=2)
+    jring = JCFG.replace(attention_window=4)
+    tl, tc = tmodel.prefill(ring, TPARAMS, x, k=2)
+    jl, jc = jmodel.prefill(jring, JPARAMS, jnp.asarray(PROMPTS), k=2,
+                            dispatch="ragged")
+    close(tl, jl, 1e-5)
+    assert tc["pos0"]["attn"]["k"].shape[2] == 4 < x.shape[1]
+    close(tc["pos0"]["attn"]["k"], jc["pos0"]["attn"]["k"], 1e-5)
+    pos = x.shape[1]
+    tl, _ = tmodel.decode_step(ring, TPARAMS, tc, x[:, :1], pos, k=2)
+    jl, _ = jmodel.decode_step(jring, JPARAMS, jc, jnp.asarray(PROMPTS[:, :1]),
+                               pos, k=2, dispatch="ragged")
+    close(tl, jl, 1e-5)

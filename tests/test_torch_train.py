@@ -468,8 +468,6 @@ def test_train_launcher_runs_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--federated", "--round-driver", "device"], "device round driver"),
-    (["--federated", "--checkpoint-every", "2"], "device round driver"),
     (["--federated", "--shape", "train_4k"], "multi-chip"),
     (["--local", "--multi-pod"], "multi-chip"),
 ])
@@ -479,9 +477,13 @@ def test_train_launcher_rejects_later_slice_flags(argv, match):
 
 
 def test_server_refuses_unported_engines():
+    """The device round driver (ported now) refuses what the reference's
+    refuses: a method other than FLAME, with the reference's message."""
     from repro_torch.federated.server import FederatedServer
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FederatedServer(TCFG, TPARAMS, {}, [],
-                        tconfigs.FederatedConfig(round_driver="device"),
-                        tconfigs.TrainConfig())
+    server = FederatedServer(
+        TCFG, TPARAMS, {}, [],
+        tconfigs.FederatedConfig(round_driver="device", method="hlora"),
+        tconfigs.TrainConfig())
+    with pytest.raises(ValueError, match="supports method='flame' only"):
+        server.run()
