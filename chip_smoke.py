@@ -3,8 +3,9 @@
 federated training round, checkpoints and resume, the three baselines,
 the serving engine's traffic layer, self-speculative decoding, LoRA
 serving (the federated adapter unmerged), the registry's other archs,
-the single-device train step, the device round driver and the
-sliding-window ``swa`` variant — on one NVIDIA GPU.
+the single-device train step, the device round driver, the
+sliding-window ``swa`` variant and the SSM and hybrid families
+(``mamba2-780m``, ``jamba-v0.1-52b``) — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -196,7 +197,31 @@ nothing else of the network or the filesystem.  Phases:
    version, layer 0's flash of the 12,288-token prefill against its plain
    version and timed beside its bound and SDPA with a band mask, TTFT of
    the longest prompt and decode p50;
-17. summary — a ``{"kernels": [...]}`` line, then the last line
+17. SSM and hybrid — (a) ``mamba2-780m`` FULL (48 layers, attention-free)
+   on the slotted pool (a paged request falls back to it): 8 requests of
+   128/256-token prompts x 16 new tokens with no hand kernel launched
+   (the projections are plain products and the SSD plain PyTorch, as the
+   reference's are jnp), then with a seeded rank-16 adapter unmerged:
+   ``lora_matmul`` twice per layer and engine call, every call of one
+   prefill call and one decode step against its plain version; one HLoRA
+   round of 4 clients at ranks 16/10/6/5, batch 16 x 128; ``lora_matmul``
+   at 1536 -> 6448 (r = 16 and 5, an N that ends in a partial tile) and
+   3072 -> 1536 held and timed; (b) ``jamba-v0.1-52b`` at full width at
+   the largest whole-period depth that fits beside a 16 GiB reserve
+   (printed; 16 of 32 layers on an 80 GB card): the paged engine on 8
+   requests at tiers 2,2,1,1,1,1,1,1, a
+   slotted repeat (tokens equal or near-ties by phase 11's rule), launch
+   counts per attention and MoE layer, every kernel call of one prefill
+   and one decode step against its plain version, the router at E = 16,
+   flash at GQA 32/8 and the ragged trio at 4096 <-> 14,336 timed beside
+   their bounds and library calls; one FLAME round of 4 clients at k =
+   2,1,1,1, batch 16 x 128, at the depth that fits beside a 40 GiB
+   training reserve (8 layers); ``lora_matmul`` at 4096 -> 16,768 and 8192
+   -> 4096 and ``lora_matmul_experts`` at E = 16, C = 320, 4096 ->
+   14,336 held and timed; both: tokens/s, decode and prefill p50,
+   s/round, peak memory, the SSM state rows' bytes and the plain SSD's
+   time per layer at prefill;
+18. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -1043,7 +1068,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ------------------------------------------------ 17. summary
+    # ------------------------------------------------ 17. SSM and hybrid
+    rows += ssm_phase(torch, dev, check, kc)
+
+    # ------------------------------------------------ 18. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1075,17 +1103,44 @@ def _row(name, source, replaces, err, ms, plain_ms, bound, library_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms}
 
 
-def _fit_depth(torch, cfg, num_slots, slot_len):
-    """The largest depth <= num_layers at which the weights, the KV pool
-    (``num_slots`` x ``slot_len`` tokens) and ``ARCH_RESERVE`` fit in the
-    card's free memory; (depth, bytes a layer, bytes outside the stack)."""
+def _fit_depth(torch, cfg, num_slots, slot_len, reserve=ARCH_RESERVE):
+    """The largest depth <= num_layers, in whole periods of the layer
+    pattern, at which the weights, the KV pool (``num_slots`` x
+    ``slot_len`` tokens of K/V at each attention layer, a state row per
+    slot at each Mamba layer) and ``reserve`` fit in the card's free
+    memory; (depth, bytes a period, bytes outside the stack)."""
     from repro_torch.launch.steps import abstract_params, state_bytes
-    one = state_bytes(abstract_params(cfg.replace(num_layers=1)))
-    per_layer = state_bytes(abstract_params(cfg.replace(num_layers=2))) - one
-    kv = 2 * num_slots * slot_len * cfg.n_kv_heads * cfg.head_dim_ * 2
+    from repro_torch.models.mamba2 import mamba_dims
+    P = cfg.pattern_period
+    one = state_bytes(abstract_params(cfg.replace(num_layers=P)))
+    per_period = state_bytes(abstract_params(
+        cfg.replace(num_layers=2 * P))) - one
+    n_attn = sum(cfg.layer_kind(j) == "attn" for j in range(P))
+    cache = n_attn * 2 * num_slots * slot_len * cfg.n_kv_heads \
+        * cfg.head_dim_ * 2
+    if n_attn < P:
+        d = mamba_dims(cfg)
+        cache += (P - n_attn) * num_slots * 4 * (
+            d["conv_dim"] * (d["conv_width"] - 1)
+            + d["n_heads"] * d["head_dim"] * d["d_state"])
     free, _ = torch.cuda.mem_get_info()
-    fit = int((free - ARCH_RESERVE - (one - per_layer)) // (per_layer + kv))
-    return min(cfg.num_layers, fit), per_layer, one - per_layer
+    fit = int((free - reserve - (one - per_period)) // (per_period + cache))
+    return min(cfg.num_layers, fit * P), per_period, one - per_period
+
+
+def _ragged_mm_plain(torch, xs, be, w, *lora, **kw):
+    """``ref.ragged_expert_matmul_ref`` over runs of at most 1 GiB of fp32
+    gathered weights: the plain version forms one fp32 copy of an
+    expert's W per row block, 17.5 GiB for a 256-token prefill at Jamba's
+    4096 x 14,336 experts.  Row blocks are independent, so the chunks
+    concatenate to the plain version's output."""
+    from repro_torch.kernels import ref
+    nb = be.shape[0]
+    bm = xs.shape[0] // nb
+    step = max(1, 2 ** 30 // (w.shape[1] * w.shape[2] * 4))
+    return torch.cat([ref.ragged_expert_matmul_ref(
+        xs[i * bm:(i + step) * bm], be[i:i + step], w, *lora, **kw)
+        for i in range(0, nb, step)])
 
 
 def _arch_requests(cfg, tiers, n=8, new=16, seed=0):
@@ -1099,13 +1154,14 @@ def _arch_requests(cfg, tiers, n=8, new=16, seed=0):
         for i in range(n)]
 
 
-def _arch_step_calls(torch, cfg, params, tiers, check, what):
+def _arch_step_calls(torch, cfg, params, tiers, check, what, lora=None):
     """Every kernel call of one prefill call (one 256-token prompt) and of
-    one decode step (8 busy slots) on the engine of the archs phase.
-    Returns (prefill calls, decode calls)."""
+    one decode step (8 busy slots) on the engine of the archs phase
+    (serving ``lora`` unmerged when given).  Returns (prefill calls,
+    decode calls)."""
     from repro_torch.serving import ServingEngine
     from repro_torch.serving.engine import ServingReport
-    eng = ServingEngine(cfg, params, num_slots=8, slot_len=512,
+    eng = ServingEngine(cfg, params, lora=lora, num_slots=8, slot_len=512,
                         slot_k=tiers, block_size=16)
     report = ServingReport(completions=[])
     eng._t0 = time.perf_counter()
@@ -1121,27 +1177,36 @@ def _arch_step_calls(torch, cfg, params, tiers, check, what):
         _, dec = _recorded(torch, lambda: eng._decode_once(report))
         while eng.n_active:
             eng._decode_once(report)
-    eng.pool.check_invariants()
-    check(eng.pool.blocks_in_use == 0, f"{what}: blocks held after the run")
+    if eng.paged:
+        eng.pool.check_invariants()
+        check(eng.pool.blocks_in_use == 0,
+              f"{what}: blocks held after the run")
     return pre, dec
 
 
-def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T):
+def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T,
+                      n_lora=0):
     """Each recorded call of one engine call against its plain version at
-    every layer: flash once per layer at prefill; an MoE arch's router
-    (static at prefill, per-token at decode) at ``T`` tokens and the
-    ragged trio once per layer (the grouped matmul three times), a dense
-    arch none of them.  Routers exact (weights within 1e-6), the gather
-    exact, the rest within ``kc["close"]``.  Returns {name: max err}."""
+    every layer: flash once per attention layer at prefill; an MoE
+    layer's router (static at prefill, per-token at decode) at ``T``
+    tokens and the ragged trio once (the grouped matmul three times);
+    ``n_lora`` ``lora_matmul`` calls (an unmerged adapter's projections);
+    a Mamba layer or a dense FFN none.  Routers exact (weights within
+    1e-6), the gather exact, the rest within ``kc["close"]``.  Returns
+    {name: max err}."""
     from repro_torch.kernels import ref
     close = kc["close"]
     L = cfg.num_layers
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(L))
     names = [c[0] for c in calls]
-    want_n = {"flash_attention": L if prefill else 0}
+    want_n = {"flash_attention": n_attn if prefill else 0}
     if cfg.moe.enabled:
-        want_n.update({("router" if prefill else "adaptive_router"): L,
-                       "ragged_gather": L, "ragged_combine": L,
-                       "ragged_expert_matmul": 3 * L})
+        want_n.update({("router" if prefill else "adaptive_router"): n_moe,
+                       "ragged_gather": n_moe, "ragged_combine": n_moe,
+                       "ragged_expert_matmul": 3 * n_moe})
+    if n_lora:
+        want_n["lora_matmul"] = n_lora
     for name, n in want_n.items():
         check(names.count(name) == n, f"{what}: {names.count(name)} {name} "
               f"calls, not {n}")
@@ -1168,7 +1233,9 @@ def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T):
                   f"{tag} differs from the plain version")
             err = 0.0
         elif name == "ragged_expert_matmul":
-            err = close(out, ref.ragged_expert_matmul_ref(*a, **kw), tag)
+            err = close(out, _ragged_mm_plain(torch, *a, **kw), tag)
+        elif name == "lora_matmul":
+            err = close(out, ref.lora_matmul_ref(*a, kw["scale"]), tag)
         else:
             err = close(out, ref.ragged_combine_ref(*a), tag)
         worst[name] = max(worst.get(name, 0.0), err)
@@ -1194,36 +1261,39 @@ def _time_flash(torch, call, kc):
                 qc, kc_, vc, is_causal=True, enable_gqa=KV != H)))
 
 
-def _lora_ffn_rows(torch, dev, check, kc, launches):
-    """``lora_matmul`` at OLMo-1.3B's FFN shapes in a training step (M =
-    16 x 128 tokens, 2048 -> 8192 and 8192 -> 2048, r = 40, bf16): held
-    against its plain version (close_16bit), timed beside its bound and
-    the library's base product, and the training backward (dx, dA, dB,
-    the reference's fp32 rules) timed.  Returns two kernel rows."""
+def _lora_shape_rows(torch, dev, kc, what, shapes, launches, seed,
+                     scale, backward=False):
+    """``lora_matmul`` at training shapes ``(M, K, N, r, name)``, bf16:
+    held against its plain version (close_16bit), timed beside its bound
+    and the library's base product, and with ``backward`` its training
+    backward (dx, dA, dB, the reference's fp32 rules) timed.  Returns the
+    rows, each with ``launches``."""
     from repro_torch.kernels import backend, ref
     t = kc["time_ms"]
-    gen = torch.Generator(device=dev).manual_seed(11)
-    rows, M, r, sc = [], 2048, 40, 0.4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows, sc = [], scale
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(torch.bfloat16)
 
-    for K, N in ((2048, 8192), (8192, 2048)):
+    for M, K, N, r, name in shapes:
         x, w = randn(M, K), randn(K, N, scale=K ** -0.5)
         a, b = randn(K, r, scale=K ** -0.5), randn(r, N, scale=0.5)
         err = kc["close"](backend.lora_matmul(x, w, a, b, scale=sc),
                           ref.lora_matmul_ref(x, w, a, b, sc),
-                          f"lora_matmul {K}->{N} r={r}")
-        xg, ag, bg = (u.clone().requires_grad_(True) for u in (x, a, b))
-        y = backend.lora_matmul(xg, w, ag, bg, scale=sc)
-        g = randn(M, N)
-        bwd = t(lambda: torch.autograd.grad(y, (xg, ag, bg), g,
-                                            retain_graph=True))
-        print(f"lora_matmul backward {K}->{N} r={r} M={M} (dx, dA, dB; the "
-              f"reference's fp32 rules, plain PyTorch): {bwd:.4f} ms")
+                          f"lora_matmul {what} {name} {K}->{N} r={r}")
+        if backward:
+            xg, ag, bg = (u.clone().requires_grad_(True) for u in (x, a, b))
+            y = backend.lora_matmul(xg, w, ag, bg, scale=sc)
+            g = randn(M, N)
+            bwd = t(lambda: torch.autograd.grad(y, (xg, ag, bg), g,
+                                                retain_graph=True))
+            print(f"lora_matmul backward {K}->{N} r={r} M={M} (dx, dA, dB; "
+                  f"the reference's fp32 rules, plain PyTorch): {bwd:.4f} ms")
+            del xg, ag, bg, y, g
         rows.append(_row(
-            f"lora_matmul (OLMo-1.3B FFN {K}->{N}, r={r}, M={M})",
+            f"lora_matmul ({what} {name} {K}->{N}, r={r}, M={M})",
             "lora_matmul.cu", "lora_matmul.py:63", err,
             t(lambda: backend.lora_matmul(x, w, a, b, scale=sc)),
             t(lambda: ref.lora_matmul_ref(x, w, a, b, sc)),
@@ -1231,7 +1301,7 @@ def _lora_ffn_rows(torch, dev, check, kc, launches):
                      2.0 * M * (K * N + K * r + r * N), BF16_FLOPS),
             t(lambda: torch.matmul(x, w)), launches,
             "torch.matmul(x, W), base product only"))
-        del x, w, a, b, xg, ag, bg, y, g
+        del x, w, a, b
     return rows
 
 
@@ -1287,11 +1357,13 @@ def _arch_train_round(torch, cfg, params, dev, check):
 def _arch_kernel_rows(torch, arch, cfg, params, tiers, launches, check,
                       kc):
     """Every kernel call of one prefill call and one decode step of an
-    arch held against its plain version; layer 0's flash timed, and the
-    MoE's routers and ragged trio.  Returns the ``kernels`` line's rows of
-    the new shapes: flash at GQA 24/8 (phi4-mini) and MQA 48/1 (granite),
-    the two router entries and the ragged trio at E = 60, k = 4
-    (qwen2-moe), with the serving run's ``launches``."""
+    arch held against its plain version; the first attention layer's
+    flash timed, and the first MoE layer's routers and ragged trio.
+    Returns the ``kernels`` line's rows of the new shapes: flash at GQA
+    24/8 (phi4-mini), MQA 48/1 (granite) and GQA 32/8 (jamba), the two
+    router entries and the ragged trio of an MoE arch (E = 60, k = 4 on
+    qwen2-moe; E = 16, k = 2 at 4096 <-> 14,336 on jamba), with the
+    serving run's ``launches``."""
     pre, dec = _arch_step_calls(torch, cfg, params, tiers, check, arch)
     worst = {"prefill": _check_arch_calls(torch, cfg, pre, check, kc,
                                           f"{arch} prefill", True, 256),
@@ -1306,7 +1378,8 @@ def _arch_kernel_rows(torch, arch, cfg, params, tiers, launches, check,
     f_ms, f_pl, f_nb, f_fl, f_lib = _time_flash(
         torch, next(c for c in pre if c[0] == "flash_attention"), kc)
     shape = f"H={cfg.n_heads} KV={cfg.n_kv_heads} S=256 B=1 D={cfg.head_dim_}"
-    kind = {"phi4-mini-3.8b": "GQA 3", "granite-20b": "MQA"}.get(arch)
+    kind = {"phi4-mini-3.8b": "GQA 3", "granite-20b": "MQA",
+            "jamba-v0.1-52b": "GQA 4"}.get(arch)
     if kind:
         rows.append(_row(f"flash_attention ({kind}, {arch} prefill, {shape})",
                          "flash_attention.cu", "flash_attention.py:92",
@@ -1432,8 +1505,12 @@ def archs_phase(torch, dev, check, kc):
                                   check, kc)
         if arch == "olmo-1.3b":
             lm_launches = _arch_train_round(torch, cfg, params, dev, check)
-            rows += _lora_ffn_rows(torch, dev, check, kc,
-                                   lm_launches["lora_matmul"])
+            # OLMo-1.3B's FFN shapes in a training step (M = 16 x 128
+            # tokens, r = 40) with the fp32 backward timed
+            rows += _lora_shape_rows(
+                torch, dev, kc, "OLMo-1.3B", [(2048, 2048, 8192, 40, "FFN"),
+                                              (2048, 8192, 2048, 40, "FFN")],
+                lm_launches["lora_matmul"], seed=11, scale=0.4, backward=True)
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1913,6 +1990,393 @@ def swa_phase(torch, cfg, params, dev, check, kc):
     torch.cuda.empty_cache()
     print(f"swa phase: {time.perf_counter() - t_phase:.1f} s")
     return row
+
+
+SSM_TIERS = (2, 2, 1, 1, 1, 1, 1, 1)
+# serving's prefill transients, the kernel checks' fp32 plain versions
+SSM_RESERVE = 16 * 2 ** 30
+# a FLAME round at batch 16 x 128 keeps every layer's activations (no
+# layer checkpointing in the client step): ~1.2 GB a Jamba Mamba layer
+# (the SSD's (H, L, L) fp32 terms, B and C broadcast to 128 heads), the
+# one-hot dispatch of the MoE layers, and the LoRA backward's fp32 copy
+# of a stacked expert matrix (3.8 GB); 16 layers did not fit
+SSM_TRAIN_RESERVE = 40 * 2 ** 30
+
+
+def _ssm_run(torch, cfg, params, tiers, layout, lora=None):
+    """A warm-up, then 8 requests (128/256-token prompts, 16 new tokens)
+    on an 8 x 512 engine, counts zeroed just before and read just after.
+    Returns (engine, report, recorder, launches)."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, params, lora=lora, num_slots=8, slot_len=512,
+                        slot_k=tiers, kv_layout=layout)
+    eng.run(_arch_requests(cfg, tiers, n=2, new=2, seed=9))
+    rec = _SpecRecorder(eng)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        rep = eng.run(_arch_requests(cfg, tiers))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+    finally:
+        rec.close()
+    return eng, rep, rec, launches
+
+
+def _ssm_report(torch, cfg, eng, rep, rec, check, what):
+    """Every request complete with finite logits and ids in range; one
+    printed line: tokens/s, decode and prefill p50, peak memory, the pool's
+    bytes and the SSM state rows' bytes.  Returns (prefill calls, decode
+    steps)."""
+    s = rep.summary()
+    check(s["n_requests"] == 8 and s["gen_tokens"] == 8 * 16,
+          f"{what}: served {s['n_requests']} requests / {s['gen_tokens']} "
+          "tokens")
+    for c in rep.completions:
+        check(c.n_generated == 16 and not c.truncated and bool(
+            ((c.tokens >= 0) & (c.tokens < cfg.vocab_size)).all()),
+            f"{what}: request {c.rid} incomplete or out of range")
+    check(all(np.isfinite(r).all() for r in rec.rows.values()
+              if not isinstance(r, tuple)), f"{what}: a logit row is not "
+          "finite")
+    n_pre, n_dec = len(rep.prefill_s), s["decode_steps"]
+    print(f"{what}: {s['gen_tokens']} tokens in {s['wall_s']:.3f} s, "
+          f"{s['gen_tokens_per_s']:.1f} tokens/s, decode step p50 "
+          f"{s['decode_step_ms_p50']:.2f} ms ({n_dec} steps), prefill p50 "
+          f"{float(np.median(rep.prefill_s)) * 1e3:.1f} ms ({n_pre} calls), "
+          f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, pool "
+          f"{eng.pool.kv_bytes() / 2 ** 20:.1f} MiB of which SSM state rows "
+          f"{eng.pool.row_bytes() / 2 ** 20:.1f} MiB "
+          f"({eng.pool.row_bytes() / 8 / cfg.num_layers / 2 ** 20:.3f} MiB a "
+          f"slot and layer on average)")
+    return n_pre, n_dec
+
+
+def _ssd_times(torch, cfg, params, dev, kc, what):
+    """The plain SSD (``mamba2.ssd_chunked``) and the whole Mamba block of
+    the first Mamba position at a 256-token prefill (B = 1) and at a
+    decode step (B = 8), CUDA events, L2 flushed.  Printed; returns the
+    SSD ms."""
+    from repro_torch.models import mamba2
+    from repro_torch.models.model import _index
+    key = next(f"pos{j}" for j in range(cfg.pattern_period)
+               if cfg.layer_kind(j) == "ssm")
+    p = _index(params["blocks"][key]["ssm"], 0)
+    d = mamba2.mamba_dims(cfg)
+    H, P, N = d["n_heads"], d["head_dim"], d["d_state"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    S = 256
+    x, Bm, Cm = rn(1, S, H, P), rn(1, S, H, N), rn(1, S, H, N)
+    dt = torch.nn.functional.softplus(rn(1, S, H) - 4.0)
+    A = -torch.exp(p["A_log"].float())
+    t = kc["time_ms"]
+    with torch.no_grad():
+        ssd = t(lambda: mamba2.ssd_chunked(x, dt, A, Bm, Cm,
+                                           min(cfg.ssm.chunk_size, S)))
+        h = rn(1, S, cfg.d_model).to(cfg.torch_dtype)
+        blk = t(lambda: mamba2.apply_mamba(p, cfg, h))
+        h8 = rn(8, 1, cfg.d_model).to(cfg.torch_dtype)
+        c8 = mamba2.init_mamba_cache(cfg, 8, device=dev)
+        dec = t(lambda: mamba2.apply_mamba(p, cfg, h8, cache=c8))
+    print(f"{what}: plain SSD per layer at prefill (B=1 S={S} H={H} P={P} "
+          f"N={N}, chunk {min(cfg.ssm.chunk_size, S)}, fp32) {ssd:.4f} ms; "
+          f"the whole Mamba block {blk:.4f} ms at that prefill, "
+          f"{dec:.4f} ms at a decode step (B=8)")
+    return ssd
+
+
+def _ssm_round(torch, cfg, params, dev, check, method, want):
+    """One federated round of 4 clients (``method``; budgets ``want`` as
+    (k, rank) per client), batch 16 x 128, the default batched engine on
+    the host driver; counts zeroed just before and read just after.
+    Returns the launches."""
+    from repro_torch.configs import FederatedConfig, TrainConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.federated import client as client_lib
+    from repro_torch.federated.simulation import build_experiment
+    from repro_torch.kernels import _build
+    fed = FederatedConfig(num_clients=4, rounds=1, method=method)
+    tc = TrainConfig()
+    exp = build_experiment(cfg, fed=fed, tc=tc,
+                           data=DataConfig(vocab_size=512, n_examples=200,
+                                           seq_len=128),
+                           base_params=params, device=dev)
+    server = exp.server
+    got = [(c.k, c.rank) for c in server.clients]
+    check(got == list(want), f"{cfg.name} {method}: clients {got}")
+    steps = sum(client_lib.make_batch_plan(c, tc, fed.seed * 1000).n_steps
+                for c in server.clients)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = server.run_round(0)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    check(all(np.isfinite(res.client_losses)),
+          f"{cfg.name} round losses {res.client_losses}")
+    check(all(np.isfinite(x.float().cpu().numpy()).all()
+              for x in _leaves(server.global_lora)),
+          f"{cfg.name}: the aggregated adapter is not finite")
+    resc = sorted(server.clients[0].rescaler or {})
+    print(f"ssm {cfg.name} training: one {method} round, clients (k, rank, "
+          f"examples) " + ", ".join(f"({c.k}, {c.rank}, {c.dataset_size})"
+                                     for c in server.clients)
+          + f", {steps} steps in {dt:.3f} s ({dt / max(steps, 1):.3f} s/"
+          f"step; s/round {dt:.3f}), losses "
+          f"{[round(x, 4) for x in res.client_losses]}, rescalers at "
+          f"{resc or 'none'}, peak "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; launches "
+          f"{json.dumps(launches)}")
+    del exp, server
+    return launches
+
+
+def ssm_phase(torch, dev, check, kc):
+    """Phase 17: the SSM and hybrid families at full width, bf16, random
+    seeded weights.  (a) ``mamba2-780m`` FULL (48 layers, attention-free):
+    the engine on the slotted pool (a paged request falls back to it),
+    8 requests of 128/256-token prompts x 16 new tokens; no hand kernel on
+    that path (the projections are plain products, the SSD plain
+    PyTorch, as the reference's are jnp) unless an adapter is served:
+    the same requests with a seeded rank-16 adapter unmerged launch
+    ``lora_matmul`` twice per layer and engine call, and every call of one
+    prefill call and one decode step is held against its plain version;
+    one HLoRA round of 4 clients at ranks 16/10/6/5, batch 16 x 128.
+    (b) ``jamba-v0.1-52b`` at full width at the largest whole-period depth
+    that fits beside a 16 GiB reserve (serving) or a 40 GiB one (the
+    round, whose client step keeps every layer's activations): the paged
+    engine (8 requests,
+    tiers 2,2,1,1,1,1,1,1), a slotted repeat whose tokens equal the paged
+    run's or diverge first at a near-tie (phase 11's rule), launch counts
+    (flash per attention layer, the router and the ragged trio per MoE
+    layer), every kernel call of one prefill and one decode step against
+    its plain version; one FLAME round of 4 clients at k = 2,1,1,1, batch
+    16 x 128.  Both: tokens/s, decode and prefill p50, s/round, peak
+    memory, the SSM state rows' bytes and the plain SSD's time per layer
+    at prefill; the new kernel rows (launches from the run that carries
+    each kernel).  Returns the rows."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend, ref
+    from repro_torch.models import model as model_lib
+    t = kc["time_ms"]
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    rows = []
+
+    # ------------------------------------------------ (a) mamba2-780m FULL
+    cfg = get_config("mamba2-780m", "full")
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(170), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"ssm {cfg.name}: {cfg.num_layers} layers (FULL), "
+          f"{n_params / 1e9:.3f} B params bf16, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    L = cfg.num_layers
+    eng, rep, rec, launches = _ssm_run(torch, cfg, params, None, "paged")
+    check(not eng.paged, "mamba2: the engine did not fall back to the "
+          "slotted pool")
+    check(all(n == 0 for n in launches.values()),
+          f"mamba2 base serving launched a hand kernel: {launches}")
+    _ssm_report(torch, cfg, eng, rep, rec, check,
+                "ssm mamba2-780m serving (slotted, no adapter)")
+    base_tokens = rep.tokens_by_rid()
+    del eng, rec
+    lora, ratios = _serving_adapter(torch, cfg, params, dev, seed=171)
+    print(f"ssm mamba2-780m adapter: rank {cfg.lora.rank} on in_proj and "
+          f"out_proj, layer-0 LoRA term / base rms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ratios.items()))
+    eng, rep, rec, lora_launches = _ssm_run(torch, cfg, params, None,
+                                            "slotted", lora=lora)
+    n_pre, n_dec = _ssm_report(
+        torch, cfg, eng, rep, rec, check,
+        "ssm mamba2-780m serving (slotted, rank-16 adapter unmerged)")
+    check(lora_launches["lora_matmul"] == 2 * L * (n_pre + n_dec)
+          and sum(lora_launches.values()) == lora_launches["lora_matmul"],
+          f"mamba2 LoRA serving launches {lora_launches} for {n_pre} "
+          f"prefill calls and {n_dec} decode steps x {L} layers")
+    differ = sum(not np.array_equal(t, base_tokens[r])
+                 for r, t in rep.tokens_by_rid().items())
+    print(f"ssm mamba2-780m: {differ}/8 requests differ from the base "
+          f"model's tokens; launches {json.dumps(lora_launches)}")
+    del eng, rec
+    pre, dec = _arch_step_calls(torch, cfg, params, None, check,
+                                "mamba2 lora", lora=lora)
+    worst = {"prefill": _check_arch_calls(torch, cfg, pre, check, kc,
+                                          "mamba2 prefill", True, 256,
+                                          n_lora=2 * L),
+             "decode": _check_arch_calls(torch, cfg, dec, check, kc,
+                                         "mamba2 decode", False, 8,
+                                         n_lora=2 * L)}
+    print(f"ssm mamba2-780m: every lora_matmul call of one prefill call "
+          f"(T=256) and one decode step (8 slots) against its plain "
+          f"version, {L} layers x 2: max err {json.dumps(worst)}")
+    for part, calls in (("decode", dec), ("prefill", pre)):
+        for j, name in ((0, "in_proj"), (1, "out_proj")):
+            x, w, a, b = calls[j][1]
+            sc = calls[j][2]["scale"]
+            M, K = x.shape
+            N, r = w.shape[1], a.shape[1]
+            ms = t(lambda: backend.lora_matmul(x, w, a, b, scale=sc))
+            pl = t(lambda: ref.lora_matmul_ref(x, w, a, b, sc))
+            lib = t(lambda: torch.matmul(x, w))
+            bnd = bound_ms(2 * (M * K + K * N + K * r + r * N + M * N),
+                           2.0 * M * (K * N + K * r + r * N), BF16_FLOPS)
+            if part == "decode" and name == "in_proj":
+                rows.append(_row(
+                    f"lora_matmul (mamba2 serving decode {name} "
+                    f"{K}->{N}, r={r}, M={M})", "lora_matmul.cu",
+                    "lora_matmul.py:63", worst["decode"]["lora_matmul"],
+                    ms, pl, bnd, lib, lora_launches["lora_matmul"],
+                    "torch.matmul(x, W), base product only"))
+            else:
+                print(f"ssm mamba2 lora_matmul {part} {name} ({K}->{N}, "
+                      f"r={r}, M={M}): {ms:.4f} ms (plain {pl:.4f}, "
+                      f"bound {bnd[0]:.4f} by {bnd[1]}, library {lib:.4f})")
+    del pre, dec, lora
+    _ssd_times(torch, cfg, params, dev, kc, "ssm mamba2-780m")
+    m_launches = _ssm_round(torch, cfg, params, dev, check, "hlora",
+                            [(0, 16), (0, 10), (0, 6), (0, 5)])
+    check(m_launches["lora_matmul"] > 0 and sum(m_launches.values())
+          == m_launches["lora_matmul"],
+          f"mamba2 HLoRA round launches {m_launches}")
+    rows += _lora_shape_rows(
+        torch, dev, kc, "mamba2 train",
+        [(2048, 1536, 6448, 16, "in_proj"), (2048, 1536, 6448, 5, "in_proj"),
+         (2048, 3072, 1536, 16, "out_proj")],
+        m_launches["lora_matmul"], seed=172, scale=2.0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------ (b) jamba, full width
+    full = get_config("jamba-v0.1-52b", "full")
+    depth, per_period, outside = _fit_depth(torch, full, 8, 512,
+                                            reserve=SSM_RESERVE)
+    check(depth >= full.pattern_period, "jamba: not one period fits")
+    cfg = full.replace(num_layers=depth)
+    t0 = time.perf_counter()
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(173), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    L = depth
+    n_attn = sum(cfg.layer_kind(i) == "attn" for i in range(L))
+    n_moe = sum(cfg.layer_is_moe(i) for i in range(L))
+    print(f"ssm {cfg.name}: depth {depth} of {full.num_layers} "
+          f"({depth // full.pattern_period} of "
+          f"{full.num_layers // full.pattern_period} periods of "
+          f"{full.pattern_period}; a period {per_period / 1e9:.3f} GB, "
+          f"embedding and head {outside / 1e9:.3f} GB), {n_attn} attention, "
+          f"{L - n_attn} Mamba, {n_moe} MoE layers, {n_params / 1e9:.3f} B "
+          f"params bf16, init {time.perf_counter() - t0:.1f} s")
+    runs = {}
+    for layout in ("paged", "slotted"):
+        eng, rep, rec, ln = _ssm_run(torch, cfg, params, SSM_TIERS, layout)
+        check(eng.paged == (layout == "paged"), f"jamba {layout} layout")
+        n_pre, n_dec = _ssm_report(torch, cfg, eng, rep, rec, check,
+                                   f"ssm jamba serving ({layout})")
+        check(ln["flash_attention"] == n_attn * n_pre
+              and ln["topk_router"] == n_moe * n_pre
+              and ln["adaptive_topk_router"] == n_moe * n_dec
+              and ln["ragged_gather"] == n_moe * (n_pre + n_dec)
+              and ln["ragged_combine"] == n_moe * (n_pre + n_dec)
+              and ln["ragged_expert_matmul"] == 3 * n_moe * (n_pre + n_dec)
+              and ln["lora_matmul"] == ln["lora_matmul_experts"] == 0,
+              f"jamba {layout}: launches {ln} for {n_pre} prefill calls and "
+              f"{n_dec} decode steps ({n_attn} attention, {n_moe} MoE "
+              "layers)")
+        print(f"ssm jamba {layout} launches {json.dumps(ln)}")
+        runs[layout] = (rep.tokens_by_rid(), rec, ln)
+        del eng, rec
+    (pt, prec, j_launches), (st, srec, _) = runs["paged"], runs["slotted"]
+    div = _first_divergences(prec, pt, srec, st)
+    for rid, pos, gap, d in div:
+        check(gap <= d, f"jamba: request {rid} differs across layouts at "
+              f"position {pos}, where the paged top-2 gap {gap:.3e} exceeds "
+              f"max |slotted - paged| {d:.3e} (not a near-tie)")
+    print(f"ssm jamba slotted vs paged: {8 - len(div)}/8 requests "
+          "token-identical" + ("" if not div else " (first divergences: "
+                               + "; ".join(f"rid {r} at {p}: gap {g:.3e} "
+                                           f"<= {d:.3e}"
+                                           for r, p, g, d in div) + ")"))
+    del runs, prec, srec
+    rows += _arch_kernel_rows(torch, "jamba-v0.1-52b", cfg, params,
+                              SSM_TIERS, j_launches, check, kc)
+    _ssd_times(torch, cfg, params, dev, kc, "ssm jamba")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() - base
+    check(held < per_period, f"jamba: {held / 2 ** 30:.2f} GiB of the "
+          "serving model still allocated before the round's is built")
+    depth, _, _ = _fit_depth(torch, full, 8, 512, reserve=SSM_TRAIN_RESERVE)
+    check(depth >= full.pattern_period, "jamba: not one period fits a round")
+    cfg = full.replace(num_layers=depth)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(173), dev)
+    print(f"ssm {cfg.name} training: depth {depth} of {full.num_layers} "
+          f"(the largest whole-period depth beside a "
+          f"{SSM_TRAIN_RESERVE / 2 ** 30:.0f} GiB training reserve; "
+          f"{held / 2 ** 30:.2f} GiB more than at the phase's start still "
+          "allocated)")
+    f_launches = _ssm_round(torch, cfg, params, dev, check, "flame",
+                            [(2, 16), (1, 16), (1, 16), (1, 16)])
+    for name in ("lora_matmul", "lora_matmul_experts", "topk_router",
+                 "flash_attention"):
+        check(f_launches[name] > 0, f"jamba FLAME round launched no {name}")
+    for name in ("adaptive_topk_router", "ragged_gather",
+                 "ragged_expert_matmul", "ragged_combine"):
+        check(f_launches[name] == 0, f"jamba FLAME round launched {name}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += _lora_shape_rows(
+        torch, dev, kc, "jamba train",
+        [(2048, 4096, 16768, 16, "in_proj"), (2048, 8192, 4096, 16,
+                                               "out_proj")],
+        f_launches["lora_matmul"], seed=174, scale=2.0)
+    # the experts at the k = 2 client's capacity (2048 tokens, E = 16,
+    # factor 1.25): C = 320; w1 (4096 -> 14,336)
+    gen = torch.Generator(device=dev).manual_seed(175)
+    E, C, K, N, r = 16, 320, 4096, 14336, 16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    x, w = randn(E, C, K), randn(E, K, N, scale=K ** -0.5)
+    a, b = randn(E, K, r, scale=K ** -0.5), randn(E, r, N, scale=0.5)
+    err = kc["close"](backend.lora_matmul_experts(x, w, a, b, scale=2.0),
+                      ref.lora_matmul_experts_ref(x, w, a, b, 2.0),
+                      "lora_matmul_experts jamba E=16 C=320 w1")
+    rows.append(_row(
+        f"lora_matmul_experts (jamba train E={E}, C={C}, w1 {K}->{N}, "
+        f"r={r})", "lora_matmul.cu", "lora_matmul.py:101", err,
+        t(lambda: backend.lora_matmul_experts(x, w, a, b, scale=2.0)),
+        t(lambda: ref.lora_matmul_experts_ref(x, w, a, b, 2.0)),
+        bound_ms(2 * E * (C * K + K * N + K * r + r * N + C * N),
+                 2.0 * E * C * (K * N + K * r + r * N), BF16_FLOPS),
+        t(lambda: torch.bmm(x, w)), f_launches["lora_matmul_experts"],
+        "torch.bmm(x, W), base product only"))
+    del x, w, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"ssm phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
 
 
 def backward_phase(torch, backend, ref, dev, check) -> None:
@@ -3019,7 +3483,10 @@ class _SpecRecorder:
         speculative.verify_window = rec_verify
 
     def close(self):
+        """Restore ``verify_window`` and let go of the engine (and so of
+        its weights and pool); the recorded rows stay."""
         self.mod.verify_window = self._orig
+        self.eng = None
 
     def row(self, rid, t):
         v = self.rows[rid, t]
@@ -3173,8 +3640,9 @@ def _spec_round_kernels(torch, cfg, params, dev, check, kc, what,
 
 def _time_layer0(torch, calls, kc):
     """Layer 0's router, gather, three grouped matmuls and combine of a
-    step: kernel, plain and library ms (CUDA events, L2 flushed) and the
-    bound from these inputs.  Returns {name: (ms, plain_ms, bound_ms,
+    step: kernel, plain and library ms (CUDA events, L2 flushed; the
+    grouped matmul's plain version over runs of row blocks,
+    :func:`_ragged_mm_plain`) and the bound from these inputs.  Returns {name: (ms, plain_ms, bound_ms,
     bound_by, library_ms)}."""
     from repro_torch.kernels import backend, ref
     t = kc["time_ms"]
@@ -3213,7 +3681,7 @@ def _time_layer0(torch, calls, kc):
                else None)
         out[f"ragged_expert_matmul {label}"] = (
             t(lambda: backend.ragged_expert_matmul(xs, be, w)),
-            t(lambda: ref.ragged_expert_matmul_ref(xs, be, w)),
+            t(lambda: _ragged_mm_plain(torch, xs, be, w)),
             *bound_ms((xs.shape[0] * K + n_exp * K * H + xs.shape[0] * H)
                       * xs.element_size(), 2.0 * n_valid * K * H, peak), lib)
     eo, rows, wrank = calls[5][1]

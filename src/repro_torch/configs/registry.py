@@ -1,9 +1,10 @@
 """Architecture registry of the port: only the archs it can serve and train.
 
 The reference registry (``repro/configs/registry.py``) knows twelve archs;
-the port knows the seven whose layers it has (attention with a dense FFN,
-a routed MoE, or a routed MoE with shared experts) and adds each other one
-with the slice that brings its layers.  Asking for
+the port knows the nine whose layers it has (attention with a dense FFN,
+a routed MoE, or a routed MoE with shared experts; the Mamba-2 block,
+alone or in Jamba's period-8 hybrid stack with interleaved MoE) and adds
+each other one with the slice that brings its layers.  Asking for
 an arch the port does not know yet raises ``KeyError`` naming that slice.
 """
 from __future__ import annotations
@@ -18,6 +19,8 @@ _ARCH_MODULES = {
     "chameleon-34b": "chameleon_34b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "mamba2-780m": "mamba2_780m",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
     # the paper's own evaluation models
     "olmo-1.3b": "olmo_1_3b",
     "olmoe-1.3b-6.9b": "olmoe_1_3b_6_9b",
@@ -26,8 +29,6 @@ _ARCH_MODULES = {
 # archs of the reference registry that later slices of the port bring
 _LATER = {
     "qwen3-moe-235b-a22b": "the multi-chip slice",
-    "mamba2-780m": "the SSM slice",
-    "jamba-v0.1-52b": "the SSM slice",
     "llama3-405b": "the multi-chip slice",
     "musicgen-large": "the audio-codebook slice",
 }

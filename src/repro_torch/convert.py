@@ -5,8 +5,10 @@ package, through numpy, and back to numpy for comparison.
 both packages on weights the JAX package made: the caller turns the JAX
 tree into numpy arrays (``jax.tree.map(np.asarray, tree)``) and these
 functions rebuild it as tensors.  The layouts already agree leaf for leaf
-(``blocks.pos{i}`` stacked over ``n_periods``, ``x @ W`` weights), so the
-conversion only changes the container type.  This module imports neither
+(``blocks.pos{i}`` stacked over ``n_periods`` for every position of the
+period, attention or Mamba, ``x @ W`` weights; a Mamba block's ``dt_bias``,
+``A_log`` and ``D`` stay fp32 in a bf16 model), so the conversion only
+changes the container type.  This module imports neither
 ``jax`` nor the JAX package.
 """
 from __future__ import annotations
@@ -55,8 +57,9 @@ def params_from_jax(tree: Dict[str, Any], device="cuda",
 
 def rescalers_from_jax(by_k: Dict[int, Any], device="cuda"
                        ) -> Dict[int, Dict[str, torch.Tensor]]:
-    """``{k: rescaler tree}`` (``{"pos0": (n_periods,)}`` fp32 per tier,
-    as ``repro.core.lora.init_rescalers`` makes them) -> tensors, for the
+    """``{k: rescaler tree}`` (``{"pos{j}": (n_periods,)}`` fp32 per tier,
+    one entry per MoE position ``j`` of the period, as
+    ``repro.core.lora.init_rescalers`` makes them) -> tensors, for the
     serving engine's ``rescaler_by_k``."""
     return {int(k): _tree(t, device, None) for k, t in by_k.items()}
 

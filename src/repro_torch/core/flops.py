@@ -18,19 +18,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 from ..configs.base import ModelConfig
-
-
-def mamba_dims(cfg) -> dict:
-    """The Mamba-2 mixer's dimensions (a copy of the reference's
-    ``repro.models.mamba2.mamba_dims``; the port has no SSM layers yet)."""
-    s = cfg.ssm
-    d_inner = s.expand * cfg.d_model
-    n_heads = d_inner // s.head_dim
-    conv_dim = d_inner + 2 * s.n_groups * s.d_state
-    return dict(d_inner=d_inner, n_heads=n_heads, conv_dim=conv_dim,
-                d_state=s.d_state, head_dim=s.head_dim,
-                n_groups=s.n_groups, conv_width=s.conv_width,
-                in_dim=2 * d_inner + 2 * s.n_groups * s.d_state + n_heads)
+from ..models.mamba2 import mamba_dims
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,11 @@ TTFT/latency percentiles.  It runs on the CUDA kernels unless given
 ``--device cpu`` (their plain versions).  ``--variant full`` serves the
 arch's full-size config and ``--variant swa`` the full-size config with
 sliding-window attention (ring KV caches of the window's length); the
-default, like the reference's ``--local``, is the reduced smoke config.  Weights are random (seed 0), as is the
+default, like the reference's ``--local``, is the reduced smoke config.
+``--layers N`` cuts the depth in whole periods of the layer pattern
+(``--arch jamba-v0.1-52b --variant full --layers 16`` fits one card; an
+attention-free arch such as ``mamba2-780m`` serves from the slotted
+pool whatever ``--kv-layout`` says).  Weights are random (seed 0), as is the
 trace (the reference's 8- and 16-token prompts).
 
 Production-traffic knobs, as the reference's: ``--prefix-cache`` (shared
@@ -107,11 +111,31 @@ def parse_slo(spec: str):
     return out
 
 
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to ``layers`` layers (0: as it is), in whole periods of
+    its layer pattern: ``jamba-v0.1-52b`` FULL (51.5 B parameters) serves
+    from one 80 GB card at 16 layers, two of its four periods."""
+    if not layers:
+        return cfg
+    if layers % cfg.pattern_period or not 0 < layers <= cfg.num_layers:
+        raise SystemExit(f"--layers {layers}: {cfg.name} has "
+                         f"{cfg.num_layers} layers in periods of "
+                         f"{cfg.pattern_period}")
+    return cfg.replace(num_layers=layers)
+
+
+def add_depth_flag(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers, a multiple "
+                         "of the layer pattern's period (0: the variant's)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
     ap.add_argument("--variant", choices=("smoke", "full", "swa"),
                     default="smoke")
+    add_depth_flag(ap)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--k", type=int, default=None,
@@ -205,7 +229,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         raise SystemExit("--device cuda: no CUDA device here "
                          "(pass --device cpu for the plain versions)")
 
-    cfg = get_config(args.arch, args.variant)
+    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
     params = model_lib.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
     top_k = cfg.moe.top_k if cfg.moe.enabled else 0

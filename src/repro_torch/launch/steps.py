@@ -33,12 +33,14 @@ for the allocator's fragmentation, library workspaces and the fp32
 weight copies the LoRA backward forms.  A microbatch's footprint
 (:func:`activation_bytes`) counts, per sequence: the checkpointed layer
 inputs (√L carries), one layer's recomputed activations and their
-gradients, the flash backward's (H, S, S) fp32 recompute (the plain
-version's vjp forms the scores, the probabilities and their gradient for
-one layer at a time: 1 GiB each at OLMo width and 4096 tokens, which the
-carry count alone misses), the one-hot dispatch tensors of a capacity
-MoE layer, and the cross-entropy's fp32 logits that autograd keeps for
-every chunk.
+gradients (a period's worth: Jamba's eight positions), the flash
+backward's (H, S, S) fp32 recompute (the plain version's vjp forms the
+scores, the probabilities and their gradient for one layer at a time:
+1 GiB each at OLMo width and 4096 tokens, which the carry count alone
+misses), the plain SSD's (H, L, L) fp32 transients, 3·S·H·L·4 bytes (the
+reference's rule), the one-hot dispatch tensors of a capacity MoE layer,
+and the cross-entropy's fp32 logits that autograd keeps for every
+chunk.
 """
 from __future__ import annotations
 
@@ -51,6 +53,7 @@ import torch
 from ..configs.base import ModelConfig, ShapeConfig, TrainConfig
 from ..core import lora as lora_lib
 from ..federated import client as client_lib
+from ..models import mamba2 as ssm_mod
 from ..models import model as model_lib
 from ..optim import adam
 from ..tree import leaves, tree_map
@@ -138,7 +141,7 @@ def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
                      k: Optional[int] = None) -> int:
     """Estimated peak autograd footprint of one sequence of ``seq_len``
     tokens under layer checkpointing (the module docstring lists the
-    terms)."""
+    terms), over the P positions of one period."""
     S, d = seq_len, cfg.d_model
     n_periods = cfg.num_layers // cfg.pattern_period
     n_saved = (n_periods // remat_chunk + remat_chunk if remat_chunk > 1
@@ -146,21 +149,35 @@ def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
     itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
     carries = n_saved * S * d * itemsize
     hd = cfg.head_dim_
-    attn = S * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * S * d
-    flash_bwd = 3 * cfg.n_heads * S * S * 4
     m = cfg.moe
-    if m.enabled:
-        kk = k or m.top_k
-        group = min(S, 2048)
-        ffn = S * kk * 3 * m.d_expert + S * 3 * m.d_shared_expert
-        # (G, Tg, E, C) fp32 dispatch and combine: C ~ Tg·k·cf/E per group
-        ffn += int(2 * S * group * kk * m.capacity_factor)
-    else:
-        ffn = S * 3 * cfg.d_ff
+    kinds = [cfg.layer_kind(j) for j in range(cfg.pattern_period)]
+    acts = extra = 0
+    if "attn" in kinds:
+        # the plain flash backward's (H, S, S) fp32 recompute, one layer
+        extra += 3 * cfg.n_heads * S * S * 4
+    if "ssm" in kinds:
+        # the SSD's (H, L, L) fp32 transients and their gradients, as the
+        # reference's knob rule counts them (one layer at a time)
+        dims = ssm_mod.mamba_dims(cfg)
+        extra += 3 * S * dims["n_heads"] * min(cfg.ssm.chunk_size, S) * 4
+    for j, kind in enumerate(kinds):
+        if kind == "attn":
+            acts += S * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * S * d
+        else:
+            acts += S * (dims["in_dim"] + dims["conv_dim"]
+                         + 2 * dims["d_inner"]) + 2 * S * d
+        if cfg.layer_is_moe(j):
+            kk = k or m.top_k
+            group = min(S, 2048)
+            acts += S * kk * 3 * m.d_expert + S * 3 * m.d_shared_expert
+            # (G, Tg, E, C) fp32 dispatch and combine: C ~ Tg·k·cf/E
+            acts += int(2 * S * group * kk * m.capacity_factor)
+        else:
+            acts += S * 3 * cfg.d_ff
     # one period's activations and their gradients, fp32 at most
-    layer = 2 * 4 * (attn + ffn)
+    layer = 2 * 4 * acts
     ce = S * cfg.vocab_size * 6          # fp32 logits kept + a bf16 chunk
-    return carries + layer + flash_bwd + ce
+    return carries + layer + extra + ce
 
 
 def choose_train_knobs(cfg: ModelConfig, shape: ShapeConfig, *,

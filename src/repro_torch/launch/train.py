@@ -24,7 +24,8 @@ Two modes, as the reference launcher's:
 Both run on the CUDA kernels unless given ``--device cpu`` (their plain
 versions).  ``--variant`` defaults to the reduced smoke config, as the
 reference's launcher does; ``--arch`` takes any arch of the port's
-registry.
+registry, and ``--layers`` cuts its depth in whole periods of its layer
+pattern (``jamba-v0.1-52b`` FULL does not fit one card).
 
   PYTHONPATH=src python -m repro_torch.launch.train --federated \\
       --device cpu --clients 4 --rounds 2 --checkpoint-to build/fed.ckpt
@@ -55,6 +56,7 @@ from ..federated.simulation import build_experiment, run_experiment
 from ..models import model as model_lib
 from ..optim import adam
 from . import steps as steps_lib
+from .serve import add_depth_flag, cut_depth
 
 _MULTI_CHIP = "the multi-chip slice (the production-mesh train step)"
 LATER_FLAGS = {
@@ -76,6 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--variant", default="smoke",
                     help="full | smoke | swa (full with sliding-window "
                          "attention)")
+    add_depth_flag(ap)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--clients", type=int, default=8)
@@ -131,7 +134,7 @@ def synthetic_batch(cfg, shape: ShapeConfig, generator: torch.Generator,
 def run_local(args) -> None:
     """--local: the train step of ``launch/steps.py`` on this device."""
     device = _device(args.device)
-    cfg = get_config(args.arch, args.variant)
+    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
     shape = ShapeConfig("local_train", seq_len=64, global_batch=8,
                         kind="train")
     bundle = steps_lib.build_train(cfg, shape, k=args.k, tc=TrainConfig(),
@@ -174,7 +177,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "which comes with the multi-chip slice")
     device = _device(args.device)
 
-    cfg = get_config(args.arch, args.variant)
+    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
     fed = FederatedConfig(num_clients=args.clients, rounds=args.rounds,
                           participation=args.participation,
                           round_driver=args.round_driver,

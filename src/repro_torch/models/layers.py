@@ -54,6 +54,13 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
     return (xf * torch.rsqrt(var + eps) * scale.to(_F32)).to(x.dtype)
 
 
+def gated_rms_norm(scale: torch.Tensor, x: torch.Tensor, z: torch.Tensor,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """The Mamba-2 output norm: RMSNorm(x · silu(z)), silu in fp32 and
+    cast to x's dtype before the product."""
+    return rms_norm(scale, x * F.silu(z.to(_F32)).to(x.dtype), eps)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     exponents = torch.arange(0, head_dim, 2, dtype=_F32,
                              device=device) / head_dim

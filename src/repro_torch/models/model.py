@@ -1,21 +1,30 @@
 """Decoder model: the serving and training paths of ``repro/models/model.py``.
 
+A model is ``num_layers`` blocks; each block is a mixer (attention or the
+Mamba-2 block) and an optional FFN (dense SwiGLU or sparse MoE).  Blocks
+group into repeating periods of ``cfg.pattern_period`` positions (Jamba:
+period 8, attention at position 4, MoE at the odd positions).
+
 The parameter tree keeps the reference's layout — ``{"embed": {"tokens"},
-"blocks": {"pos0": <leaves stacked over n_periods>, ...}, "final_norm",
-"lm_head"}`` — so a JAX tree converts leaf for leaf.  The reference scans
-over the leading ``n_periods`` axis; here the stack is a Python loop over
-it, each period reading views of the stacked leaves.
+"blocks": {"pos0": <leaves stacked over n_periods>, ..., "pos{P-1}"},
+"final_norm", "lm_head"}`` — so a JAX tree converts leaf for leaf.  The
+reference scans over the leading ``n_periods`` axis; here the stack is a
+Python loop over it, each period running its P positions in order on
+views of their stacked leaves.
 
-The trainable (federated) tree is ``{"lora": {"blocks": {"pos0": <adapter
-pairs {"a", "b"} mirroring the targeted weights>}}, "rescaler": {"pos0":
-(n_periods,)}}`` (``repro_torch.core.lora``).
+The trainable (federated) tree is ``{"lora": {"blocks": {"pos{i}":
+<adapter pairs {"a", "b"} mirroring the targeted weights>}}, "rescaler":
+{"pos{i}": (n_periods,)}}`` with one rescaler per MoE position
+(``repro_torch.core.lora``).
 
-Caches are dicts ``{"pos0": {"attn": {"k", "v"}}}`` with a leading
-``n_periods`` axis: the slotted rows of :func:`init_cache` (n, B, Sc, KV,
-hd) or the block-paged pool of :func:`init_paged_cache`.  Both are updated
-in place by :func:`decode_step`; the reference threads them through the
-scan carry and returns new ones.  :func:`draft_window` runs the
-speculative draft: W reduced-k steps that never write the cache.
+Caches are dicts ``{"pos{i}": {"attn": {"k", "v"}} | {"ssm": {"conv",
+"ssm"}}}`` with a leading ``n_periods`` axis: for attention the slotted
+rows of :func:`init_cache` (n, B, Sc, KV, hd) or the block-paged pool of
+:func:`init_paged_cache`; for the Mamba block per-row state (n, B, ...)
+in both.  Both are updated in place by :func:`decode_step`; the reference
+threads them through the scan carry and returns new ones.
+:func:`draft_window` runs the speculative draft: W reduced-k steps that
+never write the cache (attention-only models).
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import torch
 import torch.utils.checkpoint
 
 from . import attention as attn_mod
+from . import mamba2 as ssm_mod
 from . import moe_layer as moe_mod
 from .layers import apply_ffn, dense_init, embed_init, rms_norm
 
@@ -37,9 +47,11 @@ PyTree = Any
 # init
 # ==========================================================================
 
-def _init_block(cfg, n: int, generator, device) -> dict:
-    """One stacked block position (attention + MoE or dense FFN) with a
-    leading ``n`` = n_periods axis; same distributions as the reference."""
+def _init_block(cfg, kind: str, is_moe: bool, n: int, generator,
+                device) -> dict:
+    """One stacked block position (an attention or Mamba mixer, and an MoE
+    or dense FFN or neither) with a leading ``n`` = n_periods axis; same
+    distributions as the reference."""
     dt = cfg.torch_dtype
     d, hd = cfg.d_model, cfg.head_dim_
 
@@ -50,16 +62,19 @@ def _init_block(cfg, n: int, generator, device) -> dict:
         return torch.ones((n, dim), dtype=dt, device=device)
 
     p: dict = {"mixer_norm": ones(d)}
-    attn = {"wq": dense((d, cfg.n_heads * hd)),
-            "wk": dense((d, cfg.n_kv_heads * hd)),
-            "wv": dense((d, cfg.n_kv_heads * hd)),
-            "wo": dense((cfg.n_heads * hd, d))}
-    if cfg.qk_norm:
-        attn["q_norm"] = ones(hd)
-        attn["k_norm"] = ones(hd)
-    p["attn"] = attn
+    if kind == "attn":
+        attn = {"wq": dense((d, cfg.n_heads * hd)),
+                "wk": dense((d, cfg.n_kv_heads * hd)),
+                "wv": dense((d, cfg.n_kv_heads * hd)),
+                "wo": dense((cfg.n_heads * hd, d))}
+        if cfg.qk_norm:
+            attn["q_norm"] = ones(hd)
+            attn["k_norm"] = ones(hd)
+        p["attn"] = attn
+    else:
+        p["ssm"] = ssm_mod.init_mamba(cfg, n, generator, device)
     m = cfg.moe
-    if m.enabled:
+    if is_moe:
         p["ffn_norm"] = ones(d)
         moe = {"router": dense((d, m.num_experts), scale=0.1),
                "experts": {"w1": dense((m.num_experts, d, m.d_expert)),
@@ -78,31 +93,33 @@ def _init_block(cfg, n: int, generator, device) -> dict:
 
 
 def _check_supported(cfg) -> None:
-    P = cfg.pattern_period
-    if any(cfg.layer_kind(p) != "attn" for p in range(P)):
-        raise NotImplementedError(
-            f"{cfg.name}: SSM layers come with the SSM slice of the port")
     if cfg.num_codebooks:
         raise NotImplementedError(
             f"{cfg.name}: audio codebooks come with a later slice")
-    if cfg.moe.enabled and P != 1:
-        raise NotImplementedError(
-            f"{cfg.name}: interleaved MoE layers come with a later slice")
+
+
+def _attention_only(cfg) -> bool:
+    return all(cfg.layer_kind(p) == "attn" for p in range(cfg.pattern_period))
 
 
 def init_params(cfg, generator: torch.Generator,
                 device="cuda") -> PyTree:
     """Random weights from ``generator`` with the reference's
     distributions: truncated normal ±3σ, σ = scale/sqrt(fan_in) (router
-    scale 0.1), embeddings and head N(0, 0.02), norms one."""
+    scale 0.1), embeddings and head N(0, 0.02), norms one, the Mamba
+    block's as :func:`mamba2.init_mamba`; block positions drawn in order."""
     cfg.validate()
     _check_supported(cfg)
-    n = cfg.num_layers // cfg.pattern_period
+    P = cfg.pattern_period
+    n = cfg.num_layers // P
     dt = cfg.torch_dtype
     params = {
         "embed": {"tokens": embed_init((cfg.vocab_size, cfg.d_model), dt,
                                        generator, device)},
-        "blocks": {"pos0": _init_block(cfg, n, generator, device)},
+        "blocks": {f"pos{pos}": _init_block(cfg, cfg.layer_kind(pos),
+                                            cfg.layer_is_moe(pos), n,
+                                            generator, device)
+                   for pos in range(P)},
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
     }
     if not cfg.tie_embeddings:
@@ -136,18 +153,38 @@ def _index(tree, i: int):
     return tree[i]
 
 
-def _apply_block(cfg, p: dict, x: torch.Tensor, positions, *, lora, rescaler,
-                 lora_scale, k, cache=None, cache_pos=None,
+def _apply_block(cfg, kind: str, p: dict, x: torch.Tensor, positions, *,
+                 lora, rescaler, lora_scale, k, cache=None, cache_pos=None,
                  return_cache=False, slot_mask=None, block_table=None,
                  page_span=None, dispatch=None, suffix_readonly=False,
                  num_groups=1):
+    """One block position.  Returns (x, MoE aux or None, the position's
+    new cache ``{"attn": ...}`` / ``{"ssm": ...}`` or None).  A decode
+    step (a cache and S == 1) writes a Mamba position's state rows in
+    place, as attention writes its K/V."""
     lg = lora or {}
     h = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
-    h, new_cache = attn_mod.apply_attention(
-        p["attn"], cfg, h, positions, lora=lg.get("attn"),
-        lora_scale=lora_scale, cache=cache, cache_pos=cache_pos,
-        return_cache=return_cache, block_table=block_table,
-        page_span=page_span, suffix_readonly=suffix_readonly)
+    new_cache = None
+    if kind == "attn":
+        h, mc = attn_mod.apply_attention(
+            p["attn"], cfg, h, positions, lora=lg.get("attn"),
+            lora_scale=lora_scale, cache=(cache or {}).get("attn"),
+            cache_pos=cache_pos, return_cache=return_cache,
+            block_table=block_table, page_span=page_span,
+            suffix_readonly=suffix_readonly)
+        if mc is not None:
+            new_cache = {"attn": mc}
+    else:
+        c = (cache or {}).get("ssm")
+        h, mc = ssm_mod.apply_mamba(p["ssm"], cfg, h, lora=lg.get("ssm"),
+                                    lora_scale=lora_scale, cache=c,
+                                    return_cache=return_cache)
+        if c is not None and x.shape[1] == 1:
+            for leaf in ("conv", "ssm"):
+                c[leaf].copy_(mc[leaf])
+            mc = c
+        if mc is not None:
+            new_cache = {"ssm": mc}
     x = x + h
     aux = None
     if "moe" in p:
@@ -169,10 +206,12 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                block_table=None, page_span=None, dispatch=None,
                suffix_readonly=False, num_groups=1, remat=False,
                remat_chunk=0):
-    """The layer stack as a loop over the leading n_periods axis; period
-    ``i`` reads views of the stacked weights, of the stacked LoRA adapters
-    (``trainable["lora"]["blocks"]["pos0"]``) and of the rescalers.
-    Returns (h, counts {pos0: (n_periods, E)}, new K/V per period).
+    """The layer stack as a loop over the leading n_periods axis, each
+    period running its P positions in order; position ``pos{j}`` of
+    period ``i`` reads views of its stacked weights, LoRA adapters
+    (``trainable["lora"]["blocks"]["pos{j}"]``), rescaler and cache.
+    Returns (h, counts {pos{j}: (n_periods, E)} per MoE position, new
+    caches {pos{j}: [per-period cache dicts]}).
 
     ``remat`` (cacheless calls only, as the reference's): each period runs
     under ``torch.utils.checkpoint``, so autograd keeps only its input and
@@ -183,33 +222,44 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
     forward.  Loss and gradients are those of the plain loop."""
     _check_supported(cfg)
     trainable = trainable or {}
-    lora_blocks = ((trainable.get("lora") or {}).get("blocks") or {}).get(
-        "pos0")
+    lora_blocks = (trainable.get("lora") or {}).get("blocks") or {}
+    rescalers = trainable.get("rescaler") or {}
     lora_scale = cfg.lora.scale if cfg.lora.enabled else 0.0
-    rescalers = (trainable.get("rescaler") or {}).get("pos0")
     k = k if k is not None else cfg.moe.top_k
-    n = cfg.num_layers // cfg.pattern_period
-    blocks = params["blocks"]["pos0"]
-    layer_cache = (cache or {}).get("pos0", {}).get("attn")
+    P = cfg.pattern_period
+    n = cfg.num_layers // P
+    keys = [f"pos{j}" for j in range(P)]
+    kinds = [cfg.layer_kind(j) for j in range(P)]
+    blocks = params["blocks"]
+    caches = cache or {}
 
     def period(i, x):
-        h_cache = None if layer_cache is None else _index(layer_cache, i)
-        x, aux, nc = _apply_block(
-            cfg, _index(blocks, i), x, positions,
-            lora=None if not lora_blocks else _index(lora_blocks, i),
-            rescaler=None if rescalers is None else rescalers[i],
-            lora_scale=lora_scale, k=k, cache=h_cache, cache_pos=cache_pos,
-            return_cache=return_cache, slot_mask=slot_mask,
-            block_table=block_table, page_span=page_span, dispatch=dispatch,
-            suffix_readonly=suffix_readonly, num_groups=num_groups)
-        return x, None if aux is None else aux.activation_counts, nc
+        counts, new = {}, {}
+        for key, kind in zip(keys, kinds):
+            lb, r, c = lora_blocks.get(key), rescalers.get(key), \
+                caches.get(key)
+            x, aux, nc = _apply_block(
+                cfg, kind, _index(blocks[key], i), x, positions,
+                lora=None if not lb else _index(lb, i),
+                rescaler=None if r is None else r[i],
+                lora_scale=lora_scale, k=k,
+                cache=None if c is None else _index(c, i),
+                cache_pos=cache_pos, return_cache=return_cache,
+                slot_mask=slot_mask, block_table=block_table,
+                page_span=page_span, dispatch=dispatch,
+                suffix_readonly=suffix_readonly, num_groups=num_groups)
+            if aux is not None:
+                counts[key] = aux.activation_counts
+            if nc is not None:
+                new[key] = nc
+        return x, counts, new
 
-    counts, kv = [], []
+    per_counts, per_cache = [], []
     if not remat or cache is not None or return_cache:
         for i in range(n):
             x, c, nc = period(i, x)
-            counts.append(c)
-            kv.append(nc)
+            per_counts.append(c)
+            per_cache.append(nc)
     elif 1 < remat_chunk < n:
         g = remat_chunk
         while n % g:
@@ -224,14 +274,16 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
 
         for g0 in range(0, n, g):
             x, cs = _checkpoint(group, x, g0)
-            counts.extend(cs)
+            per_counts.extend(cs)
     else:
         for i in range(n):
             x, c, _ = _checkpoint(period, i, x)
-            counts.append(c)
-    counts = [c for c in counts if c is not None]
-    out_counts = {"pos0": torch.stack(counts)} if counts else {}
-    return x, out_counts, kv
+            per_counts.append(c)
+    out_counts = {key: torch.stack([c[key] for c in per_counts])
+                  for key in keys if per_counts and key in per_counts[0]}
+    out_cache = {key: [nc[key] for nc in per_cache]
+                 for key in keys if per_cache and key in per_cache[0]}
+    return x, out_counts, out_cache
 
 
 def _checkpoint(fn, *args):
@@ -246,9 +298,9 @@ def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
                    k=None, positions=None, dispatch=None, remat=False,
                    remat_chunk=0, num_groups=1):
     """tokens (B, S) -> (final hidden states (B, S, D) after the final
-    norm, activation counts {pos0: (n_periods, E)}).  MoE layers dispatch
-    on ``capacity`` unless told otherwise, as in the reference, over
-    ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
+    norm, activation counts {pos{j}: (n_periods, E)} per MoE position).
+    MoE layers dispatch on ``capacity`` unless told otherwise, as in the
+    reference, over ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
     checkpointing (:func:`_run_stack`)."""
     S = tokens.shape[1]
     if positions is None:
@@ -312,62 +364,88 @@ def cache_len_for(cfg, seq_len: int) -> int:
     return seq_len
 
 
-def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> PyTree:
-    """Zeroed slotted decode cache: (n_periods, batch, cache_len_for(
-    seq_len), KV, hd) per leaf (attention-only models; SSM state comes
-    with the SSM slice)."""
+def _cache(cfg, attn_shape: tuple, rows: int, device) -> PyTree:
+    """Zeroed decode cache, leading axis n_periods: K and V of shape
+    ``attn_shape`` at each attention position (model dtype), ``rows`` rows
+    of Mamba state at each Mamba position (``conv`` and ``ssm`` in fp32,
+    as the reference's pools hold them)."""
     _check_supported(cfg)
-    n = cfg.num_layers // cfg.pattern_period
-    shape = (n, batch, cache_len_for(cfg, seq_len), cfg.n_kv_heads,
-             cfg.head_dim_)
-    z = dict(dtype=cfg.torch_dtype, device=device)
-    return {"pos0": {"attn": {"k": torch.zeros(shape, **z),
-                              "v": torch.zeros(shape, **z)}}}
+    P = cfg.pattern_period
+    n = cfg.num_layers // P
+    cache = {}
+    for j in range(P):
+        if cfg.layer_kind(j) == "attn":
+            z = dict(dtype=cfg.torch_dtype, device=device)
+            cache[f"pos{j}"] = {"attn": {
+                leaf: torch.zeros((n,) + attn_shape, **z)
+                for leaf in ("k", "v")}}
+        else:
+            base = ssm_mod.init_mamba_cache(cfg, rows, device=device)
+            cache[f"pos{j}"] = {"ssm": {leaf: t.new_zeros((n,) + t.shape)
+                                        for leaf, t in base.items()}}
+    return cache
+
+
+def init_cache(cfg, batch: int, seq_len: int, device="cuda") -> PyTree:
+    """Zeroed slotted decode cache: per attention position (n_periods,
+    batch, cache_len_for(seq_len), KV, hd) K and V, per Mamba position
+    (n_periods, batch, ...) state rows."""
+    return _cache(cfg, (batch, cache_len_for(cfg, seq_len), cfg.n_kv_heads,
+                        cfg.head_dim_), batch, device)
 
 
 def init_paged_cache(cfg, num_slots: int, num_blocks: int, block_size: int,
                      device="cuda") -> PyTree:
-    """Zeroed block-paged decode cache (leading axis n_periods): K/V live
-    in a pool of ``num_blocks + 1`` blocks, block 0 being the trash block
-    unallocated table entries point at.  ``num_slots`` sizes per-row state
-    (the SSM slice's; attention-only models keep none)."""
-    del num_slots
-    _check_supported(cfg)
-    n = cfg.num_layers // cfg.pattern_period
-    shape = (n, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim_)
-    z = dict(dtype=cfg.torch_dtype, device=device)
-    return {"pos0": {"attn": {"k": torch.zeros(shape, **z),
-                              "v": torch.zeros(shape, **z)}}}
+    """Zeroed block-paged decode cache (leading axis n_periods): attention
+    K/V live in a pool of ``num_blocks + 1`` blocks, block 0 being the
+    trash block unallocated table entries point at; a Mamba position's
+    state is O(1) per request, so it stays per row (``num_slots`` rows),
+    as in :func:`init_cache`."""
+    return _cache(cfg, (num_blocks + 1, block_size, cfg.n_kv_heads,
+                        cfg.head_dim_), num_slots, device)
+
+
+def _stacked(per_period: list, kind: str) -> dict:
+    """A position's per-period cache dicts stacked on a leading axis."""
+    leaves = per_period[0][kind]
+    return {kind: {leaf: torch.stack([c[kind][leaf] for c in per_period])
+                   for leaf in leaves}}
 
 
 def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             cache_len: Optional[int] = None, slot_mask=None,
             dispatch: str = "ragged", num_groups: int = 1):
     """Forward pass that also returns the contiguous decode cache.
-    Returns (logits_last (B,1,V), cache) with cache leaves
-    (n_periods, B, cache_len_for(cache_len or S), KV, hd), zero-padded
-    past the prompt.  With a sliding window ``w <= S`` the leaves are the
-    ring of :func:`attention.apply_attention` (w columns, token ``t`` at
-    ``t % w``) and need no padding.  ``num_groups``: the one-hot dispatch
-    modes' routing groups (:func:`moe_layer.apply_moe`)."""
+    Returns (logits_last (B,1,V), cache): attention leaves (n_periods, B,
+    cache_len_for(cache_len or S), KV, hd), zero-padded past the prompt
+    (with a sliding window ``w <= S`` the leaves are the ring of
+    :func:`attention.apply_attention`: w columns, token ``t`` at ``t %
+    w``, no padding); Mamba leaves the state after the prompt, ``conv``
+    in the model's dtype and ``ssm`` in fp32 (n_periods, B, ...).
+    ``num_groups``: the one-hot dispatch modes' routing groups
+    (:func:`moe_layer.apply_moe`)."""
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens)
-    h, _, kv = _run_stack(cfg, params, x, positions, trainable=trainable,
-                          k=k, return_cache=True, slot_mask=slot_mask,
-                          dispatch=dispatch, num_groups=num_groups)
+    h, _, new = _run_stack(cfg, params, x, positions, trainable=trainable,
+                           k=k, return_cache=True, slot_mask=slot_mask,
+                           dispatch=dispatch, num_groups=num_groups)
     target = cache_len_for(cfg, cache_len or S)
     cache = {}
-    for leaf in ("k", "v"):
-        stacked = torch.stack([c[leaf] for c in kv])  # (n, B, Sc, KV, hd)
-        cur = stacked.shape[2]
-        if target > cur:
-            pad = stacked.new_zeros(stacked.shape[:2] + (target - cur,)
-                                    + stacked.shape[3:])
-            stacked = torch.cat([stacked, pad], dim=2)
-        cache[leaf] = stacked
+    for key, per in new.items():
+        if "ssm" in per[0]:
+            cache[key] = _stacked(per, "ssm")
+            continue
+        kv = _stacked(per, "attn")["attn"]     # (n, B, Sc, KV, hd)
+        for leaf, stacked in kv.items():
+            cur = stacked.shape[2]
+            if target > cur:
+                pad = stacked.new_zeros(stacked.shape[:2] + (target - cur,)
+                                        + stacked.shape[3:])
+                kv[leaf] = torch.cat([stacked, pad], dim=2)
+        cache[key] = {"attn": kv}
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.rms_eps)
-    return lm_head(params, cfg, h), {"pos0": {"attn": cache}}
+    return lm_head(params, cfg, h), cache
 
 
 def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
@@ -391,24 +469,27 @@ def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
     leaves (n_periods, B, S, KV, hd) whose column ``c`` holds prompt
     position ``prefix_len[b] + c``: what ``BlockPool.write(...,
     starts=, piece_col0=)`` scatters.  ``num_groups``: as in
-    :func:`prefill`."""
+    :func:`prefill`.  Attention-only models: a Mamba layer's state at
+    the suffix start cannot be rebuilt from cached K/V."""
+    if not _attention_only(cfg):
+        raise ValueError("prefill_suffix requires attention-only models")
     B, S = tokens.shape[:2]
     dev = tokens.device
     prefix_len = torch.as_tensor(prefix_len, device=dev).long()
     suffix_len = torch.as_tensor(suffix_len, device=dev).long()
     positions = prefix_len[:, None] + torch.arange(S, device=dev)[None, :]
     x = embed_tokens(params, cfg, tokens)
-    h, _, kv = _run_stack(cfg, params, x, positions, trainable=trainable,
-                          k=k, cache=cache, cache_pos=prefix_len,
-                          return_cache=True, slot_mask=slot_mask,
-                          block_table=block_table, page_span=page_span,
-                          dispatch=dispatch, suffix_readonly=True,
-                          num_groups=num_groups)
-    piece = {leaf: torch.stack([c[leaf] for c in kv]) for leaf in ("k", "v")}
+    h, _, new = _run_stack(cfg, params, x, positions, trainable=trainable,
+                           k=k, cache=cache, cache_pos=prefix_len,
+                           return_cache=True, slot_mask=slot_mask,
+                           block_table=block_table, page_span=page_span,
+                           dispatch=dispatch, suffix_readonly=True,
+                           num_groups=num_groups)
+    piece = {key: _stacked(per, "attn") for key, per in new.items()}
     col = torch.clamp(suffix_len - 1, 0, S - 1)
     last = h[torch.arange(B, device=dev), col]
     h = rms_norm(params["final_norm"], last[:, None], cfg.rms_eps)
-    return lm_head(params, cfg, h), {"pos0": {"attn": piece}}
+    return lm_head(params, cfg, h), piece
 
 
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
@@ -417,16 +498,21 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
                 return_counts: bool = False):
     """One decode step over the whole slot batch.  tokens: (B, S); pos:
     (B,) per-row positions (or a scalar).  ``S`` is normally 1; ``S > 1``
-    is the speculative verify step: the S tokens are teacher-forced at
-    positions ``pos .. pos+S-1`` against the cache (read before the
-    window's K/V are written) and logits for every window position come
-    back.  ``block_table`` (B, max_blocks) with ``page_span``: the cache
-    is the block-paged pool; without one it is the slotted rows of
-    :func:`init_cache`.  Either is written in place.  ``k``: int or
-    per-slot tuple; ``slot_mask``: (B,) 0/1 rows in use.  Returns (logits
-    (B,S,V), cache) [+ counts {pos0: (n_periods, E)}]."""
+    is the speculative verify step (attention-only models: a Mamba
+    layer's state cannot roll back to a rejected position): the S tokens
+    are teacher-forced at positions ``pos .. pos+S-1`` against the cache
+    (read before the window's K/V are written) and logits for every
+    window position come back.  ``block_table`` (B, max_blocks) with
+    ``page_span``: the attention leaves are the block-paged pool; without
+    one they are the slotted rows of :func:`init_cache`.  Mamba state
+    rows are per slot in both.  The cache is written in place.  ``k``:
+    int or per-slot tuple; ``slot_mask``: (B,) 0/1 rows in use.  Returns
+    (logits (B,S,V), cache) [+ counts {pos{j}: (n_periods, E)}]."""
     x = embed_tokens(params, cfg, tokens)
     B, S = x.shape[0], x.shape[1]
+    if S > 1 and not _attention_only(cfg):
+        raise ValueError("the S > 1 verify step requires attention-only "
+                         "models")
     pos = torch.as_tensor(pos, device=x.device)
     base = pos[:, None] if pos.dim() == 1 else pos.expand(B, 1)
     positions = base + torch.arange(S, device=x.device)[None, :]
@@ -459,52 +545,61 @@ def draft_window(cfg, params, cache, tok0: torch.Tensor, pos, draws, *,
     apart).  Attention-only models with a non-wrapping cache (the engine
     guards both).  Returns (draft logits (W, B, V) fp32, draft tokens
     (W, B)), both on the device."""
+    if not _attention_only(cfg):
+        raise ValueError("draft_window requires attention-only models")
     _check_supported(cfg)
     trainable = trainable or {}
-    lora_blocks = ((trainable.get("lora") or {}).get("blocks") or {}).get(
-        "pos0")
-    rescalers = (trainable.get("rescaler") or {}).get("pos0")
+    lora_blocks = (trainable.get("lora") or {}).get("blocks") or {}
+    rescalers = trainable.get("rescaler") or {}
     lora_scale = cfg.lora.scale if cfg.lora.enabled else 0.0
     kk = k if k is not None else cfg.moe.top_k
-    n = cfg.num_layers // cfg.pattern_period
+    P = cfg.pattern_period
+    n = cfg.num_layers // P
+    keys = [f"pos{j}" for j in range(P)]
     dev = tok0.device
     pos = torch.as_tensor(pos, device=dev).long()
     B = tok0.shape[0]
-    blocks = params["blocks"]["pos0"]
-    kv = cache["pos0"]["attn"]
-    static, win = [], []
+    # per (period, position): the read-only prefix and the window buffer
+    static, win = {}, {}
     for i in range(n):
-        if block_table is not None:
-            static.append({leaf: attn_mod.paged_gather(
-                kv[leaf][i], block_table, page_span) for leaf in ("k", "v")})
-        else:
-            static.append({leaf: kv[leaf][i] for leaf in ("k", "v")})
-        win.append({leaf: torch.zeros(
-            (B, window, cfg.n_kv_heads, cfg.head_dim_),
-            dtype=cfg.torch_dtype, device=dev) for leaf in ("k", "v")})
+        for key in keys:
+            kv = cache[key]["attn"]
+            if block_table is not None:
+                static[i, key] = {leaf: attn_mod.paged_gather(
+                    kv[leaf][i], block_table, page_span)
+                    for leaf in ("k", "v")}
+            else:
+                static[i, key] = {leaf: kv[leaf][i] for leaf in ("k", "v")}
+            win[i, key] = {leaf: torch.zeros(
+                (B, window, cfg.n_kv_heads, cfg.head_dim_),
+                dtype=cfg.torch_dtype, device=dev) for leaf in ("k", "v")}
     tok = tok0
     qs, toks = [], []
     for j in range(window):
         x = embed_tokens(params, cfg, tok)                        # (B, 1, D)
         positions = pos[:, None] + j
         for i in range(n):
-            p = _index(blocks, i)
-            lg = {} if not lora_blocks else _index(lora_blocks, i)
-            h1 = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
-            x = x + attn_mod.apply_draft_attention(
-                p["attn"], cfg, h1, positions, j, win[i], static[i], pos,
-                lora=lg.get("attn"), lora_scale=lora_scale)
-            if "moe" in p:
-                h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
-                h2, _ = moe_mod.apply_moe(
-                    p["moe"], cfg, h2, k=kk,
-                    rescaler=None if rescalers is None else rescalers[i],
-                    lora=lg.get("moe"), lora_scale=lora_scale,
-                    dispatch=dispatch)
-                x = x + h2
-            elif "ffn" in p:
-                h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
-                x = x + apply_ffn(p["ffn"], h2, lg.get("ffn"), lora_scale)
+            for key in keys:
+                p = _index(params["blocks"][key], i)
+                lb, r = lora_blocks.get(key), rescalers.get(key)
+                lg = {} if not lb else _index(lb, i)
+                h1 = rms_norm(p["mixer_norm"], x, cfg.rms_eps)
+                x = x + attn_mod.apply_draft_attention(
+                    p["attn"], cfg, h1, positions, j, win[i, key],
+                    static[i, key], pos, lora=lg.get("attn"),
+                    lora_scale=lora_scale)
+                if "moe" in p:
+                    h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
+                    h2, _ = moe_mod.apply_moe(
+                        p["moe"], cfg, h2, k=kk,
+                        rescaler=None if r is None else r[i],
+                        lora=lg.get("moe"), lora_scale=lora_scale,
+                        dispatch=dispatch)
+                    x = x + h2
+                elif "ffn" in p:
+                    h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
+                    x = x + apply_ffn(p["ffn"], h2, lg.get("ffn"),
+                                      lora_scale)
         h = rms_norm(params["final_norm"], x, cfg.rms_eps)
         logits = lm_head(params, cfg, h)[:, 0].float()
         tok = sample_fn(logits, draws[j]).to(tok0.dtype)[:, None]

@@ -19,7 +19,9 @@ One engine iteration:
 
 ``kv_layout="slotted"`` backs the slots with the monolithic
 :class:`SlotPool` instead (the reference's differential oracle: token for
-token the paged engine's).  ``sampler=SamplerConfig(kind="temperature" |
+token the paged engine's); an attention-free model (``mamba2-780m``) has
+no K/V to page and always runs on it.  Mamba layers keep their state per
+slot in either pool.  ``sampler=SamplerConfig(kind="temperature" |
 "top_p")`` samples: each draw takes its uniforms from (``seed``, request
 id, the request's event counter), so a request's tokens never depend on
 its slot, the layout or what shares its batch; the draws run on the
@@ -262,9 +264,10 @@ class ServingEngine:
     ``params`` live on the device the engine runs on (CUDA: the kernels;
     CPU: their plain versions).  ``slot_k``: per-slot expert budgets
     (default ``cfg.moe.top_k`` everywhere); requests are matched to slots
-    of their tier.  ``rescaler_by_k``: optional ``{k: {"pos0":
+    of their tier.  ``rescaler_by_k``: optional ``{k: {"pos{j}":
     (n_periods,)}}`` — each tier's FLAME s_i, applied per slot in decode
-    and per group in prefill.  ``sampler``, ``seed``, ``speculative``,
+    and per group in prefill (one entry per MoE position ``pos{j}``).
+    ``sampler``, ``seed``, ``speculative``,
     ``prefix_cache``, ``slo_ms``, ``preemption``, ``max_preemptions``,
     ``tracer``, ``metrics`` and ``expert_telemetry``: see the module
     docstring.  ``lora``: the unmerged adapter tree (``{"blocks": ...}``,
@@ -296,12 +299,16 @@ class ServingEngine:
                     else "ragged")
         if kv_layout not in ("paged", "slotted"):
             raise ValueError(f"kv_layout={kv_layout!r}: paged or slotted")
-        if prefix_cache and kv_layout != "paged":
+        # an attention-free model has no K/V to page: it runs on the
+        # slotted pool (its per-row state), as the reference's engine does
+        kinds = {cfg.layer_kind(p) for p in range(cfg.pattern_period)}
+        paged = kv_layout == "paged" and "attn" in kinds
+        if prefix_cache and not paged:
             raise ValueError(
                 "prefix_cache needs the paged KV layout (block sharing "
                 "has no meaning in the slotted pool)")
         if preemption:
-            if kv_layout != "paged":
+            if not paged:
                 raise ValueError(
                     "preemption needs the paged KV layout (swap-out "
                     "frees blocks, not whole slots)")
@@ -330,7 +337,7 @@ class ServingEngine:
         self.num_slots = num_slots
         self.slot_len = slot_len
         self.dispatch = dispatch
-        self.paged = kv_layout == "paged"
+        self.paged = paged
         self._sampler = sampler or SamplerConfig()
         self._seed = seed
         if cfg.moe.enabled:
@@ -374,6 +381,10 @@ class ServingEngine:
             self.pool = SlotPool(cfg, num_slots, slot_len,
                                  device=self.device)
         self.prefix_cache = prefix_cache
+        # suffix-only prefill for attention-only models: a Mamba layer's
+        # state is cumulative over the whole prompt, so a hybrid model's
+        # prefix hit shares blocks but prefills in full
+        self._use_suffix = prefix_cache and kinds == {"attn"}
         self.slo_ms = dict(slo_ms) if slo_ms else None
         self._preemption = preemption
         self._max_preemptions = max_preemptions
@@ -609,7 +620,7 @@ class ServingEngine:
                                          tid=req.rid, cat="preempt",
                                          args={"slot": slot})
                 continue
-            if self.prefix_cache:
+            if self._use_suffix:
                 L = req.prompt_len
                 covered, ready = self.pool.attach_prefix(
                     slot, req.prompt, L, _tier_salt(self.slot_k[slot]))
@@ -655,13 +666,20 @@ class ServingEngine:
                     slot_mask=real, dispatch=self.dispatch,
                     num_groups=self._groups(len(prompts)))
                 logits = logits[:nb, 0].float()
-                # under the prefix cache the match/attach/alloc already
-                # ran: scatter past the matched span only (a same-pass
-                # duplicate recomputes its prompt but must not rewrite the
-                # shared blocks it attached)
-                self.pool.write(slots, cache, [width] * nb,
-                                starts=([cov for _, _, _, cov in items]
-                                        if self.prefix_cache else None))
+                # under suffix prefill the match/attach/alloc already ran:
+                # scatter past the matched span only (a same-pass duplicate
+                # recomputes its prompt but must not rewrite the shared
+                # blocks it attached); a hybrid model's pool matches,
+                # attaches and indexes the prompts itself
+                if self._use_suffix:
+                    self.pool.write(slots, cache, [width] * nb,
+                                    starts=[cov for _, _, _, cov in items])
+                else:
+                    self.pool.write(
+                        slots, cache, [width] * nb,
+                        tokens=([r.prompt for r, _, _, _ in items]
+                                if self.prefix_cache else None),
+                        salt=_tier_salt(kk))
                 report.prefill_tokens += nb * width
                 targs = {"batch": nb, "prompt_len": width}
             actives = [_ActiveSlot(req=req, tokens=[], nll=0.0,

@@ -35,6 +35,12 @@ memory and releases the row (blocks and reservation), and
 :meth:`BlockPool.swap_in` restores them bit for bit into a freshly
 reserved row.
 
+Mamba (SSM) positions keep O(1) state per request, so both pools hold it
+per row (``{"ssm": {"conv", "ssm"}}``, fp32, leading n_periods axis):
+:meth:`SlotPool.write` and :meth:`BlockPool.write` install a prefilled
+row (the reference's ``put_rows``), swaps carry it, and byte counts add
+it beside the attention K/V.
+
 Device writes are in place: :meth:`BlockPool.write` scatters with one
 ``index_put_`` per leaf and segment, a copy-on-write is one ``copy_`` per
 leaf, all on the current stream, whose order puts them before the decode
@@ -145,9 +151,28 @@ class _RowPool:
         return int(self.cache_pos[slot]) >= self.attn_len
 
     def kv_bytes(self) -> int:
-        """Device bytes held by the pool's cache tree."""
+        """Device bytes held by the pool's cache tree (attention K/V and
+        Mamba state rows)."""
         return sum(leaf.numel() * leaf.element_size()
-                   for c in self.cache.values() for leaf in c["attn"].values())
+                   for c in self.cache.values() for part in c.values()
+                   for leaf in part.values())
+
+    def row_bytes(self) -> int:
+        """Device bytes of the Mamba state rows (every slot's, always
+        resident)."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for c in self.cache.values() if "ssm" in c
+                   for leaf in c["ssm"].values())
+
+    def _put_rows(self, idx: torch.Tensor, piece: PyTree, n: int) -> None:
+        """Install the first ``n`` rows of ``piece``'s Mamba state into
+        rows ``idx``, cast to the pool's dtype (the reference's
+        ``put_rows``)."""
+        for pos_key, c in self.cache.items():
+            if "ssm" in c:
+                for leaf, rows in c["ssm"].items():
+                    rows[:, idx] = piece[pos_key]["ssm"][leaf][:, :n].to(
+                        rows.dtype)
 
     def publish(self, reg) -> None:
         """Set pool gauges on ``reg`` (a MetricsRegistry); the engine
@@ -186,8 +211,9 @@ class SlotPool(_RowPool):
         slots = [int(s) for s in slots]
         self._require_live(slots)
         idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        self._put_rows(idx, piece, len(slots))
         for pos_key, c in self.cache.items():
-            for leaf, rows in c["attn"].items():
+            for leaf, rows in c.get("attn", {}).items():
                 src = piece[pos_key]["attn"][leaf][:, :len(slots)]
                 n = min(src.shape[2], self.attn_len)
                 block = rows.new_zeros((rows.shape[0], len(slots))
@@ -368,7 +394,7 @@ class BlockPool(_RowPool):
     def _copy_block(self, src: int, dst: int) -> None:
         """One block's K/V copied in place on the device, per leaf."""
         for c in self.cache.values():
-            for leaf in c["attn"].values():
+            for leaf in c.get("attn", {}).values():
                 leaf[:, dst].copy_(leaf[:, src])
 
     def _cow(self, slot: int, idx: int) -> None:
@@ -624,8 +650,9 @@ class BlockPool(_RowPool):
 
     # ----------------------------------------------------------- preemption
     def swap_out(self, slot: int) -> Dict[str, Any]:
-        """Preempt a live row: copy its allocated blocks' K/V to host
-        memory, then release the row, blocks and reservation and all.
+        """Preempt a live row: copy its allocated blocks' K/V and its Mamba
+        state rows to host memory, then release the row, blocks and
+        reservation and all.
         The copy is stream-ordered after every queued write to those
         blocks and waits for them.  Each block's prefix key rides along,
         so :meth:`swap_in` re-registers the row's prompt blocks."""
@@ -638,9 +665,13 @@ class BlockPool(_RowPool):
         idx = torch.as_tensor(bids, device=self.device)
         blocks = {pos: {name: leaf[:, idx].cpu()
                         for name, leaf in c["attn"].items()}
-                  for pos, c in self.cache.items()}
+                  for pos, c in self.cache.items() if "attn" in c}
+        # a copy even on a CPU pool, where .cpu() of a view is the view
+        rows = {pos: {name: leaf[:, slot].to("cpu", copy=True)
+                      for name, leaf in c["ssm"].items()}
+                for pos, c in self.cache.items() if "ssm" in c}
         state = {"cache_pos": int(self.cache_pos[slot]), "n_blocks": n,
-                 "attn": blocks, "ssm": {}, "keys": keys}
+                 "attn": blocks, "ssm": rows, "keys": keys}
         self.swap_outs += 1
         self.release(slot)
         return state
@@ -661,8 +692,11 @@ class BlockPool(_RowPool):
         idx = torch.as_tensor(self.block_table[slot, :n].astype(np.int64),
                               device=self.device)
         for pos, c in self.cache.items():
-            for name, leaf in c["attn"].items():
+            for name, leaf in c.get("attn", {}).items():
                 leaf[:, idx] = state["attn"][pos][name].to(leaf.device,
+                                                           leaf.dtype)
+            for name, leaf in c.get("ssm", {}).items():
+                leaf[:, slot] = state["ssm"][pos][name].to(leaf.device,
                                                            leaf.dtype)
         self.cache_pos[slot] = state["cache_pos"]
         if self.prefix_cache:
@@ -689,7 +723,8 @@ class BlockPool(_RowPool):
         """Install freshly prefilled caches into ``slots``, in place.
 
         ``piece``: a contiguous cache tree (what ``model.prefill``
-        returns), batch ``>= len(slots)`` on axis 1; ``lengths``: per-slot
+        returns), batch ``>= len(slots)`` on axis 1 (extra rows are
+        ignored); Mamba state rows install per row.  ``lengths``: per-slot
         prompt length (the first decode position).  ``tokens`` (per-slot
         prompt ids, for prefix caching): each prompt is matched against
         the block index first, matched blocks are attached instead of
@@ -736,10 +771,12 @@ class BlockPool(_RowPool):
                          torch.as_tensor(offs, dtype=torch.int64,
                                          device=self.device)))
         for pos_key, c in self.cache.items():
-            for leaf, pool in c["attn"].items():
+            for leaf, pool in c.get("attn", {}).items():
                 src = piece[pos_key]["attn"][leaf]
                 for a, b, js, blks, offs in segs:
                     pool[:, blks, offs] = src[:, js, a:b].to(pool.dtype)
+        self._put_rows(torch.as_tensor(slots, dtype=torch.int64,
+                                       device=self.device), piece, len(slots))
         self.cache_pos[np.asarray(slots)] = np.asarray(lengths, np.int32)
         # the scatter materialised every registration these rows left
         # pending: later passes may read those pages
@@ -751,4 +788,11 @@ class BlockPool(_RowPool):
     def block_bytes(self) -> int:
         """Device bytes of one block across all attention leaves."""
         return sum(leaf[:, 0].numel() * leaf.element_size()
-                   for c in self.cache.values() for leaf in c["attn"].values())
+                   for c in self.cache.values() if "attn" in c
+                   for leaf in c["attn"].values())
+
+    def peak_kv_bytes(self) -> int:
+        """High-watermark of device bytes holding live pages, plus the
+        Mamba state rows (always resident); a block shared by N rows
+        counts once."""
+        return self.peak_blocks * self.block_bytes() + self.row_bytes()

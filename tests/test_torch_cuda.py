@@ -78,6 +78,8 @@ _ROUTER_CASES = [(E, k) for E in (8, 33, 64, 128, 512)
                  for k in sorted({0, 1, 2, 8, E})]
 # qwen2-moe-a2.7b: 60 experts, two per lane with the last lane's empty
 _ROUTER_CASES += [(60, 4), (60, 60)]
+# jamba-v0.1-52b: 16 experts at top-2, half a lane's worth
+_ROUTER_CASES += [(16, 2), (16, 16)]
 
 
 @pytest.mark.parametrize("dtype", _DTYPES)
@@ -177,6 +179,8 @@ _FLASH_CASES = [(256, 16, 16, 128, 0, 0), (100, 8, 2, 64, 0, 0),
 # 64/8 (chameleon), and a 1024-token training sequence
 _FLASH_CASES += [(256, 24, 8, 128, 0, 0), (256, 48, 1, 128, 0, 0),
                  (130, 64, 8, 128, 0, 0), (1024, 16, 16, 128, 0, 0)]
+# jamba-v0.1-52b's attention layers: GQA 32/8, D = 128
+_FLASH_CASES += [(128, 32, 8, 128, 0, 0), (256, 32, 8, 128, 0, 0)]
 # the tile edges of the tensor-core kernel (64-query blocks, 64-key tiles)
 _FLASH_CASES += [(S, 8, KV, D, window, 0) for S in (1, 63, 65, 128, 256)
                  for D in (32, 64, 128) for KV in (8, 2) for window in (0, 16)]
@@ -538,7 +542,14 @@ def test_cuda_ragged_expert_matmul_matches_plain(cuda, dtype, kind, K, H, r):
                                      (37, 128, 512, 64), (2047, 256, 384, 20),
                                      (2047, 100, 77, 4), (37, 2048, 256, 20),
                                      (1, 100, 77, 20), (2048, 2048, 8192, 40),
-                                     (2048, 8192, 2048, 40)])
+                                     (2048, 8192, 2048, 40),
+                                     # the Mamba projections: mamba2-780m's
+                                     # in_proj (N = 6448 ends in a partial
+                                     # tile; HLoRA's rank 5 is odd) and
+                                     # out_proj, jamba's in_proj
+                                     (8, 1536, 6448, 16), (2048, 1536, 6448, 5),
+                                     (256, 3072, 1536, 10),
+                                     (2048, 4096, 16768, 16)])
 def test_cuda_lora_matmul_matches_plain(cuda, dtype, M, K, N, r):
     x, w, a, b = _lora_operands(cuda, (), M, K, N, r, dtype)
     before = _build.LAUNCHES["lora_matmul"]
@@ -555,7 +566,10 @@ def test_cuda_lora_matmul_matches_plain(cuda, dtype, M, K, N, r):
                                        (2, 1, 64, 64, 1), (2, 48, 256, 128, 20),
                                        (2, 328, 128, 256, 64),
                                        (3, 41, 100, 77, 20),
-                                       (2, 168, 512, 264, 4)])
+                                       (2, 168, 512, 264, 4),
+                                       # jamba's experts at the k = 2
+                                       # client's capacity (w1)
+                                       (16, 320, 4096, 14336, 16)])
 def test_cuda_lora_matmul_experts_matches_plain(cuda, dtype, E, C, K, N, r):
     x, w, a, b = _lora_operands(cuda, (E,), C, K, N, r, dtype)
     before = _build.LAUNCHES["lora_matmul_experts"]
@@ -1066,3 +1080,92 @@ def test_cuda_device_driver_matches_host_driver(cuda, tmp_path):
     for a, b in zip(ds.clients, hs.clients):
         torch.testing.assert_close(a.rescaler["pos0"], b.rescaler["pos0"],
                                    rtol=2e-5, atol=1e-6)
+
+
+_SSM_ARCHS = ["mamba2-780m", "jamba-v0.1-52b"]
+
+
+@pytest.mark.parametrize("layout", ["paged", "slotted"])
+@pytest.mark.parametrize("arch", _SSM_ARCHS)
+def test_cuda_ssm_engines_match_cpu_engine(cuda, arch, layout):
+    """The SSM and hybrid SMOKE configs at float32 with a rank-4 adapter
+    served unmerged: the engine on the card emits the CPU engine's greedy
+    tokens on both layouts (the attention-free arch on the slotted pool
+    under either); mamba2 launches ``lora_matmul`` only (its in and out
+    projections), jamba also flash and the MoE serving kernels."""
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
+    params = tmodel.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    lora = tlora.init_lora(torch.Generator().manual_seed(1), cfg, params)
+    g = torch.Generator().manual_seed(2)
+    lora = {"blocks": {k: _map_b(v, g) for k, v in lora["blocks"].items()}}
+    kw = dict(num_slots=4, slot_len=40, block_size=4, kv_layout=layout)
+    tiers = (None,)
+    if cfg.moe.enabled:
+        kw["slot_k"] = tiers = (2, 2, 1, 1)
+    rng = np.random.default_rng(1)
+    reqs = [(rng.integers(0, cfg.vocab_size, (int(rng.integers(1, 30)),))
+             .astype(np.int32), tiers[i % len(tiers)]) for i in range(6)]
+
+    def run(p, lr):
+        eng = ServingEngine(cfg, p, lora=lr, **kw)
+        assert eng.paged == (layout == "paged" and arch != "mamba2-780m")
+        return eng.run([Request(rid=i, prompt=pr, max_new_tokens=6, k=k)
+                        for i, (pr, k) in enumerate(reqs)]).tokens_by_rid()
+
+    cpu = run(params, lora)
+    _build.reset_launches()
+    gpu = run(_to(params, cuda), _to(lora, cuda))
+    for name, n in _build.LAUNCHES.items():
+        used = name == "lora_matmul" or (
+            cfg.moe.enabled and name != "lora_matmul_experts")
+        assert (n > 0) if used else (n == 0), (name, _build.LAUNCHES)
+    for rid in cpu:
+        np.testing.assert_array_equal(gpu[rid], cpu[rid], err_msg=f"rid {rid}")
+
+
+def test_cuda_apply_mamba_matches_cpu(cuda):
+    """The Mamba-2 block on the card against the CPU on the same weights
+    (mamba2-smoke widths): a 129-token prefill (chunk 43), a 20-token
+    continuation and 4 decode steps from its state, with the LoRA
+    projections, float32: outputs and states within 1e-4 (summation
+    order only)."""
+    from repro_torch.models import mamba2
+    dtype = torch.float32
+    cfg = get_config("mamba2-780m", "smoke").replace(dtype="float32")
+    p = {k: v[0] for k, v in mamba2.init_mamba(
+        cfg, 1, torch.Generator().manual_seed(0), "cpu").items()}
+    d = mamba2.mamba_dims(cfg)
+    g = torch.Generator().manual_seed(1)
+    lora = {n: {"a": (torch.randn(k, 4, generator=g) * k ** -0.5).to(dtype),
+                "b": (torch.randn(4, m, generator=g) * 0.05).to(dtype)}
+            for n, k, m in (("in_proj", cfg.d_model, d["in_dim"]),
+                            ("out_proj", d["d_inner"], cfg.d_model))}
+    x = torch.randn(2, 153, cfg.d_model, generator=g).to(dtype)
+
+    def run(dev):
+        pp, lr = _to(p, dev), _to(lora, dev)
+        kw = dict(lora=lr, lora_scale=cfg.lora.scale)
+        xs = x.to(dev)
+        outs, states = [], []
+        o, c = mamba2.apply_mamba(pp, cfg, xs[:, :129], return_cache=True,
+                                  **kw)
+        outs.append(o)
+        o, c = mamba2.apply_mamba(pp, cfg, xs[:, 129:149], cache=c,
+                                  return_cache=True, **kw)
+        outs.append(o)
+        states.append(c)
+        c = {"conv": c["conv"].float(), "ssm": c["ssm"]}
+        for t in range(149, 153):
+            o, c = mamba2.apply_mamba(pp, cfg, xs[:, t:t + 1], cache=c, **kw)
+            outs.append(o)
+        states.append(c)
+        return torch.cat(outs, 1).cpu(), [_to(s, "cpu") for s in states]
+
+    cpu, cpu_st = run("cpu")
+    _build.reset_launches()
+    gpu, gpu_st = run(cuda)
+    assert _build.LAUNCHES["lora_matmul"] == 2 * 6
+    torch.testing.assert_close(gpu, cpu, rtol=1e-4, atol=1e-4)
+    for a, b in zip(gpu_st, cpu_st):
+        for leaf in ("conv", "ssm"):
+            torch.testing.assert_close(a[leaf], b[leaf], rtol=1e-4, atol=1e-4)

@@ -72,8 +72,8 @@ def test_configs_match_the_reference():
 
 
 def test_registry_names_the_later_slice_for_unported_archs():
-    with pytest.raises(KeyError, match="SSM slice"):
-        tconfigs.get_config("mamba2-780m")
+    with pytest.raises(KeyError, match="audio-codebook slice"):
+        tconfigs.get_config("musicgen-large")
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
 

@@ -62,11 +62,15 @@ def _np_lora():
 @pytest.mark.parametrize("arch", tconfigs.list_archs())
 def test_swa_config_matches_the_reference(arch):
     got, want = treg.get_config(arch, "swa"), jreg.get_config(arch, "swa")
-    assert got.attention_window == want.attention_window == 8192
+    # an attention-free arch is natively sub-quadratic: no window, and its
+    # long-context variant is "full"
+    ssm = got.family == "ssm"
+    assert got.attention_window == want.attention_window == (
+        0 if ssm else 8192)
     assert got == config_from_jax(want)
     assert treg.supports_long_context(arch) == jreg.supports_long_context(arch)
     assert (treg.long_context_variant(arch)
-            == jreg.long_context_variant(arch) == "swa")
+            == jreg.long_context_variant(arch) == ("full" if ssm else "swa"))
 
 
 # --------------------------------------------------------------------------
