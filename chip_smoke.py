@@ -4,8 +4,9 @@ federated training round, checkpoints and resume, the three baselines,
 the serving engine's traffic layer, self-speculative decoding, LoRA
 serving (the federated adapter unmerged), the registry's other archs,
 the single-device train step, the device round driver, the
-sliding-window ``swa`` variant and the SSM and hybrid families
-(``mamba2-780m``, ``jamba-v0.1-52b``) — on one NVIDIA GPU.
+sliding-window ``swa`` variant, the SSM and hybrid families
+(``mamba2-780m``, ``jamba-v0.1-52b``), audio codebooks (``musicgen-large``)
+and the attention logit softcap — on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -221,7 +222,36 @@ nothing else of the network or the filesystem.  Phases:
    14,336 held and timed; both: tokens/s, decode and prefill p50,
    s/round, peak memory, the SSM state rows' bytes and the plain SSD's
    time per layer at prefill;
-18. summary — a ``{"kernels": [...]}`` line, then the last line
+19. audio codebooks and the logit softcap — ``musicgen-large`` FULL (48
+   layers, d_model 2048, MHA 32/32 at head_dim 64, d_ff 8192, 4 codebooks
+   of 2048 tokens; 3.255 B parameters, uncut): (b) ``launch/steps.py``
+   ``build_train`` at train_4k's 4096 tokens, the global batch cut from
+   256 to 8, on (B, S, 4) codebook tokens: knobs, loss at step 0 near
+   ln 2048, s/step, tokens/s, peak against the chooser's estimate; (c) on
+   a 4-codebook corpus at V = 2048: one FLAME round (8 clients, batch 16 x
+   128) on the host and on the device round driver, bit-equal, and one
+   HLoRA round at ranks 16/10/6/5 (s/step, s/round, peak); (d) 2 layers
+   at full width in float32: the codebook loss and every adapter leaf's
+   gradient on the card against the CPU's plain path (relative L2); (e)
+   OLMoE at full width and 2 layers with ``attn_logit_softcap`` = 50 and
+   its QK norms' gains times 8 (scores of tens, so the cap acts), bf16:
+   served on the paged and the slotted pool (8 requests, tokens equal,
+   flash once per layer and prefill call) and without the cap (other tokens); every
+   kernel call of one prefill call and one decode step against its plain
+   version (each flash call also missing the uncapped plain version); in
+   float32 a prefill through the kernels against the plain versions,
+   greedy speculative and plain decode equal on both pools, and one
+   request's engine tokens equal greedy by whole prefills; (a) flash at
+   MHA 32/32, D = 64 (B = 16, S = 128 and the train step's microbatch at
+   S = 4096) without and with a cap of 50, at row 2's shape and row 2W's
+   window with the cap, and at the capped serve's prefill call, and
+   ``lora_matmul`` at M = 2048 for 2048 -> 2048, 2048 -> 8192 and 8192 ->
+   2048 at r = 16 and 5, each held against its plain version and timed
+   beside its bound and the library call (SDPA; compiled
+   ``flex_attention`` with a tanh ``score_mod`` for a cap or a window;
+   the LoRA matmul's base product); launches from the run that gave the
+   shape, 0 where no path launches it;
+20. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
@@ -1071,7 +1101,13 @@ def main() -> int:
     # ------------------------------------------------ 17. SSM and hybrid
     rows += ssm_phase(torch, dev, check, kc)
 
-    # ------------------------------------------------ 18. summary
+    # ------------------------------------------------ 19. audio codebooks,
+    #                                                    logit softcap
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows += audio_softcap_phase(torch, dev, check, kc)
+
+    # ------------------------------------------------ 20. summary
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1220,8 +1256,8 @@ def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T,
             check(q.shape[1] == cfg.n_heads and k.shape[1] == cfg.n_kv_heads,
                   f"{tag}: heads {q.shape[1]}/{k.shape[1]}")
             err = close(out, ref.flash_attention_ref(
-                q, k, v, causal=kw["causal"],
-                window=kw["window"]).transpose(1, 2), tag)
+                q, k, v, causal=kw["causal"], window=kw["window"],
+                softcap=kw["softcap"]).transpose(1, 2), tag)
         elif name in ("router", "adaptive_router"):
             check(a[0].shape == (T, cfg.moe.num_experts),
                   f"{tag} at {tuple(a[0].shape)}")
@@ -1242,9 +1278,43 @@ def _check_arch_calls(torch, cfg, calls, check, kc, what, prefill, T,
     return worst
 
 
+_FLEX = {}
+
+
+def _flex_call(torch, q, k, v, causal, window, softcap):
+    """torch's ``flex_attention``, compiled at fixed shapes, on (B, H, S, D)
+    inputs: the cap as a ``score_mod`` (``softcap·tanh(s / softcap)`` after
+    the scale), the causal band as a ``block_mask``.  The library call that
+    computes a capped or windowed flash.  Returns it without arguments."""
+    from torch.nn.attention import flex_attention as fa
+    if "fn" not in _FLEX:
+        import torch._inductor.config as inductor
+        inductor.compile_threads = 1      # no compile workers to outlive us
+        _FLEX["fn"] = torch.compile(fa.flex_attention, dynamic=False)
+    S = q.shape[2]
+
+    def band(b, h, qi, ki):
+        keep = qi >= ki
+        return keep & (qi - ki < window) if window > 0 else keep
+
+    def cap(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = (fa.create_block_mask(band, None, None, S, S, device=q.device)
+            if causal else None)
+    gqa = k.shape[1] != q.shape[1]
+    return lambda: _FLEX["fn"](q, k, v, score_mod=cap if softcap > 0
+                               else None, block_mask=mask, enable_gqa=gqa)
+
+
 def _time_flash(torch, call, kc):
     """A recorded flash call ((B, S, H, D) model layout): (ms, plain ms,
-    bytes, FLOPs, SDPA ms on contiguous (B, H, S, D) copies)."""
+    bytes, FLOPs, library ms, library name).  The FLOPs: 4·D on the tensor
+    cores for each (query, key) pair the causal mask and the window keep,
+    and with a cap its two fp32 operations a pair at their bf16-peak
+    equivalent.  The library: SDPA on contiguous (B, H, S, D) copies, or
+    with a cap or a window compiled ``flex_attention``, first held
+    against the plain version (``kc["close"]``)."""
     import torch.nn.functional as F
     from repro_torch.kernels import backend, ref
     t = kc["time_ms"]
@@ -1252,13 +1322,29 @@ def _time_flash(torch, call, kc):
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     B, H, S, D = qt.shape
     KV = kt.shape[1]
+    w, cap = kw.get("window", 0), kw.get("softcap", 0.0)
+    pairs = (S * (S + 1) // 2 if w <= 0 or w >= S
+             else w * (w + 1) // 2 + (S - w) * w)
+    flops = 4.0 * D * B * H * pairs
+    if cap > 0:
+        flops += 2.0 * B * H * pairs * BF16_FLOPS / F32_FLOPS
     qc, kc_, vc = (x.contiguous() for x in (qt, kt, vt))
+    if cap > 0 or 0 < w < S:
+        lib = _flex_call(torch, qc, kc_, vc, kw.get("causal", True), w, cap)
+        what = (f"flex_attention, compiled{'; tanh score_mod' if cap else ''}"
+                f"{'; band block_mask' if 0 < w < S else '; causal block_mask'}")
+        kc["close"](lib(), ref.flash_attention_ref(qt, kt, vt, **kw),
+                    f"{what} B={B} S={S} H={H} D={D}")
+    else:
+        what = "scaled_dot_product_attention"
+
+        def lib():
+            return F.scaled_dot_product_attention(
+                qc, kc_, vc, is_causal=True, enable_gqa=KV != H)
     return (t(lambda: backend.flash_attention(q, k, v, **kw)),
             t(lambda: ref.flash_attention_ref(qt, kt, vt, **kw)),
             (2 * B * H * S * D + 2 * B * KV * S * D) * q.element_size(),
-            4.0 * D * B * H * S * (S + 1) // 2,
-            t(lambda: F.scaled_dot_product_attention(
-                qc, kc_, vc, is_causal=True, enable_gqa=KV != H)))
+            flops, t(lib), what)
 
 
 def _lora_shape_rows(torch, dev, kc, what, shapes, launches, seed,
@@ -1375,7 +1461,7 @@ def _arch_kernel_rows(torch, arch, cfg, params, tiers, launches, check,
               f"{part} " + (", ".join(f"{n} {e:.3e}" for n, e in w.items())
                             or "no kernel") for part, w in worst.items()))
     rows = []
-    f_ms, f_pl, f_nb, f_fl, f_lib = _time_flash(
+    f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(
         torch, next(c for c in pre if c[0] == "flash_attention"), kc)
     shape = f"H={cfg.n_heads} KV={cfg.n_kv_heads} S=256 B=1 D={cfg.head_dim_}"
     kind = {"phi4-mini-3.8b": "GQA 3", "granite-20b": "MQA",
@@ -1385,8 +1471,7 @@ def _arch_kernel_rows(torch, arch, cfg, params, tiers, launches, check,
                          "flash_attention.cu", "flash_attention.py:92",
                          worst["prefill"]["flash_attention"], f_ms, f_pl,
                          bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
-                         launches["flash_attention"],
-                         "scaled_dot_product_attention"))
+                         launches["flash_attention"], f_what))
     else:
         print(f"archs {arch}: flash layer 0 ({shape}) {f_ms:.4f} ms (plain "
               f"{f_pl:.4f}, SDPA {f_lib:.4f}, bound "
@@ -1614,11 +1699,11 @@ def train_step_phase(torch, dev, check, kc):
                       _plain_versions(torch, lambda: backend.flash_attention(
                           q, k, v, causal=True, window=0)),
                       "flash S=4096")
-    f_ms, f_pl, f_nb, f_fl, f_lib = _time_flash(torch, call, kc)
+    f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(torch, call, kc)
     row = _row(f"flash_attention (S={S}, OLMo-1.3B train step, B=1 H=16 "
                f"D=128)", "flash_attention.cu", "flash_attention.py:92", err,
                f_ms, f_pl, bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
-               launches["flash_attention"], "scaled_dot_product_attention")
+               launches["flash_attention"], f_what)
     del q, k, v, call
 
     # build_prefill / build_serve at a small shape, the card's kernels
@@ -1957,7 +2042,7 @@ def swa_phase(torch, cfg, params, dev, check, kc):
 
     # layer 0's flash call of the 12,288-token prefill (paged run)
     q, k, v, kw, out = layer0.pop("call")
-    check(kw == {"causal": True, "window": w},
+    check(kw == {"causal": True, "window": w, "softcap": 0.0},
           f"swa prefill flash called with {kw}")
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     B, H, S, D = qt.shape
@@ -2376,6 +2461,463 @@ def ssm_phase(torch, dev, check, kc):
     gc.collect()
     torch.cuda.empty_cache()
     print(f"ssm phase: {time.perf_counter() - t_phase:.1f} s")
+    return rows
+
+
+AUDIO_CAP = 50.0        # Gemma 2's attn_logit_softcapping
+AUDIO_TRAIN_BATCH = 8   # train_4k's global batch of 256 cut, as phase 14's
+
+
+def _audio_train_step(torch, cfg, params, dev, check):
+    """(b) ``launch/steps.py`` ``build_train`` on ``musicgen-large`` FULL at
+    train_4k's 4096 tokens, the global batch cut from 256 to 8, (B, S, 4)
+    codebook tokens: after a one-sequence warm-up, one step with the counts
+    zeroed just before and read just after.  Returns (the launches, the
+    microbatch the step gives flash)."""
+    from repro_torch.configs import INPUT_SHAPES, ShapeConfig
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.kernels import _build
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.optim import adam
+    S, B = INPUT_SHAPES["train_4k"].seq_len, AUDIO_TRAIN_BATCH
+    lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(32),
+                              cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    for _, pair in _pairs(lora):          # b off zero: every factor moves
+        pair["b"] = (torch.randn(pair["b"].shape, generator=gen, device=dev)
+                     * 0.01).to(pair["b"].dtype)
+    batch_gen = torch.Generator(device=dev).manual_seed(34)
+    one = ShapeConfig("train_4k_b1", S, 1, "train")
+    warm = steps.build_train(cfg, one, device=dev)
+    tr = {"lora": lora}
+    warm.fn(params, tr, adam.init(tr), *synthetic_batch(cfg, one, batch_gen,
+                                                        dev))
+    shape = ShapeConfig("train_4k_cut", S, B, "train")
+    bundle = steps.build_train(cfg, shape, device=dev)
+    meta = bundle.meta
+    estimate = (meta["param_bytes"] + 4 * meta["trainable_bytes"]
+                + meta["act_bytes"])
+    batch = synthetic_batch(cfg, shape, batch_gen, dev)
+    check(tuple(batch[0].shape) == (B, S, cfg.num_codebooks)
+          and tuple(batch[2].shape) == (B, S),
+          f"audio train batch shapes {[tuple(t.shape) for t in batch]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, opt, m = bundle.fn(params, tr, adam.init(tr), *batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    # random weights: the logits are Gaussian with variance 0.02²·d_model
+    # (the head's N(0, 0.02) weights on unit-rms hidden states), so the
+    # loss expected at step 0 is ln V plus half that variance
+    ln_v = float(np.log(cfg.vocab_size))
+    want = ln_v + 0.02 ** 2 * cfg.d_model / 2
+    print(f"audio train step: {cfg.name} FULL ({cfg.num_layers} layers), "
+          f"S={S}, global batch {B} (train_4k takes 256), K="
+          f"{cfg.num_codebooks} codebooks; knobs {json.dumps(meta)}")
+    print(f"audio train step: loss {loss:.4f} at step 0 (ln {cfg.vocab_size}"
+          f" = {ln_v:.4f}, + 0.02²·d_model/2 = {want:.4f}), {dt:.3f} s/step, {B * S / dt:.1f} tokens/s, peak "
+          f"{peak / 2 ** 30:.2f} GiB against the chooser's estimate "
+          f"{estimate / 2 ** 30:.2f} GiB (parameters "
+          f"{meta['param_bytes'] / 2 ** 30:.2f}, adapters with their "
+          f"gradient sum and Adam moments "
+          f"{4 * meta['trainable_bytes'] / 2 ** 30:.2f}, a microbatch's "
+          f"activations {meta['act_bytes'] / 2 ** 30:.2f}), launches "
+          f"{json.dumps(launches)}")
+    check(np.isfinite(loss) and abs(loss - want) <= 0.01 * want,
+          f"audio train step loss {loss} not within 1% of {want:.4f}")
+    check(opt.step == 1, f"Adam step {opt.step} after one step")
+    for name, n in launches.items():
+        used = name in ("lora_matmul", "flash_attention")
+        check((n > 0) if used else (n == 0),
+              f"audio train step launches {launches}")
+    return launches, B // meta["n_micro"]
+
+
+def _audio_rounds(torch, cfg, params, dev, check):
+    """(c) Federated rounds at FULL on a 4-codebook corpus at V = 2048:
+    one FLAME round (8 clients, batch 16 x 128) on the host and on the
+    device round driver from the same start, bit-equal (global adapter and
+    client losses); one HLoRA round of 4 clients at ranks 16/10/6/5.
+    Counts zeroed just before each run and read just after.  Returns the
+    host FLAME run's and the HLoRA run's launches."""
+    import dataclasses
+
+    from repro_torch.configs import FederatedConfig, TrainConfig
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.federated import client as client_lib
+    from repro_torch.federated.simulation import build_experiment
+    from repro_torch.kernels import _build
+    tc = TrainConfig()
+    data = DataConfig(vocab_size=cfg.vocab_size, n_examples=320,
+                      seq_len=128, num_codebooks=cfg.num_codebooks)
+    runs = {}
+    for what, fed in (
+            ("flame host", FederatedConfig(num_clients=8, rounds=1)),
+            ("flame device", FederatedConfig(num_clients=8, rounds=1,
+                                             round_driver="device")),
+            ("hlora", FederatedConfig(num_clients=4, rounds=1,
+                                      method="hlora"))):
+        exp = build_experiment(cfg, fed=fed, tc=tc, data=data,
+                               base_params=params, device=dev)
+        srv = exp.server
+        c0 = srv.clients[0]
+        check(c0.shard.tokens.shape[1:] == (128, cfg.num_codebooks),
+              f"audio corpus shape {c0.shard.tokens.shape}")
+        if fed.method == "hlora":
+            got = [c.rank for c in srv.clients]
+            check(got == [16, 10, 6, 5], f"audio HLoRA ranks {got}")
+        steps = sum(client_lib.make_batch_plan(c, tc, fed.seed * 1000)
+                    .n_steps for c in srv.clients)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        hist = srv.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        losses = hist[0].client_losses
+        check(len(hist) == 1 and all(np.isfinite(losses)),
+              f"audio {what} round losses {losses}")
+        check(all(np.isfinite(x.float().cpu().numpy()).all()
+                  for x in _leaves(srv.global_lora)),
+              f"audio {what}: the aggregated adapter is not finite")
+        for name, n in launches.items():
+            used = name in ("lora_matmul", "flash_attention")
+            check((n > 0) if used else (n == 0),
+                  f"audio {what} launches {launches}")
+        print(f"audio {what} round: clients (rank, examples) "
+              + ", ".join(f"({c.rank}, {c.dataset_size})"
+                          for c in srv.clients)
+              + f", {steps} steps in {dt:.3f} s ({dt / max(steps, 1):.3f} "
+              f"s/step; s/round {dt:.3f}), losses "
+              f"{[round(x, 4) for x in losses]}, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+              f"launches {json.dumps(launches)}")
+        runs[what] = (srv, losses, launches)
+        del exp
+    (hs, hl, hn), (ds, dl, dn) = runs["flame host"], runs["flame device"]
+    check(hn == dn, f"audio drivers differ in launches: {hn} / {dn}")
+    check(hl == dl, f"audio drivers' client losses differ: {hl} / {dl}")
+    same = all(torch.equal(a, b) for (_, a), (_, b) in
+               zip(_paths(hs.global_lora), _paths(ds.global_lora)))
+    check(same, "audio device driver's global adapter is not bit-equal to "
+          "the host driver's")
+    print("audio flame device vs host driver: client losses and the global "
+          "adapter bit-equal")
+    out = runs["flame host"][2], runs["hlora"][2]
+    del runs, hs, ds
+    return out
+
+
+def _audio_e2e(torch, cfg, dev, check):
+    """(d) ``musicgen-large`` at full width and 2 layers, float32: the
+    codebook loss and every adapter leaf's gradient on the card against
+    the CPU's plain path, same weights, adapter (b off zero) and (B, S, K)
+    batch."""
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.models import model as model_lib
+    c32 = cfg.replace(num_layers=2, dtype="float32")
+    params = model_lib.init_params(c32, torch.Generator().manual_seed(35),
+                                   "cpu")
+    lora = lora_lib.init_lora(torch.Generator().manual_seed(36), c32, params)
+    gen = torch.Generator().manual_seed(37)
+    for path, leaf in _paths(lora):
+        if path[-1] == "b":
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.02)
+    rng = np.random.default_rng(38)
+    tok = torch.as_tensor(rng.integers(0, c32.vocab_size,
+                                       (2, 64, c32.num_codebooks)))
+    lab = torch.roll(tok, -1, dims=1)
+    msk = torch.as_tensor((rng.random((2, 64)) > 0.2).astype(np.float32))
+
+    def fresh(tree, device):
+        """Leaf copies on ``device`` that require grad (never the CPU
+        originals themselves, which ``.to`` would return unchanged)."""
+        if isinstance(tree, dict):
+            return {k: fresh(v, device) for k, v in tree.items()}
+        return tree.detach().to(device).requires_grad_(True)
+
+    def run(device):
+        p = _cast(params, torch.float32, device)
+        tr = {"lora": fresh(lora, device)}
+        leaves = [t for _, t in _paths(tr)]
+        loss, _ = model_lib.lm_loss(c32, p, tok.to(device), lab.to(device),
+                                    msk.to(device), trainable=tr)
+        grads = torch.autograd.grad(loss, leaves)
+        return loss.item(), [g.float().cpu() for g in grads]
+
+    l_gpu, g_gpu = run(dev)
+    l_cpu, g_cpu = run("cpu")
+    rel = [((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+           for a, b in zip(g_gpu, g_cpu)]
+    print(f"audio e2e float32 (2 layers, full width, B=2 S=64 K="
+          f"{c32.num_codebooks}): card loss {l_gpu:.6f} vs cpu {l_cpu:.6f} "
+          f"(|d| {abs(l_gpu - l_cpu):.3e}); {len(rel)} adapter leaves: grad "
+          f"rel L2 median {float(np.median(rel)):.3e} max {max(rel):.3e}")
+    # fp32 on both sides, only the summation order differs (sums over up
+    # to 8192 terms)
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu),
+          "audio e2e loss differs by more than 1e-5 relative")
+    check(max(rel) <= 1e-4, "audio e2e gradients differ by more than 1e-4 "
+          "relative L2")
+
+
+def _softcap_serve(torch, dev, check, kc):
+    """(e) OLMoE at full width and 2 layers with ``attn_logit_softcap`` =
+    50 and the QK norms' gains times 8 (scores of tens, so the cap acts),
+    bf16: 8
+    requests (128/256-token prompts, 16 new tokens, tiers 8,8,4,4,2,2,1,1)
+    on the paged and the slotted pool, tokens equal, flash launched once
+    per layer and prefill call (counts zeroed just before each run and
+    read just after), and the same requests without the cap give other
+    tokens; every kernel call of one prefill call and one decode step
+    against its plain version (close_16bit), each flash call also against
+    the uncapped plain version, which it must miss.  Then float32, the
+    same weights: one prefill's logits through the kernels (flash's FMA
+    kernel with the cap) against the plain versions; greedy speculative
+    engines (verify with the cap) equal plain decode on both pools; one
+    request's engine tokens (capped decode) equal greedy by whole
+    prefills.  Returns (the paged run's launches, the recorded prefill's
+    flash call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build, ref
+    from repro_torch.models import model as model_lib
+    from repro_torch.serving import ServingEngine, SpeculativeConfig
+    cfg = get_config("olmoe-1.3b-6.9b", "full").replace(
+        num_layers=2, attn_logit_softcap=AUDIO_CAP)
+    free_cfg = cfg.replace(attn_logit_softcap=0.0)
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(39), dev)
+    # OLMoE normalises q and k per head: their norms' gains, not wq and
+    # wk, set the scores' scale; times 8 each puts them in the tens
+    check(cfg.qk_norm, "softcap serve: OLMoE without its QK norm")
+    for leaf in ("q_norm", "k_norm"):
+        params["blocks"]["pos0"]["attn"][leaf].mul_(8.0)
+    tiers = (8, 8, 4, 4, 2, 2, 1, 1)
+    toks, out = {}, {}
+    for what, c, layout in (("paged", cfg, "paged"),
+                            ("slotted", cfg, "slotted"),
+                            ("no cap", free_cfg, "paged")):
+        eng = ServingEngine(c, params, num_slots=8, slot_len=512,
+                            slot_k=tiers, kv_layout=layout)
+        eng.run(_arch_requests(c, tiers, n=2, new=2, seed=9))
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        rep = eng.run(_arch_requests(c, tiers))
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        s = rep.summary()
+        n_pre = len(rep.prefill_s)
+        check(s["n_requests"] == 8 and s["gen_tokens"] == 8 * 16,
+              f"softcap {what}: {s['n_requests']} requests")
+        for comp in rep.completions:
+            check(bool(((comp.tokens >= 0) & (comp.tokens < c.vocab_size))
+                       .all()), f"softcap {what}: ids out of range")
+        check(launches["flash_attention"] == c.num_layers * n_pre,
+              f"softcap {what}: flash launched "
+              f"{launches['flash_attention']} times for {n_pre} prefill "
+              f"calls x {c.num_layers} layers")
+        print(f"softcap serve (OLMoE full width, 2 layers, QK gains x8, "
+              f"{what}): {s['gen_tokens_per_s']:.1f} tokens/s, decode p50 "
+              f"{s['decode_step_ms_p50']:.2f} ms, {n_pre} prefill calls; "
+              f"launches {json.dumps(launches)}")
+        toks[what] = rep.tokens_by_rid()
+        out[what] = launches
+        del eng
+
+    def n_same(a, b):
+        return sum(np.array_equal(toks[a][r], toks[b][r]) for r in toks[a])
+    same, free = n_same("paged", "slotted"), n_same("paged", "no cap")
+    print(f"softcap serve: paged vs slotted {same}/8 requests "
+          f"token-identical; capped vs uncapped {free}/8")
+    check(same == 8, "softcap serve: paged and slotted tokens differ")
+    check(free < 8, "softcap serve: the cap changes no token")
+    pre, dec = _arch_step_calls(torch, cfg, params, tiers, check, "softcap")
+    worst = {"prefill": _check_arch_calls(torch, cfg, pre, check, kc,
+                                          "softcap prefill", True, 256),
+             "decode": _check_arch_calls(torch, cfg, dec, check, kc,
+                                         "softcap decode", False, 8)}
+    miss = []
+    for name, a, kw, o in pre:
+        if name == "flash_attention":
+            q, k, v = (t.transpose(1, 2) for t in a)
+            d = (o.float() - ref.flash_attention_ref(
+                q, k, v, causal=True, window=kw["window"]).transpose(1, 2)
+                 .float()).abs()
+            miss.append(d.max().item())
+            check(not bool((d <= 1e-2 * o.float().abs() + 1e-2).all()),
+                  "softcap prefill flash: the uncapped plain version is "
+                  "within close_16bit of the capped kernel")
+    print("softcap bf16 (QK gains x8): every kernel call of one prefill "
+          "call (T=256) and one decode step (8 slots) against its plain "
+          "version; max |kernel - plain|: " + "; ".join(
+              f"{part} " + ", ".join(f"{n} {e:.3e}" for n, e in w.items())
+              for part, w in worst.items())
+          + "; flash against the uncapped plain version: max |d| "
+          + ", ".join(f"{m:.3e}" for m in miss))
+    flash_call = next(c for c in pre if c[0] == "flash_attention")
+
+    # float32, the same weights: kernels against plain versions in
+    # summation order only, so tokens compare exactly
+    reqs = _arch_requests(cfg, tiers)
+    prompt = torch.as_tensor(reqs[1].prompt, device=dev)[None]
+    c32 = cfg.replace(dtype="float32")
+    p32 = _cast(params, torch.float32, dev)
+    del params, pre, dec
+    with torch.inference_mode():
+        got, _ = model_lib.prefill(c32, p32, prompt, k=8)
+        want, _ = _plain_versions(torch, lambda: model_lib.prefill(
+            c32, p32, prompt, k=8))
+        nocap, _ = _plain_versions(torch, lambda: model_lib.prefill(
+            c32.replace(attn_logit_softcap=0.0), p32, prompt, k=8))
+    rel = ((got - want).norm() / want.norm()).item()
+    effect = ((nocap - want).norm() / want.norm()).item()
+    print(f"softcap float32: a {prompt.shape[1]}-token prefill's logits, "
+          f"kernels vs plain versions: rel L2 {rel:.3e}; the cap moves "
+          f"them by {effect:.3e}")
+    check(rel <= 1e-4, "softcap prefill logits: kernels vs plain above 1e-4")
+    check(effect > 1e-3, "softcap prefill: the cap does not act")
+    spec = SpeculativeConfig(SPEC_W, 1)
+    f32 = {}
+    for layout in ("paged", "slotted"):
+        for sp in (None, spec):
+            f32[layout, sp is not None] = ServingEngine(
+                c32, p32, num_slots=8, slot_len=512, slot_k=tiers,
+                kv_layout=layout, speculative=sp).run(
+                    _arch_requests(c32, tiers)).tokens_by_rid()
+    plain = f32["paged", False]
+    for (layout, is_spec), t in f32.items():
+        diff = [r for r in plain if not np.array_equal(plain[r], t[r])]
+        check(not diff, f"softcap float32 {layout} "
+              f"{'speculative' if is_spec else 'plain'}: requests {diff} "
+              "differ from paged plain decode")
+    seq = prompt
+    with torch.inference_mode():
+        for _ in range(reqs[1].max_new_tokens):
+            lg, _ = model_lib.prefill(c32, p32, seq, k=tiers[1])
+            seq = torch.cat([seq, lg[:, -1].argmax(-1)[:, None]
+                             .to(seq.dtype)], dim=1)
+    by_prefill = seq[0, prompt.shape[1]:].cpu().numpy()
+    check(np.array_equal(by_prefill, plain[1]),
+          "softcap float32: request 1's engine tokens differ from greedy "
+          "by whole prefills")
+    print("softcap float32: greedy speculative (verify) and plain decode "
+          "tokens equal on both pools; request 1's 16 engine tokens equal "
+          "greedy by whole prefills")
+    del p32
+    return out["paged"], flash_call
+
+
+def audio_softcap_phase(torch, dev, check, kc):
+    """Phase 19: audio codebooks and the logit softcap.  ``musicgen-large``
+    FULL (48 layers, d_model 2048, MHA 32/32 at head_dim 64, d_ff 8192,
+    4 codebooks of 2048; bf16, random seeded weights, uncut): (b) the train
+    step at 4096 tokens, (c) a FLAME round on both round drivers and an
+    HLoRA round; (d) 2 layers at fp32 against the CPU; (e) OLMoE at 2
+    layers with a softcap of 50 that acts, served and checked call by call;
+    (a) flash at musicgen's shapes without and with the cap, at row 2's and
+    row 2W's shapes and the capped serve's prefill with the cap, and
+    ``lora_matmul`` at musicgen's projections,
+    each held against its plain version and timed.  Returns the rows."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import backend, ref
+    from repro_torch.models import model as model_lib
+    t_phase = time.perf_counter()
+    cfg = get_config("musicgen-large", "full")
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(31), dev)
+    n_params = sum(t.numel() for t in _leaves(params))
+    check(n_params == 3_254_978_560, f"musicgen-large has {n_params} "
+          "parameters, the reference's count_params 3,254,978,560")
+    print(f"audio {cfg.name}: {cfg.num_layers} layers (FULL, uncut), "
+          f"{n_params / 1e9:.3f} B params bf16, embedding "
+          f"{tuple(params['embed']['tokens'].shape)}, head "
+          f"{tuple(params['lm_head'].shape)}")
+    t0 = time.perf_counter()
+    train, mb = _audio_train_step(torch, cfg, params, dev, check)
+    print(f"audio phase (b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    flame, hlora = _audio_rounds(torch, cfg, params, dev, check)
+    print(f"audio phase (c): {time.perf_counter() - t0:.1f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _audio_e2e(torch, cfg, dev, check)
+    capped, serve_call = _softcap_serve(torch, dev, check, kc)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"audio phase (d, e): {time.perf_counter() - t0:.1f} s")
+    # (a) launches: each row's count from the run that gave flash its shape
+    # (the round at B=16 S=128, the train step's microbatch at S=4096, the
+    # capped serve's prefill); 0 where no path of this run launches the
+    # shape with that cap
+    H, D = cfg.n_heads, cfg.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(40)
+
+    def synthetic(B, S, h, d, w, cap):
+        """A flash call as ``_recorded`` keeps one, bf16, q and k at three
+        times unit scale so capped scores pass the cap."""
+        q, k = ((3 * torch.randn((B, S, h, d), generator=gen, device=dev))
+                .to(torch.bfloat16) for _ in range(2))
+        v = torch.randn((B, S, h, d), generator=gen, device=dev).to(
+            torch.bfloat16)
+        return ("flash_attention", (q, k, v),
+                {"causal": True, "window": w, "softcap": cap})
+
+    cases = [(what, (B, S, h, d, w, cap), n) for what, B, S, h, d, w, cap, n in (
+        ("musicgen client step", 16, 128, H, D, 0, 0.0,
+         flame["flash_attention"]),
+        ("musicgen client step", 16, 128, H, D, 0, AUDIO_CAP, 0),
+        ("musicgen train step", mb, 4096, H, D, 0, 0.0,
+         train["flash_attention"]),
+        ("musicgen train step", mb, 4096, H, D, 0, AUDIO_CAP, 0),
+        ("row 2's shape", 2, 256, 16, 128, 0, AUDIO_CAP, 0),
+        ("row 2W's window", 1, 12288, 16, 128, 8192, AUDIO_CAP, 0))]
+    cases.append(("OLMoE capped serve prefill", serve_call,
+                  capped["flash_attention"]))
+    rows = []
+    for what, call, n in cases:
+        if not isinstance(call[0], str):
+            call = synthetic(*call)
+        (q, k, v), kw = call[1], call[2]
+        B, S, h, d = q.shape
+        name = (f"{what}, B={B} S={S} H=KV={h} D={d}"
+                + (f", window {kw['window']}" if kw["window"] else "")
+                + (f", softcap {kw['softcap']:g}" if kw["softcap"] else ""))
+        err = kc["close"](backend.flash_attention(q, k, v, **kw),
+                          ref.flash_attention_ref(
+                              *(x.transpose(1, 2) for x in (q, k, v)),
+                              **kw).transpose(1, 2), f"flash {name}")
+        ms, pl, nb, fl, lib, lib_what = _time_flash(torch, call, kc)
+        rows.append(_row(f"flash_attention ({name})", "flash_attention.cu",
+                         "flash_attention.py:92", err, ms, pl,
+                         bound_ms(nb, fl, BF16_FLOPS), lib, n, lib_what))
+        if n == 0:
+            print(f"flash_attention ({name}): no path of this run launches "
+                  "this shape with this cap: 0 launches")
+        del call, q, k, v
+        torch.cuda.empty_cache()
+    del serve_call, cases
+    d, f = cfg.d_model, cfg.d_ff
+    for r, launches, seed in ((16, flame["lora_matmul"], 41),
+                              (5, hlora["lora_matmul"], 42)):
+        rows += _lora_shape_rows(
+            torch, dev, kc, "musicgen train",
+            [(2048, d, d, r, "q/k/v/o"), (2048, d, f, r, "w1/w3"),
+             (2048, f, d, r, "w2")], launches, seed, cfg.lora.scale)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"audio and softcap phase: {time.perf_counter() - t_phase:.1f} s")
     return rows
 
 
@@ -3079,11 +3621,12 @@ def _suffix_group_kernels(torch, cfg, params, reqs, dev, check, kc, what):
                       f"{tag} at {tuple(a[0].shape)}")
                 q, k, v = (t.transpose(1, 2) for t in a)
                 want = ref.flash_attention_ref(
-                    q, k, v, causal=kw["causal"],
-                    window=kw["window"]).transpose(1, 2)
+                    q, k, v, causal=kw["causal"], window=kw["window"],
+                    softcap=kw["softcap"]).transpose(1, 2)
                 err = kc["close"](out, want, tag)
             elif name == "suffix_attention":
-                err = kc["close"](out, attention.verify_attention(*a), tag)
+                err = kc["close"](out, attention.verify_attention(
+                    *a, logit_softcap=kw["logit_softcap"]), tag)
             elif name == "router":
                 err = kc["router"](out, ref.topk_router_ref(*a), tag)
             elif name == "adaptive_router":
@@ -4037,8 +4580,8 @@ def _check_lora_calls(torch, cfg, calls, check, kc, what, router, T,
         if name == "flash_attention":
             q, k, v = (t.transpose(1, 2) for t in a)
             err = close(out, ref.flash_attention_ref(
-                q, k, v, causal=kw["causal"],
-                window=kw["window"]).transpose(1, 2), tag)
+                q, k, v, causal=kw["causal"], window=kw["window"],
+                softcap=kw["softcap"]).transpose(1, 2), tag)
         elif name in ("router", "adaptive_router"):
             check(a[0].shape[0] == T, f"{tag} at T={a[0].shape[0]}")
             plain = (ref.topk_router_ref if name == "router"

@@ -1,11 +1,11 @@
 """Architecture registry of the port: only the archs it can serve and train.
 
 The reference registry (``repro/configs/registry.py``) knows twelve archs;
-the port knows the nine whose layers it has (attention with a dense FFN,
+the port knows the ten that run on one card (attention with a dense FFN,
 a routed MoE, or a routed MoE with shared experts; the Mamba-2 block,
-alone or in Jamba's period-8 hybrid stack with interleaved MoE) and adds
-each other one with the slice that brings its layers.  Asking for
-an arch the port does not know yet raises ``KeyError`` naming that slice.
+alone or in Jamba's period-8 hybrid stack with interleaved MoE; audio
+codebooks, ``musicgen-large``).  The two that need several cards come
+with the multi-chip slice: asking for one raises ``KeyError`` naming it.
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ _ARCH_MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "mamba2-780m": "mamba2_780m",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "musicgen-large": "musicgen_large",
     # the paper's own evaluation models
     "olmo-1.3b": "olmo_1_3b",
     "olmoe-1.3b-6.9b": "olmoe_1_3b_6_9b",
@@ -30,7 +31,6 @@ _ARCH_MODULES = {
 _LATER = {
     "qwen3-moe-235b-a22b": "the multi-chip slice",
     "llama3-405b": "the multi-chip slice",
-    "musicgen-large": "the audio-codebook slice",
 }
 
 

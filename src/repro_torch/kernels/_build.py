@@ -112,7 +112,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     sigs = {
         "rt_topk_router": (P, I, P, P, P, I, I, I, P),
         "rt_adaptive_topk_router": (P, I, P, P, P, P, I, I, I, P),
-        "rt_flash_attention": (P, P, P, P, I, P, I, I, I, I, I, F, I, I, P),
+        "rt_flash_attention": (P, P, P, P, I, P, I, I, I, I, I, F, I, I, F,
+                               P),
         "rt_ragged_gather": (P, P, P, P, I, I, I, P),
         "rt_ragged_combine": (P, P, P, P, I, I, I, I, P),
         "rt_ragged_expert_matmul": (P, P, P, P, P, P, I, I, I, I, I, I, F, P,

@@ -220,16 +220,16 @@ def adaptive_router(logits: torch.Tensor, k_tok: torch.Tensor, max_k: int):
 # flash attention (model layout: q (B,S,H,D); k,v (B,S,KV,D))
 # ==========================================================================
 
-def _flash_plain(q, k, v, causal, window):
+def _flash_plain(q, k, v, causal, window, softcap):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    return ref.flash_attention_ref(qt, kt, vt, causal=causal,
-                                   window=window).transpose(1, 2)
+    return ref.flash_attention_ref(qt, kt, vt, causal=causal, window=window,
+                                   softcap=softcap).transpose(1, 2)
 
 
 class _Flash(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        ctx.causal, ctx.window = causal, window
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.causal, ctx.window, ctx.softcap = causal, window, softcap
         ctx.save_for_backward(q, k, v)
         if _on_cuda(q):
             # the kernel reads the transposed views in place and writes a
@@ -237,26 +237,30 @@ class _Flash(torch.autograd.Function):
             out = torch.empty_like(q, memory_format=torch.contiguous_format)
             _flash_cuda(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, window=window,
-                        out=out.transpose(1, 2))
+                        softcap=softcap, out=out.transpose(1, 2))
             return out
-        return _flash_plain(q, k, v, causal, window)
+        return _flash_plain(q, k, v, causal, window, softcap)
 
     @staticmethod
     def backward(ctx, g):
         # vjp of the plain version at the same primals (re-materialises the
-        # (S, S) scores, as the reference's _flash_bwd does)
-        causal, window = ctx.causal, ctx.window
+        # (S, S) scores, as the reference's _flash_bwd does; with a cap, the
+        # vjp of the capped scores, as the reference's jnp path's)
+        causal, window, cap = ctx.causal, ctx.window, ctx.softcap
         dq, dk, dv = _vjp(lambda q, k, v: _flash_plain(q, k, v, causal,
-                                                        window),
+                                                        window, cap),
                           ctx.saved_tensors, (g,))
-        return dq, dk, dv, None, None
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
     """Differentiable flash attention in the MODEL layout: q (B,S,H,D);
-    k, v (B,S,KV,D) -> (B,S,H,D)."""
-    return _Flash.apply(q, k, v, bool(causal), int(window))
+    k, v (B,S,KV,D) -> (B,S,H,D).  ``softcap > 0``: the scaled scores are
+    capped, ``softcap·tanh(s / softcap)``, inside the kernel (the
+    reference sends a capped model to its blockwise jnp path instead)."""
+    return _Flash.apply(q, k, v, bool(causal), int(window), float(softcap))
 
 
 # ==========================================================================

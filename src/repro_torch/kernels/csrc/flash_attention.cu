@@ -5,7 +5,15 @@
 // attention layer in serving and the forward of every attention layer in
 // training.  Same function: q (B,H,S,D), k/v (B,KV,S,D), scale D^-0.5, fp32
 // softmax statistics, key kpos visible to query qpos when kpos <= qpos and,
-// with window > 0, kpos > qpos - window; masked scores are -1e30.
+// with window > 0, kpos > qpos - window; masked scores are -1e30.  With
+// softcap > 0 the scaled score is capped first, s = softcap·tanh(s / softcap)
+// (Gemma 2's attn_logit_softcapping): the reference computes that on its
+// blockwise jnp path (models/attention.py flash_attention_jnp), since its
+// Pallas kernel has no cap; here both kernels apply it to the score in
+// natural units, with tanhf (full precision: tanh.approx.f32 would add ~2^-11
+// relative error), before the mask, so the running max is taken over capped
+// scores.  The cap is a template flag (CAP): softcap = 0 runs an
+// instantiation with no tanhf in it.
 //
 // Bound on the H100: at the path's shapes (serving B=2 S=256 H=16 D=128;
 // training B=16 S=128) the work, 4·D FLOPs per (query, key) pair inside
@@ -63,12 +71,12 @@ constexpr size_t smem_floats() {
          (size_t)BQ * (BK + 1) + 3 * BQ;
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs,
                  Strides ks, Strides vs, Strides os, int H, int KVH, int S,
-                 float scale, int causal, int window) {
+                 float scale, int causal, int window, float softcap) {
   constexpr int DP = D + 1;
   constexpr int PP = BK + 1;
   constexpr int DJ = D / 16;
@@ -152,7 +160,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           valid = valid && kp <= qp;
           if (window > 0) valid = valid && kp > qp - window;
         }
-        Ps[r * PP + c] = valid ? s[i][j] * scale : RT_NEG_INF;
+        float sv = s[i][j] * scale;
+        if (CAP) sv = softcap * tanhf(sv / softcap);
+        Ps[r * PP + c] = valid ? sv : RT_NEG_INF;
       }
     }
     __syncthreads();
@@ -210,17 +220,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, bool CAP>
 int launch(const float* q, const float* k, const float* v, float* o, Strides qs,
            Strides ks, Strides vs, Strides os, int B, int H, int KVH, int S, float scale,
-           int causal, int window, cudaStream_t stream) {
+           int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<float, D, CAP>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<float, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<float, D><<<grid, NT, smem, stream>>>(q, k, v, o, qs, ks, vs, os, H,
-                                                          KVH, S, scale, causal, window);
+  kernel<<<grid, NT, smem, stream>>>(q, k, v, o, qs, ks, vs, os, H, KVH, S, scale, causal,
+                                     window, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -239,12 +250,12 @@ struct Smem {
   static constexpr size_t BYTES = ((size_t)BQ * DS + 4 * (size_t)TILE) * 2;  // Q, 2 K, 2 V
 };
 
-template <typename T, int D, bool ALIGNED>
+template <typename T, int D, bool ALIGNED, bool CAP>
 __global__ void __launch_bounds__(THREADS)
 flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o, Strides qs, Strides ks,
                  Strides vs, Strides os, int H, int KVH, int S, float scale, int causal,
-                 int window) {
+                 int window, float softcap) {
   constexpr int DS = Smem<D>::DS;
   constexpr int TILE = Smem<D>::TILE;
   constexpr int KD = D / 16;  // k16 steps of Q·K^T
@@ -290,6 +301,9 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4; ++e) oacc[j][e] = 0.f;
   float m_r[2] = {RT_NEG_INF, RT_NEG_INF}, l_r[2] = {0.f, 0.f};
   const float sl2 = scale * 1.4426950408889634f;  // scores in the log2 domain
+  // with the cap: s·scale in natural units, capped, then to the log2 domain
+  const float cap_in = CAP ? scale / softcap : 0.f;
+  const float cap_l2 = CAP ? softcap * 1.4426950408889634f : 0.f;
   const int qp0 = q0 + warp * 16 + g;               // this thread's rows qp0, qp0 + 8
 
   for (int kt = kt0; kt < kt1; ++kt) {
@@ -335,7 +349,8 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int qp = qp0 + 8 * (e >> 1);
         bool ok = kp < S;
         if (causal) ok = ok && kp <= qp && (window <= 0 || kp > qp - window);
-        sc[j][e] = ok ? sc[j][e] * sl2 : RT_NEG_INF;
+        const float sv = CAP ? cap_l2 * tanhf(sc[j][e] * cap_in) : sc[j][e] * sl2;
+        sc[j][e] = ok ? sv : RT_NEG_INF;
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
       }
     }
@@ -423,11 +438,11 @@ flash_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D, bool ALIGNED>
+template <typename T, int D, bool ALIGNED, bool CAP>
 int launch_cfg(const T* q, const T* k, const T* v, T* o, Strides qs, Strides ks,
                Strides vs, Strides os, int B, int H, int KVH, int S, float scale,
-               int causal, int window, cudaStream_t stream) {
-  auto kernel = flash_mma_kernel<T, D, ALIGNED>;
+               int causal, int window, float softcap, cudaStream_t stream) {
+  auto kernel = flash_mma_kernel<T, D, ALIGNED, CAP>;
   constexpr size_t smem = Smem<D>::BYTES;
   static bool attr_set = false;  // once per instantiation (one process, one card)
   if (!attr_set) {
@@ -438,54 +453,69 @@ int launch_cfg(const T* q, const T* k, const T* v, T* o, Strides qs, Strides ks,
   }
   dim3 grid((S + BQ - 1) / BQ, H, B);
   kernel<<<grid, THREADS, smem, stream>>>(q, k, v, o, qs, ks, vs, os, H, KVH, S, scale,
-                                          causal, window);
+                                          causal, window, softcap);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAP>
 int launch(const T* q, const T* k, const T* v, T* o, Strides qs, Strides ks, Strides vs,
            Strides os, int B, int H, int KVH, int S, float scale, int causal, int window,
-           cudaStream_t stream) {
+           float softcap, cudaStream_t stream) {
   bool aligned = rt::aligned16(q) && rt::aligned16(k) && rt::aligned16(v) &&
                  rt::aligned16(o);
   const Strides all[4] = {qs, ks, vs, os};
   for (int i = 0; i < 4; ++i)
     aligned = aligned && all[i].b % 8 == 0 && all[i].h % 8 == 0 && all[i].s % 8 == 0;
   if (aligned)
-    return launch_cfg<T, D, true>(q, k, v, o, qs, ks, vs, os, B, H, KVH, S, scale,
-                                  causal, window, stream);
-  return launch_cfg<T, D, false>(q, k, v, o, qs, ks, vs, os, B, H, KVH, S, scale, causal,
-                                 window, stream);
+    return launch_cfg<T, D, true, CAP>(q, k, v, o, qs, ks, vs, os, B, H, KVH, S, scale,
+                                       causal, window, softcap, stream);
+  return launch_cfg<T, D, false, CAP>(q, k, v, o, qs, ks, vs, os, B, H, KVH, S, scale,
+                                      causal, window, softcap, stream);
 }
 
 }  // namespace tc
 
+template <int D, bool CAP>
+int launch(const void* q, const void* k, const void* v, void* o, int dtype,
+           const Strides* st, int B, int H, int KVH, int S, float scale, int causal,
+           int window, float softcap, cudaStream_t stream) {
+  if (dtype == RT_F32)
+    return simt::launch<D, CAP>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                static_cast<const float*>(v), static_cast<float*>(o),
+                                st[0], st[1], st[2], st[3], B, H, KVH, S, scale, causal,
+                                window, softcap, stream);
+  RT_DISPATCH_16(dtype, T, {
+    return tc::launch<T, D, CAP>(static_cast<const T*>(q), static_cast<const T*>(k),
+                                 static_cast<const T*>(v), static_cast<T*>(o), st[0],
+                                 st[1], st[2], st[3], B, H, KVH, S, scale, causal, window,
+                                 softcap, stream);
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+// the cap, decided once: softcap = 0 runs the kernels without it
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int dtype,
            const Strides* st, int B, int H, int KVH, int S, float scale, int causal,
-           int window, cudaStream_t stream) {
-  if (dtype == RT_F32)
-    return simt::launch<D>(static_cast<const float*>(q), static_cast<const float*>(k),
-                           static_cast<const float*>(v), static_cast<float*>(o), st[0],
-                           st[1], st[2], st[3], B, H, KVH, S, scale, causal, window,
-                           stream);
-  RT_DISPATCH_16(dtype, T, {
-    return tc::launch<T, D>(static_cast<const T*>(q), static_cast<const T*>(k),
-                            static_cast<const T*>(v), static_cast<T*>(o), st[0], st[1],
-                            st[2], st[3], B, H, KVH, S, scale, causal, window, stream);
-  });
-  return (int)cudaErrorInvalidValue;
+           int window, float softcap, cudaStream_t stream) {
+  if (softcap > 0.f)
+    return launch<D, true>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window,
+                           softcap, stream);
+  return launch<D, false>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window,
+                          softcap, stream);
 }
 
 }  // namespace
 
 // strides: 12 int64 — (batch, head, seq) strides of q, k, v, o in elements;
-// head_dim must be contiguous.  Supported head_dim: 32, 64, 128.
+// head_dim must be contiguous.  Supported head_dim: 32, 64, 128.  softcap: 0
+// (no cap) or the cap, > 0.
 extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                                   void* o, int dtype, const long long* strides,
                                   int B, int H, int KVH, int S, int D, float scale,
-                                  int causal, int window, cudaStream_t stream) {
-  if (KVH < 1 || H % KVH) return (int)cudaErrorInvalidValue;
+                                  int causal, int window, float softcap,
+                                  cudaStream_t stream) {
+  if (KVH < 1 || H % KVH || !(softcap >= 0.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || S == 0) return (int)cudaGetLastError();
   if (H > 65535 || B > 65535) return (int)cudaErrorInvalidConfiguration;
   const Strides st[4] = {{strides[0], strides[1], strides[2]},
@@ -494,11 +524,14 @@ extern "C" int rt_flash_attention(const void* q, const void* k, const void* v,
                          {strides[9], strides[10], strides[11]}};
   switch (D) {
     case 32:
-      return launch<32>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window, stream);
+      return launch<32>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window,
+                        softcap, stream);
     case 64:
-      return launch<64>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window, stream);
+      return launch<64>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window,
+                        softcap, stream);
     case 128:
-      return launch<128>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window, stream);
+      return launch<128>(q, k, v, o, dtype, st, B, H, KVH, S, scale, causal, window,
+                         softcap, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,14 +16,20 @@ _F32 = torch.float32
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
-                        scale: float | None = None) -> torch.Tensor:
-    """q: (B,H,S,D); k,v: (B,KV,S,D) -> (B,H,S,D).  fp32 softmax."""
+                        scale: float | None = None,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """q: (B,H,S,D); k,v: (B,KV,S,D) -> (B,H,S,D).  fp32 softmax.  With
+    ``softcap > 0`` the scaled scores are capped, ``s = softcap·tanh(s /
+    softcap)``, before the masks (the reference's blockwise path,
+    ``models/attention.py`` ``flash_attention_jnp``)."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     scale = scale if scale is not None else D ** -0.5
     kr = k.repeat_interleave(rep, dim=1).to(_F32)
     vr = v.repeat_interleave(rep, dim=1).to(_F32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(_F32), kr) * scale
+    if softcap > 0:
+        s = torch.tanh(s / softcap) * softcap
     if causal:
         qpos = torch.arange(S, device=q.device)[:, None]
         kpos = torch.arange(S, device=q.device)[None, :]

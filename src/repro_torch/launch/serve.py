@@ -11,8 +11,10 @@ default, like the reference's ``--local``, is the reduced smoke config.
 ``--layers N`` cuts the depth in whole periods of the layer pattern
 (``--arch jamba-v0.1-52b --variant full --layers 16`` fits one card; an
 attention-free arch such as ``mamba2-780m`` serves from the slotted
-pool whatever ``--kv-layout`` says).  Weights are random (seed 0), as is the
-trace (the reference's 8- and 16-token prompts).
+pool whatever ``--kv-layout`` says; an audio arch, ``musicgen-large``, is
+refused with the reference's message: the engine is text-only).
+Weights are random (seed 0), as is the trace (the reference's 8- and
+16-token prompts).
 
 Production-traffic knobs, as the reference's: ``--prefix-cache`` (shared
 prompt blocks pay their K/V once, and prefill runs over the unmatched
@@ -230,6 +232,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                          "(pass --device cpu for the plain versions)")
 
     cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
+    if cfg.num_codebooks > 0:
+        raise SystemExit(f"{cfg.name}: the serving engine is text-only; "
+                         "codebook (audio) archs have no engine path yet")
     params = model_lib.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device)
     top_k = cfg.moe.top_k if cfg.moe.enabled else 0

@@ -98,18 +98,29 @@ def abstract_cache(cfg: ModelConfig, batch: int, seq_len: int) -> PyTree:
     return model_lib.init_cache(cfg, batch, seq_len, device=_META)
 
 
+def token_shape(cfg: ModelConfig, batch: int, seq: int) -> Tuple[int, ...]:
+    """(batch, seq), or (batch, seq, K) for an audio model's K codebook
+    streams (the reference's ``launch/specs.py`` ``_token_shape``)."""
+    if cfg.num_codebooks:
+        return (batch, seq, cfg.num_codebooks)
+    return (batch, seq)
+
+
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
-    """Example inputs of the step the shape runs (train/prefill/decode)."""
+    """Example inputs of the step the shape runs (train/prefill/decode);
+    tokens and labels carry the codebook axis of an audio model, the mask
+    does not."""
     def t(shp, dtype):
         return torch.empty(shp, dtype=dtype, device=_META)
     B, S = shape.global_batch, shape.seq_len
     if shape.kind == "train":
-        return {"tokens": t((B, S), torch.int32),
-                "labels": t((B, S), torch.int32),
+        return {"tokens": t(token_shape(cfg, B, S), torch.int32),
+                "labels": t(token_shape(cfg, B, S), torch.int32),
                 "mask": t((B, S), _F32)}
     if shape.kind == "prefill":
-        return {"tokens": t((B, S), torch.int32)}
-    return {"tokens": t((B, 1), torch.int32), "pos": t((), torch.int32)}
+        return {"tokens": t(token_shape(cfg, B, S), torch.int32)}
+    return {"tokens": t(token_shape(cfg, B, 1), torch.int32),
+            "pos": t((), torch.int32)}
 
 
 def state_bytes(tree: PyTree) -> int:

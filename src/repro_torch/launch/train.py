@@ -14,12 +14,15 @@ Two modes, as the reference launcher's:
     vocabulary is the model's, capped at 512 tokens (a full-width model
     keeps its full embedding and head: the synthetic corpus builds a dense
     vocab x vocab transition matrix per cluster, ~10 GB at 50,304 tokens).
+    An audio arch (``musicgen-large``) is refused here: this corpus is
+    (B, S) text, as the reference launcher's is, which crashes on it.
   * ``--local`` runs the single-device train step (``launch/steps.py``
     ``build_train``: microbatches, layer checkpointing, Adam on the
     adapters) at the reference's ``local_train`` shape, 8 sequences of 64
     tokens, for ``--steps`` steps on seeded random weights and random
-    token batches: it prints the chosen knobs, then each step's loss and
-    time, and stops if a loss is not finite.
+    token batches ((B, S, K) codebook tokens for an audio arch): it prints
+    the chosen knobs, then each step's loss and time, and stops if a loss
+    is not finite.
 
 Both run on the CUDA kernels unless given ``--device cpu`` (their plain
 versions).  ``--variant`` defaults to the reduced smoke config, as the
@@ -121,11 +124,14 @@ def _device(name: str) -> torch.device:
 
 def synthetic_batch(cfg, shape: ShapeConfig, generator: torch.Generator,
                     device):
-    """Random tokens (B, S) over the model's vocabulary, next-token labels
-    (the sequence rolled by one, as the reference's) and an all-ones mask."""
+    """Random tokens (B, S), or (B, S, K) for an audio model, over the
+    model's vocabulary, next-token labels (the sequence rolled by one, as
+    the reference's) and an all-ones (B, S) mask."""
     B, S = shape.global_batch, shape.seq_len
-    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=generator,
-                           device=device, dtype=torch.int32)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           steps_lib.token_shape(cfg, B, S),
+                           generator=generator, device=device,
+                           dtype=torch.int32)
     labels = torch.roll(tokens, -1, dims=1)
     mask = torch.ones((B, S), dtype=torch.float32, device=device)
     return tokens, labels, mask
@@ -178,6 +184,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     device = _device(args.device)
 
     cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
+    if cfg.num_codebooks:
+        # the reference's --federated builds a (B, S) text corpus for any
+        # arch (its DataConfig has no num_codebooks), which an audio model
+        # cannot embed: it fails in its attention's reshape
+        raise SystemExit(
+            f"--federated: {cfg.name} reads (B, S, {cfg.num_codebooks}) "
+            "codebook tokens, and this launcher's corpus is (B, S) text, as "
+            "the reference launcher's is; run the audio arch's rounds through "
+            "federated.simulation.build_experiment with "
+            "DataConfig(num_codebooks=...), or its train step with --local")
     fed = FederatedConfig(num_clients=args.clients, rounds=args.rounds,
                           participation=args.participation,
                           round_driver=args.round_driver,

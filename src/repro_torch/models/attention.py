@@ -32,9 +32,15 @@
   :func:`draft_attention`, one reduced-k step against a read-only prefix
   and a small (B, W, KV, D) window buffer (``model.draft_window``).
 
+Every branch applies the config's logit softcap (``attn_logit_softcap``:
+``s = cap·tanh(s·D^-½ / cap)`` after the scale, before the masks): the
+flash kernel computes it itself, where the reference sends a capped model
+to its blockwise jnp path; the plain decode, verify and draft functions
+take it as the reference's do.
+
 The suffix branch refuses a ring, as the reference's pools do (a
-``BlockPool`` with a prefix cache needs a linear cache); logit softcap
-comes with a later slice.  Both raise ``NotImplementedError``.
+``BlockPool`` with a prefix cache needs a linear cache): it raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -155,7 +161,8 @@ def verify_attention(q: torch.Tensor, k_new: torch.Tensor,
 def suffix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      k_pool: torch.Tensor, v_pool: torch.Tensor,
                      block_table: torch.Tensor, prefix_len: torch.Tensor,
-                     page_span: int) -> torch.Tensor:
+                     page_span: int, *,
+                     logit_softcap: float = 0.0) -> torch.Tensor:
     """Causal attention of S suffix tokens per row over the row's cached
     prefix and the suffix itself, through the flash kernel.
 
@@ -183,7 +190,8 @@ def suffix_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = laid_out(paged_gather(k_pool, block_table, page_span), k)
     vf = laid_out(paged_gather(v_pool, block_table, page_span), v)
     qf = laid_out(q.new_zeros((B, 0) + q.shape[2:]), q)
-    out = kernel_backend.flash_attention(qf, kf, vf, causal=True, window=0)
+    out = kernel_backend.flash_attention(qf, kf, vf, causal=True, window=0,
+                                         softcap=logit_softcap)
     return out[rows, cols]
 
 
@@ -262,10 +270,6 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     qk-norm and RoPE at ``positions``."""
     B, S, _ = x.shape
     hd = cfg.head_dim_
-    if cfg.attn_logit_softcap > 0:
-        raise NotImplementedError(
-            "logit-softcap attention comes with a later slice of the port "
-            "(the flash kernel has no softcap)")
     q = lora_dense(x, p["wq"], lg.get("wq"), lora_scale)
     k = lora_dense(x, p["wk"], lg.get("wk"), lora_scale)
     v = lora_dense(x, p["wv"], lg.get("wv"), lora_scale)
@@ -315,11 +319,12 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     lg = lora or {}
     q, k, v = _project_qkv(p, cfg, x, positions, lg, lora_scale)
     window = cfg.attention_window
+    cap = cfg.attn_logit_softcap
 
     new_cache = None
     if cache is None:
         out = kernel_backend.flash_attention(q, k, v, causal=True,
-                                             window=window)
+                                             window=window, softcap=cap)
         if return_cache:
             new_cache = {"k": _ring_piece(k, window),
                          "v": _ring_piece(v, window)}
@@ -332,7 +337,7 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                 "suffix-only prefill attends a linear cache; a "
                 "sliding-window (ring) model has no prefix cache")
         out = suffix_attention(q, k, v, cache["k"], cache["v"], block_table,
-                               cache_pos, page_span)
+                               cache_pos, page_span, logit_softcap=cap)
         new_cache = {"k": k, "v": v}
     elif block_table is not None and S == 1:
         paged_decode_write(cache["k"], cache["v"], k[:, 0], v[:, 0],
@@ -340,25 +345,27 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                            window=window)
         kg = paged_gather(cache["k"], block_table, page_span)
         vg = paged_gather(cache["v"], block_table, page_span)
-        out = decode_attention(q, kg, vg, cache_pos, window=window)
+        out = decode_attention(q, kg, vg, cache_pos, window=window,
+                               logit_softcap=cap)
         new_cache = cache
     elif S == 1:
         _slotted_write(cache, k, v, cache_pos, window=window)
         out = decode_attention(q, cache["k"], cache["v"], cache_pos,
-                               window=window)
+                               window=window, logit_softcap=cap)
         new_cache = cache
     elif block_table is not None:
         # paged verify: attend the gathered pages before the write, then
         # deposit the window's full-k K/V at its positions
         kg = paged_gather(cache["k"], block_table, page_span)
         vg = paged_gather(cache["v"], block_table, page_span)
-        out = verify_attention(q, k, v, kg, vg, cache_pos, window=window)
+        out = verify_attention(q, k, v, kg, vg, cache_pos, window=window,
+                               logit_softcap=cap)
         paged_verify_write(cache["k"], cache["v"], k, v, block_table,
                            cache_pos, page_span=page_span, window=window)
         new_cache = cache
     else:
         out = verify_attention(q, k, v, cache["k"], cache["v"], cache_pos,
-                               window=window)
+                               window=window, logit_softcap=cap)
         _slotted_write(cache, k, v, cache_pos, window=window)
         new_cache = cache
 
@@ -382,6 +389,7 @@ def apply_draft_attention(p: dict, cfg, x: torch.Tensor,
     win["k"][:, j] = k[:, 0].to(win["k"].dtype)
     win["v"][:, j] = v[:, 0].to(win["v"].dtype)
     out = draft_attention(q, win["k"], win["v"], static_kv["k"],
-                          static_kv["v"], pos, j)
+                          static_kv["v"], pos, j,
+                          logit_softcap=cfg.attn_logit_softcap)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim_)
     return lora_dense(out, p["wo"], lg.get("wo"), lora_scale)

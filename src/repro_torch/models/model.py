@@ -92,12 +92,6 @@ def _init_block(cfg, kind: str, is_moe: bool, n: int, generator,
     return p
 
 
-def _check_supported(cfg) -> None:
-    if cfg.num_codebooks:
-        raise NotImplementedError(
-            f"{cfg.name}: audio codebooks come with a later slice")
-
-
 def _attention_only(cfg) -> bool:
     return all(cfg.layer_kind(p) == "attn" for p in range(cfg.pattern_period))
 
@@ -107,14 +101,16 @@ def init_params(cfg, generator: torch.Generator,
     """Random weights from ``generator`` with the reference's
     distributions: truncated normal ±3σ, σ = scale/sqrt(fan_in) (router
     scale 0.1), embeddings and head N(0, 0.02), norms one, the Mamba
-    block's as :func:`mamba2.init_mamba`; block positions drawn in order."""
+    block's as :func:`mamba2.init_mamba`; block positions drawn in order.
+    An audio model (``num_codebooks`` K > 0) has a (K, V, D) embedding
+    and a (K, D, V) head, one table per codebook."""
     cfg.validate()
-    _check_supported(cfg)
     P = cfg.pattern_period
     n = cfg.num_layers // P
     dt = cfg.torch_dtype
+    K = (cfg.num_codebooks,) if cfg.num_codebooks else ()
     params = {
-        "embed": {"tokens": embed_init((cfg.vocab_size, cfg.d_model), dt,
+        "embed": {"tokens": embed_init(K + (cfg.vocab_size, cfg.d_model), dt,
                                        generator, device)},
         "blocks": {f"pos{pos}": _init_block(cfg, cfg.layer_kind(pos),
                                             cfg.layer_is_moe(pos), n,
@@ -123,7 +119,7 @@ def init_params(cfg, generator: torch.Generator,
         "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=device),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = embed_init((cfg.d_model, cfg.vocab_size), dt,
+        params["lm_head"] = embed_init(K + (cfg.d_model, cfg.vocab_size), dt,
                                        generator, device)
     return params
 
@@ -133,13 +129,30 @@ def init_params(cfg, generator: torch.Generator,
 # ==========================================================================
 
 def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"]["tokens"][tokens.long()]
+    """tokens (B, S) -> (B, S, D); for an audio model tokens (B, S, K) ->
+    the sum of the K codebooks' lookups, added in order k = 0 ... K-1
+    (MusicGen's summed input embeddings)."""
+    emb = params["embed"]["tokens"]
+    if cfg.num_codebooks:
+        x = emb[0][tokens[..., 0].long()]
+        for k in range(1, cfg.num_codebooks):
+            x = x + emb[k][tokens[..., k].long()]
+        return x
+    return emb[tokens.long()]
 
 
 def lm_head(params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """(B, S, D) -> logits (B, S, V), or (B, S, K, V) for an audio model
+    (one head per codebook)."""
     if cfg.tie_embeddings:
-        return h @ params["embed"]["tokens"].T
-    return h @ params["lm_head"]
+        w = params["embed"]["tokens"]
+        if cfg.num_codebooks:
+            return torch.einsum("bsd,kvd->bskv", h, w)
+        return h @ w.T
+    w = params["lm_head"]
+    if cfg.num_codebooks:
+        return torch.einsum("bsd,kdv->bskv", h, w)
+    return h @ w
 
 
 # ==========================================================================
@@ -220,7 +233,6 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
     divisor of n_periods) checkpointed at both levels, the reference's
     two-level (√L) scheme: n_periods/g + g saved inputs for one more
     forward.  Loss and gradients are those of the plain loop."""
-    _check_supported(cfg)
     trainable = trainable or {}
     lora_blocks = (trainable.get("lora") or {}).get("blocks") or {}
     rescalers = trainable.get("rescaler") or {}
@@ -297,8 +309,9 @@ def _checkpoint(fn, *args):
 def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
                    k=None, positions=None, dispatch=None, remat=False,
                    remat_chunk=0, num_groups=1):
-    """tokens (B, S) -> (final hidden states (B, S, D) after the final
-    norm, activation counts {pos{j}: (n_periods, E)} per MoE position).
+    """tokens (B, S), or (B, S, K) for an audio model -> (final hidden
+    states (B, S, D) after the final norm, activation counts {pos{j}:
+    (n_periods, E)} per MoE position).
     MoE layers dispatch on ``capacity`` unless told otherwise, as in the
     reference, over ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
     checkpointing (:func:`_run_stack`)."""
@@ -314,7 +327,8 @@ def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
 
 def forward(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             positions=None, dispatch=None):
-    """tokens -> (logits (B, S, V), activation counts)."""
+    """tokens -> (logits (B, S, V) or, for an audio model, (B, S, K, V),
+    activation counts)."""
     h, counts = forward_hidden(cfg, params, tokens, trainable=trainable,
                                k=k, positions=positions, dispatch=dispatch)
     return lm_head(params, cfg, h), counts
@@ -324,8 +338,10 @@ def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
                     chunk: int = 512) -> torch.Tensor:
     """Masked mean cross-entropy over sequence chunks: h (B, S, D); labels
-    (B, S); mask (B, S) 0/1.  Each chunk's logits are formed in fp32 and
-    summed into (total, count) in chunk order, as the reference's scan."""
+    (B, S), or (B, S, K) for an audio model; mask (B, S) 0/1.  Each
+    chunk's logits are formed in fp32 and summed into (total, count) in
+    chunk order, as the reference's scan.  With codebooks a position's
+    NLL is the mean of its K codebooks' NLLs, taken before the mask."""
     B, S, _ = h.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -338,9 +354,12 @@ def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
         logits = lm_head(params, cfg, h[:, c0:c0 + chunk]).to(_F32)
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
-                            labels[:, c0:c0 + chunk, None].long())[..., 0]
+                            labels[:, c0:c0 + chunk, ..., None].long())[..., 0]
+        nll = lse - gold                          # (B, chunk[, K])
+        if nll.dim() == 3:
+            nll = nll.mean(-1)
         mm = mask[:, c0:c0 + chunk].to(_F32)
-        tot = tot + ((lse - gold) * mm).sum()
+        tot = tot + (nll * mm).sum()
         cnt = cnt + mm.sum()
     return tot / torch.clamp(cnt, min=1.0)
 
@@ -369,7 +388,6 @@ def _cache(cfg, attn_shape: tuple, rows: int, device) -> PyTree:
     ``attn_shape`` at each attention position (model dtype), ``rows`` rows
     of Mamba state at each Mamba position (``conv`` and ``ssm`` in fp32,
     as the reference's pools hold them)."""
-    _check_supported(cfg)
     P = cfg.pattern_period
     n = cfg.num_layers // P
     cache = {}
@@ -547,7 +565,6 @@ def draft_window(cfg, params, cache, tok0: torch.Tensor, pos, draws, *,
     (W, B)), both on the device."""
     if not _attention_only(cfg):
         raise ValueError("draft_window requires attention-only models")
-    _check_supported(cfg)
     trainable = trainable or {}
     lora_blocks = (trainable.get("lora") or {}).get("blocks") or {}
     rescalers = trainable.get("rescaler") or {}

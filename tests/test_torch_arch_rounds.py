@@ -47,7 +47,6 @@ from repro_torch.models import model as tmodel
 
 _DATA = tsyn.DataConfig(vocab_size=128, n_examples=64, seq_len=16,
                         n_clusters=4)
-_JDATA = jsyn.DataConfig(**dataclasses.asdict(_DATA))
 _TC = tconfigs.TrainConfig(batch_size=10)
 _JTC = jbase.TrainConfig(**dataclasses.asdict(_TC))
 
@@ -93,10 +92,12 @@ def _products(lora, scale):
             @ np.asarray(p["b"], np.float64) for path, p in _pairs(lora)}
 
 
-def one_round_matches_jax(arch, method):
-    """One round in each package from the same start; the comparisons of
-    the module docstring."""
+def one_round_matches_jax(arch, method, data=_DATA):
+    """One round in each package from the same start (``data``: the
+    corpus, ``_DATA`` unless the arch reads codebook tokens); the
+    comparisons of the module docstring."""
     jcfg = _jcfg(arch)
+    jdata = jsyn.DataConfig(**dataclasses.asdict(data))
     tcfg = config_from_jax(jcfg)
     tparams = tmodel.init_params(tcfg, torch.Generator().manual_seed(0),
                                  "cpu")
@@ -104,8 +105,8 @@ def one_round_matches_jax(arch, method):
     fed = tconfigs.FederatedConfig(num_clients=4, rounds=1, method=method)
     jfed = jbase.FederatedConfig(**dataclasses.asdict(
         dataclasses.replace(fed, round_engine="looped")))
-    jexp = j_build(jcfg, fed=jfed, tc=_JTC, data=_JDATA, base_params=jparams)
-    texp = t_build(tcfg, fed=fed, tc=_TC, data=_DATA, base_params=tparams,
+    jexp = j_build(jcfg, fed=jfed, tc=_JTC, data=jdata, base_params=jparams)
+    texp = t_build(tcfg, fed=fed, tc=_TC, data=data, base_params=tparams,
                    device="cpu")
     # b drawn off zero with numpy, so the one local step moves every
     # factor (from b = 0 the step would leave each a unchanged)

@@ -86,7 +86,8 @@ def test_registry_configs_match_the_reference(arch):
 def test_registry_knows_seven_archs_and_names_the_rest():
     from repro_torch.configs import registry
     assert sorted(tconfigs.list_archs()) == sorted(
-        ARCHS + ["olmoe-1.3b-6.9b", "mamba2-780m", "jamba-v0.1-52b"])
+        ARCHS + ["olmoe-1.3b-6.9b", "mamba2-780m", "jamba-v0.1-52b",
+                 "musicgen-large"])
     assert sorted(registry._LATER) == sorted(
         set(jreg.list_archs()) - set(tconfigs.list_archs()))
     for arch, slice_ in registry._LATER.items():

@@ -181,6 +181,9 @@ _FLASH_CASES += [(256, 24, 8, 128, 0, 0), (256, 48, 1, 128, 0, 0),
                  (130, 64, 8, 128, 0, 0), (1024, 16, 16, 128, 0, 0)]
 # jamba-v0.1-52b's attention layers: GQA 32/8, D = 128
 _FLASH_CASES += [(128, 32, 8, 128, 0, 0), (256, 32, 8, 128, 0, 0)]
+# musicgen-large's: MHA 32/32 at D = 64 (a client step's 128 tokens, and
+# 1024 of the train step's)
+_FLASH_CASES += [(128, 32, 32, 64, 0, 0), (1024, 32, 32, 64, 0, 0)]
 # the tile edges of the tensor-core kernel (64-query blocks, 64-key tiles)
 _FLASH_CASES += [(S, 8, KV, D, window, 0) for S in (1, 63, 65, 128, 256)
                  for D in (32, 64, 128) for KV in (8, 2) for window in (0, 16)]
@@ -209,6 +212,37 @@ def test_cuda_flash_matches_plain(cuda, dtype, S, H, KV, D, window, pad):
     assert got.data_ptr() == out.data_ptr()
     assert torch.equal(out[..., D:], tail)
     _close_16bit(ot, tref.flash_attention_ref(qt, kt, vt, window=window))
+
+
+@pytest.mark.parametrize("dtype", _DTYPES)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KV,window", [(8, 8, 0), (8, 2, 0), (8, 2, 100)])
+def test_cuda_flash_softcap_matches_plain(cuda, dtype, D, H, KV, window):
+    """The logit softcap inside both kernels (bf16 / fp16 on mma.sync,
+    float32 on the FMA kernel), through the model-layout entry: causal
+    and windowed (the window's tile skipping), MHA and GQA, S = 300 (a
+    ragged last tile).  Inputs at three times unit scale and a cap of 10,
+    so scores pass the cap; the capped result differs from the uncapped
+    one."""
+    g = torch.Generator(device=cuda).manual_seed(D + H + KV + window)
+    q = (3 * torch.randn(2, 300, H, D, generator=g, device=cuda)).to(dtype)
+    k = (3 * torch.randn(2, 300, KV, D, generator=g, device=cuda)).to(dtype)
+    v = torch.randn(2, 300, KV, D, generator=g, device=cuda).to(dtype)
+    before = _build.LAUNCHES["flash_attention"]
+    got = backend.flash_attention(q, k, v, causal=True, window=window,
+                                  softcap=10.0)
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    want = tref.flash_attention_ref(qt, kt, vt, window=window,
+                                    softcap=10.0).transpose(1, 2)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _close_16bit(got, want)
+    free = tref.flash_attention_ref(qt, kt, vt, window=window).transpose(1, 2)
+    assert (want.float() - free.float()).abs().max() > 0.1
+    with pytest.raises(ValueError, match="softcap"):
+        t_flash(qt, kt, vt, softcap=-1.0)
 
 
 def test_cuda_flash_float32_contiguous(cuda):
@@ -549,7 +583,14 @@ def test_cuda_ragged_expert_matmul_matches_plain(cuda, dtype, kind, K, H, r):
                                      # out_proj, jamba's in_proj
                                      (8, 1536, 6448, 16), (2048, 1536, 6448, 5),
                                      (256, 3072, 1536, 10),
-                                     (2048, 4096, 16768, 16)])
+                                     (2048, 4096, 16768, 16),
+                                     # musicgen-large: q/k/v/o and the
+                                     # FFN at ranks 16 and 5
+                                     (2048, 2048, 2048, 16),
+                                     (2048, 2048, 8192, 16),
+                                     (2048, 8192, 2048, 16),
+                                     (2048, 2048, 8192, 5),
+                                     (2048, 8192, 2048, 5)])
 def test_cuda_lora_matmul_matches_plain(cuda, dtype, M, K, N, r):
     x, w, a, b = _lora_operands(cuda, (), M, K, N, r, dtype)
     before = _build.LAUNCHES["lora_matmul"]
@@ -959,12 +1000,14 @@ def test_cuda_arch_engines_match_cpu_engine(cuda, arch):
         np.testing.assert_array_equal(gpu[rid], cpu[rid], err_msg=f"rid {rid}")
 
 
-@pytest.mark.parametrize("arch", ["olmo-1.3b", "qwen2-moe-a2.7b"])
+@pytest.mark.parametrize("arch", ["olmo-1.3b", "qwen2-moe-a2.7b",
+                                  "musicgen-large"])
 def test_cuda_train_step_matches_cpu(cuda, arch):
     """``launch/steps.py``'s train step at float32 (SMOKE widths, 4 layers,
     two microbatches, √L checkpointing) on the card against the CPU:
     loss within 1e-4 relative, counts exactly, Adam's moment within 1e-5;
-    with and without checkpointing the card's loss is the same."""
+    with and without checkpointing the card's loss is the same.  The
+    audio arch trains on (B, S, K) codebook tokens."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import steps
     from repro_torch.optim import adam
@@ -976,7 +1019,8 @@ def test_cuda_train_step_matches_cpu(cuda, arch):
     lora = {"blocks": {"pos0": _map_b(lora["blocks"]["pos0"], g)}}
     resc = tlora.init_rescalers(cfg, 1, device="cpu")
     shape = ShapeConfig("t", 32, 4, "train")
-    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g,
+    tokens = torch.randint(0, cfg.vocab_size,
+                           steps.token_shape(cfg, 4, 32), generator=g,
                            dtype=torch.int32)
     batch = (tokens, tokens.roll(-1, 1), torch.ones(4, 32))
     out = {}

@@ -279,10 +279,14 @@ def test_paths_that_cannot_hold_an_ssm_state_refuse(case):
                    {"preemption": True, "slo_ms": {None: 1e3}}):
             with pytest.raises(ValueError, match="paged KV layout"):
                 ServingEngine(cfg, p, num_slots=2, slot_len=16, **kw)
-    # the model refuses only audio codebooks now
-    audio = config_from_jax(jreg.get_config("musicgen-large", "smoke"))
-    with pytest.raises(NotImplementedError, match="codebooks"):
-        tmodel.init_params(audio, torch.Generator(), "meta")
+    # the model refuses nothing of a single-card arch now (audio codebooks
+    # were the last): every registry arch builds its full-size tree
+    for arch in tconfigs.list_archs():
+        full = tconfigs.get_config(arch)
+        tree = tmodel.init_params(full, torch.Generator(), "meta")
+        K = (full.num_codebooks,) if full.num_codebooks else ()
+        assert tree["embed"]["tokens"].shape == K + (full.vocab_size,
+                                                     full.d_model), arch
 
 
 # ---------------------------------------------------------------- serving

@@ -72,8 +72,11 @@ def test_configs_match_the_reference():
 
 
 def test_registry_names_the_later_slice_for_unported_archs():
-    with pytest.raises(KeyError, match="audio-codebook slice"):
-        tconfigs.get_config("musicgen-large")
+    # the two archs that need several cards (musicgen-large, the last
+    # single-card one, is ported)
+    for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
+        with pytest.raises(KeyError, match="multi-chip slice"):
+            tconfigs.get_config(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
 
@@ -251,8 +254,14 @@ def test_later_slice_branches_raise():
     with pytest.raises(NotImplementedError, match="multi-chip slice"):
         tlayers.lora_expert_einsum(torch.ones(1, 2, 3, 4), torch.ones(2, 4, 4),
                                    None, 1.0)
-    with pytest.raises(NotImplementedError, match="softcap"):
-        tmodel.prefill(TCFG.replace(attn_logit_softcap=30.0), TPARAMS, x, k=2)
+    # logit softcap (a later slice once, ported now): the prefill's logits
+    # and cache equal JAX's blockwise capped path
+    tl, tc = tmodel.prefill(TCFG.replace(attn_logit_softcap=30.0), TPARAMS,
+                            x, k=2)
+    jl, jc = jmodel.prefill(JCFG.replace(attn_logit_softcap=30.0), JPARAMS,
+                            jnp.asarray(PROMPTS), k=2, dispatch="ragged")
+    close(tl, jl, 1e-5)
+    close(tc["pos0"]["attn"]["v"], jc["pos0"]["attn"]["v"], 1e-5)
     # the sliding-window ring (a later slice once, ported now): prefill
     # returns the rolled ring and decode writes it at pos % w, as JAX's
     ring = TCFG.replace(attention_window=4)
