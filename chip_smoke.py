@@ -5,10 +5,12 @@ the serving engine's traffic layer, self-speculative decoding, LoRA
 serving (the federated adapter unmerged), the registry's other archs,
 the single-device train step, the device round driver, the
 sliding-window ``swa`` variant, the SSM and hybrid families
-(``mamba2-780m``, ``jamba-v0.1-52b``), audio codebooks (``musicgen-large``)
-and the attention logit softcap — on one NVIDIA GPU.
+(``mamba2-780m``, ``jamba-v0.1-52b``), audio codebooks (``musicgen-large``),
+the attention logit softcap and the card mesh — on one NVIDIA GPU, and
+the mesh's multi-card steps when four are visible.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py           # every phase (one card)
+    python3 chip_smoke.py --mesh    # the build and phase 21 alone
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 nothing else of the network or the filesystem.  Phases:
@@ -251,6 +253,31 @@ nothing else of the network or the filesystem.  Phases:
    ``flex_attention`` with a tanh ``score_mod`` for a cap or a window;
    the LoRA matmul's base product); launches from the run that gave the
    shape, 0 where no path launches it;
+21. the card mesh (after 19; ``launch/mesh.py``, ``launch/sharding.py``,
+   ``launch/steps.py`` with ``mesh=``) — the parent frees its cached
+   memory and spawns one NCCL worker a card (``launch.mesh.spawn``; a
+   worker's failed check fails the phase): on one card a world of one,
+   mesh (1, 1): ``qwen3-moe-235b-a22b`` and ``llama3-405b`` at full width
+   cut to 2 layers, the mesh train step (B = 2, S = 2048, n_micro 2, the
+   adapters' ``b`` off zero, rescalers at 0.7) bit-equal to the
+   single-device ``build_train`` on the same weights and batch (loss,
+   counts, adapters, Adam's moments), launch counts, every kernel call of
+   one mesh forward (the router at E = 128, k = 8, flash at 64/4 and
+   128/8 heads, ``lora_matmul`` at q/k/v/o and llama's FFN,
+   ``lora_matmul_experts`` at 128 experts) against its plain version
+   within close_16bit and layer 0's timed beside bound, plain and
+   library; qwen3's mesh prefill and decode step bit-equal to the
+   single-device steps.  With four cards visible (``--mesh`` on a
+   four-card machine): the 2-layer qwen3 on (1, 4), (2, 2) and (2, 1, 2)
+   against rank 0's one-card run (loss and adapters within close_16bit,
+   the counts' total equal and at most 2% of routes moved, decoded
+   tokens equal or near-ties); qwen3 and llama3 at the deepest
+   whole-period cut the knob chooser's estimate fits on (2, 2) (the
+   card's memory less 8 GiB): two train steps at 4096 tokens (train_4k's
+   batch cut to 8: loss, s/step, tokens/s, peak per rank against the
+   estimate, the collectives' calls, bytes and ms), a prefill of 8 x 4096
+   tokens and 8 decode steps; then the kernels at (2, 2)'s per-rank
+   shapes timed on rank 0;
 20. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -296,6 +323,68 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _kernel_tools(torch, dev, flush):
+    """The kernel checks' rules and timer: ``close16`` (bf16 / fp16 within
+    an ulp each side), ``close`` (``close16``, or float32 within
+    1e-4·max(max|plain|, 1)), ``router`` (mask and counts exact, weights
+    within 1e-6, NaN where the plain version has NaN) and ``time_ms``
+    (mean device ms of one call over REPS calls, a 1 GiB write before
+    each: ``flush[0]``, or a new buffer when ``flush`` is empty)."""
+
+    def time_ms(fn) -> float:
+        buf = flush[0] if flush else torch.empty(
+            2 ** 28, dtype=torch.float32, device=dev)
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(REPS):
+            buf.zero_()
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            total += s.elapsed_time(e)
+        return total / REPS
+
+    def close_16bit(got, want, what):
+        """bf16 / fp16 outputs: one rounding each side, at most an ulp
+        apart -> |d| <= tol·|want| + tol, tol 1e-2 (bf16) or 2e-3 (fp16)."""
+        tol = 2e-3 if got.dtype == torch.float16 else 1e-2
+        g, w = got.float(), want.float()
+        err = (g - w).abs()
+        ok = bool((err <= tol * w.abs() + tol).all())
+        check(ok, f"{what}: max |kernel - plain| {err.max().item():.3e} "
+                  f"exceeds {tol:g}*|plain| + {tol:g}")
+        return err.max().item()
+
+    def close_any(got, want, what):
+        """close_16bit for bf16 / fp16; float32 both sides differs in
+        summation order only: |d| <= 1e-4·max(max|plain|, 1)."""
+        if got.dtype != torch.float32:
+            return close_16bit(got, want, what)
+        err = (got - want).abs().max().item()
+        check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
+              f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
+        return err
+
+    def router_check(got, want, what):
+        check(torch.equal(got[1], want[1]), f"{what}: mask differs from the "
+              "plain version")
+        check(torch.equal(got[2], want[2]), f"{what}: counts differ from the "
+              "plain version")
+        fin = ~want[0].isnan()
+        same_nan = torch.equal(got[0].isnan(), ~fin)
+        err = ((got[0] - want[0])[fin].abs().max().item()
+               if bool(fin.any()) else 0.0)
+        check(same_nan and err <= 1e-6,
+              f"{what}: weights max err {err:.3e} > 1e-6 or NaN differs")
+        return err
+
+    return {"time_ms": time_ms, "close16": close_16bit, "close": close_any,
+            "router": router_check}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -334,6 +423,13 @@ def main() -> int:
     for line in str(_build.BUILD_LOG.get("ptxas", "")).splitlines():
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(line.strip(), file=sys.stderr)
+    if "--mesh" in sys.argv[1:]:
+        # phase 21 alone (the four-card run)
+        print(json.dumps({"kernels": mesh_phase(torch)}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # a 1 GiB write before each timed call evicts the 50 MB L2 (cold
     # caches, as on the path: every layer brings new weights) and keeps the
@@ -342,44 +438,9 @@ def main() -> int:
     # (held through the kernel phase; later phases take it back per call)
     flush = [torch.empty(2 ** 28, dtype=torch.float32, device=dev)]
 
-    def time_ms(fn) -> float:
-        """Mean device ms of one call over REPS calls, L2 flushed before
-        each."""
-        buf = flush[0] if flush else torch.empty(
-            2 ** 28, dtype=torch.float32, device=dev)
-        fn()
-        torch.cuda.synchronize()
-        total = 0.0
-        for _ in range(REPS):
-            buf.zero_()
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            total += s.elapsed_time(e)
-        return total / REPS
-
-    def close_16bit(got, want, what):
-        """bf16 / fp16 outputs: one rounding each side, at most an ulp
-        apart -> |d| <= tol·|want| + tol, tol 1e-2 (bf16) or 2e-3 (fp16)."""
-        tol = 2e-3 if got.dtype == torch.float16 else 1e-2
-        g, w = got.float(), want.float()
-        err = (g - w).abs()
-        ok = bool((err <= tol * w.abs() + tol).all())
-        check(ok, f"{what}: max |kernel - plain| {err.max().item():.3e} "
-                  f"exceeds {tol:g}*|plain| + {tol:g}")
-        return err.max().item()
-
-    def close_any(got, want, what):
-        """close_16bit for bf16 / fp16; float32 both sides differs in
-        summation order only: |d| <= 1e-4·max(max|plain|, 1)."""
-        if got.dtype != torch.float32:
-            return close_16bit(got, want, what)
-        err = (got - want).abs().max().item()
-        check(err <= 1e-4 * max(want.abs().max().item(), 1.0),
-              f"{what}: max |kernel - plain| {err:.3e} > 1e-4·max|plain|")
-        return err
+    tools = _kernel_tools(torch, dev, flush)
+    time_ms, close_16bit, close_any, router_check = (
+        tools["time_ms"], tools["close16"], tools["close"], tools["router"])
 
     # the floor under any kernel's time: an empty kernel, timed alike
     floor_ms = time_ms(lambda: _build.empty_launch(flush[0]))
@@ -418,19 +479,6 @@ def main() -> int:
     # slots at tiers 8,8,4,4,2,2,1 and a free slot at 0) and at T=256
     T, E, K_TOP = 256, 64, 8
     slot_k = (8, 8, 4, 4, 2, 2, 1, 1)
-
-    def router_check(got, want, what):
-        check(torch.equal(got[1], want[1]), f"{what}: mask differs from the "
-              "plain version")
-        check(torch.equal(got[2], want[2]), f"{what}: counts differ from the "
-              "plain version")
-        fin = ~want[0].isnan()
-        same_nan = torch.equal(got[0].isnan(), ~fin)
-        err = ((got[0] - want[0])[fin].abs().max().item()
-               if bool(fin.any()) else 0.0)
-        check(same_nan and err <= 1e-6,
-              f"{what}: weights max err {err:.3e} > 1e-6 or NaN differs")
-        return err
 
     def router_bytes(n_tok, with_budgets=False):
         """bf16 logits read, fp32 weights and mask written, counts; the
@@ -1106,6 +1154,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows += audio_softcap_phase(torch, dev, check, kc)
+
+    # ------------------------------------------------ 21. the card mesh
+    rows += mesh_phase(torch)
 
     # ------------------------------------------------ 20. summary
     print(json.dumps({"kernels": rows}))
@@ -5145,6 +5196,542 @@ def _e2e_logits(model_lib, BlockPool, cfg, params, device):
             pool.advance(range(4))
             out.append(logits[:, 0].float().cpu())
     return torch.stack(out)
+
+
+# --------------------------------------------------------------------------
+# 21. the card mesh
+# --------------------------------------------------------------------------
+
+MESH_DIR = ROOT / "build" / "chip_smoke"
+MESH_SHAPES = (((1, 4), ("data", "model")), ((2, 2), ("data", "model")),
+               ((2, 1, 2), ("pod", "data", "model")))
+
+
+def _mesh_state(torch, cfg, dev, seed):
+    """Whole seeded weights and a trainable tree: adapters with ``b``
+    drawn off zero (so every factor has a gradient) and rescalers at 0.7
+    of their start."""
+    from repro_torch.core import lora as lora_lib
+    from repro_torch.models import model as model_lib
+    params = model_lib.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), dev)
+    lora = lora_lib.init_lora(torch.Generator(device=dev).manual_seed(seed + 1),
+                              cfg, params)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    for _, pair in _pairs(lora):
+        pair["b"] = (torch.randn(pair["b"].shape, generator=gen, device=dev)
+                     * 0.01).to(pair["b"].dtype)
+    resc = lora_lib.init_rescalers(cfg, cfg.moe.top_k, device=dev)
+    if resc is not None:
+        resc = {key: v * 0.7 for key, v in resc.items()}
+    return params, lora_lib.make_trainable(lora, resc)
+
+
+def _bit_equal(torch, got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+
+
+def _mesh_call_checks(torch, cfg, calls, kc, what):
+    """Every recorded kernel call of one mesh forward against its plain
+    version: the router (static, exact), flash, and the two LoRA
+    matmuls within close_16bit.  Returns {name: max err}."""
+    from repro_torch.kernels import ref
+    want_n = {"flash_attention": cfg.num_layers,
+              "lora_matmul": cfg.num_layers * (4 if cfg.moe.enabled else 7)}
+    if cfg.moe.enabled:
+        want_n.update(router=cfg.num_layers,
+                      lora_matmul_experts=3 * cfg.num_layers)
+    names = [c[0] for c in calls]
+    check(all(names.count(n) == k for n, k in want_n.items())
+          and len(names) == sum(want_n.values()),
+          f"{what}: calls {sorted((n, names.count(n)) for n in set(names))}")
+    worst = {}
+    for name, a, kw, out in calls:
+        tag = f"{what} {name}"
+        if name == "router":
+            err = kc["router"](out, ref.topk_router_ref(*a), tag)
+        elif name == "flash_attention":
+            q, k, v = (t.transpose(1, 2) for t in a)
+            err = kc["close"](out, ref.flash_attention_ref(
+                q, k, v, causal=kw["causal"], window=kw["window"],
+                softcap=kw["softcap"]).transpose(1, 2), tag)
+        elif name == "lora_matmul":
+            err = kc["close"](out, ref.lora_matmul_ref(*a, kw["scale"]), tag)
+        else:
+            err = kc["close"](out, ref.lora_matmul_experts_ref(
+                *a, kw["scale"]), tag)
+        worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def _mesh_rows(torch, calls, kc, launches, what, errs):
+    """Rows for layer 0's calls: the router, flash, the q projection's
+    ``lora_matmul`` (a dense arch: the FFN's w1 too) and the experts' w1,
+    each timed beside its bound, plain version and library call."""
+    from repro_torch.kernels import backend, ref
+    t = kc["time_ms"]
+    first = {}
+    lora = []
+    for c in calls:
+        first.setdefault(c[0], c)
+        if c[0] == "lora_matmul":
+            lora.append(c)
+    rows = []
+    if "router" in first:
+        logits, k = first["router"][1]
+        T, E = logits.shape
+        rows.append(_row(
+            f"topk_router ({what}, T={T}, E={E}, k={k})", "topk_router.cu",
+            "topk_router.py:59", errs["router"],
+            t(lambda: backend.router(logits, k)),
+            t(lambda: ref.topk_router_ref(logits, k)),
+            bound_ms(T * E * 2 + 2 * T * E * 4 + E * 4, 2.0 * T * E * k,
+                     F32_FLOPS), None, launches["topk_router"]))
+    call = first["flash_attention"]
+    f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(torch, call, kc)
+    q, k = call[1][0], call[1][1]
+    rows.append(_row(
+        f"flash_attention ({what}, B={q.shape[0]}, S={q.shape[1]}, "
+        f"H={q.shape[2]}, KV={k.shape[2]}, D={q.shape[3]})",
+        "flash_attention.cu", "flash_attention.py:92",
+        errs["flash_attention"], f_ms, f_pl,
+        bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
+        launches["flash_attention"], f_what))
+    picks = [("q", lora[0])] + ([("w1", lora[4])] if len(lora) > 4
+                                and "router" not in first else [])
+    for name, (_, (x, w, a, b), kw, _) in picks:
+        M, K = x.shape
+        N, r = w.shape[1], a.shape[1]
+        sc = kw["scale"]
+        rows.append(_row(
+            f"lora_matmul ({what} {name} {K}->{N}, r={r}, M={M})",
+            "lora_matmul.cu", "lora_matmul.py:63", errs["lora_matmul"],
+            t(lambda: backend.lora_matmul(x, w, a, b, scale=sc)),
+            t(lambda: ref.lora_matmul_ref(x, w, a, b, sc)),
+            bound_ms(2 * (M * K + K * N + K * r + r * N + M * N),
+                     2.0 * M * (K * N + K * r + r * N), BF16_FLOPS),
+            t(lambda: torch.matmul(x, w)), launches["lora_matmul"],
+            "torch.matmul(x, W), base product only"))
+    if "lora_matmul_experts" in first:
+        x, w, a, b = first["lora_matmul_experts"][1]
+        sc = first["lora_matmul_experts"][2]["scale"]
+        E, C, K = x.shape
+        N, r = w.shape[2], a.shape[2]
+        rows.append(_row(
+            f"lora_matmul_experts ({what} w1, E={E}, G·C={C}, {K}->{N}, "
+            f"r={r})", "lora_matmul.cu", "lora_matmul.py:101",
+            errs["lora_matmul_experts"],
+            t(lambda: backend.lora_matmul_experts(x, w, a, b, scale=sc)),
+            t(lambda: ref.lora_matmul_experts_ref(x, w, a, b, sc)),
+            bound_ms(2 * E * (C * K + K * N + K * r + r * N + C * N),
+                     2.0 * E * C * (K * N + K * r + r * N), BF16_FLOPS),
+            t(lambda: torch.bmm(x, w)), launches["lora_matmul_experts"],
+            "torch.bmm(x, W), base product only"))
+    return rows
+
+
+def _mesh_one(rank, world, out_dir):
+    """Phase 21 on one card: a world of one NCCL rank, mesh (1, 1).  For
+    qwen3-moe-235b-a22b and llama3-405b at full width, 2 layers: the mesh
+    train step (B = 2, S = 2048, n_micro 2) against the single-device
+    ``build_train`` on the same weights, batch and trainable tree, bit
+    for bit (loss, counts, adapters, Adam's moments); launch counts of
+    the mesh step; every kernel call of one mesh forward against its plain
+    version and layer 0's timed; for qwen3 the mesh prefill (B = 2, S =
+    512) and one decode step against a 1024-deep cache against the
+    single-device steps, bit for bit.  Writes the rows for the parent."""
+    import gc
+
+    import torch
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.parallel import Shard
+    from repro_torch.optim import adam
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kc = _kernel_tools(torch, dev, [torch.empty(
+        2 ** 28, dtype=torch.float32, device=dev)])
+    mesh = mesh_lib.make_production_mesh(mesh_shape=(1, 1))
+    rows = []
+    for arch, tag in (("qwen3-moe-235b-a22b", "Q"), ("llama3-405b", "L")):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch, "full").replace(num_layers=2)
+        params, trainable = _mesh_state(torch, cfg, dev, 31)
+        shape = ShapeConfig("train_2k", 2048, 2, "train")
+        one = steps.build_train(cfg, shape, n_micro=2, device=dev)
+        on_mesh = steps.build_train(cfg, shape, n_micro=2, device=dev,
+                                    mesh=mesh)
+        check(on_mesh.meta["num_groups"] == one.meta["num_groups"],
+              "mesh (1, 1) chose other routing groups")
+        batch = synthetic_batch(cfg, shape, torch.Generator(
+            device=dev).manual_seed(41), dev)
+        tr1, opt1, m1 = one.fn(params, trainable, adam.init(trainable),
+                               *batch)
+        p_loc = shd.shard_tree(params, on_mesh.specs["params"], mesh)
+        t_loc = shd.shard_tree(trainable, on_mesh.specs["trainable"], mesh)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        tr2, opt2, m2 = on_mesh.fn(p_loc, t_loc, adam.init(t_loc),
+                                   *(steps.shard_batch(b, mesh, 2)
+                                     for b in batch))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+        same = (torch.equal(m1["loss"], m2["loss"])
+                and _bit_equal(torch, m1["counts"], m2["counts"])
+                and _bit_equal(torch, tr1, tr2)
+                and _bit_equal(torch, opt1.mu, opt2.mu)
+                and _bit_equal(torch, opt1.nu, opt2.nu))
+        print(f"mesh (1, 1) {cfg.name} 2 layers, full width: train step "
+              f"(B=2, S=2048, n_micro 2) loss {float(m2['loss']):.6f} vs "
+              f"single-device {float(m1['loss']):.6f}, bit-equal "
+              f"(loss, counts, adapters, Adam) {same}; {dt:.3f} s; "
+              f"launches {json.dumps(launches)}")
+        check(same, f"mesh (1, 1) train step of {cfg.name} differs from the "
+              "single-device step")
+        want = ["flash_attention", "lora_matmul"] + (
+            ["topk_router", "lora_matmul_experts"] if cfg.moe.enabled else [])
+        check(all(launches[k] > 0 for k in want),
+              f"mesh train step launched {launches}")
+        del tr1, tr2, opt1, opt2
+
+        # every kernel call of one mesh forward against its plain version
+        tok, lab, mask = (b[:1] for b in batch)
+        with torch.no_grad():
+            _, calls = _recorded(torch, lambda: model_lib.lm_loss(
+                cfg, p_loc, tok, lab, mask, trainable=t_loc,
+                k=cfg.moe.top_k or None,
+                num_groups=on_mesh.meta["num_groups"], shard=Shard(mesh)))
+        errs = _mesh_call_checks(torch, cfg, calls, kc,
+                                 f"mesh (1, 1) {cfg.name}")
+        print(f"mesh (1, 1) {cfg.name}: every kernel call of one forward "
+              f"(B=1, S=2048) vs plain, max err {json.dumps(errs)}")
+        rows += _mesh_rows(torch, calls, kc, launches,
+                           f"21{tag} {cfg.name} mesh (1, 1)", errs)
+        del calls
+
+        if cfg.moe.enabled:
+            # prefill and one decode step: mesh (1, 1) against one device
+            pshape = ShapeConfig("p", 512, 2, "prefill")
+            dshape = ShapeConfig("d", 1024, 2, "decode")
+            prompt = torch.randint(0, cfg.vocab_size, (2, 512),
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(42),
+                                   device=dev, dtype=torch.int32)
+            outs = []
+            for m in (None, mesh):
+                pre = steps.build_prefill(cfg, pshape, mesh=m)
+                srv = steps.build_serve(cfg, dshape, mesh=m)
+                lg, cache = pre.fn(p_loc, t_loc, prompt)
+                full = model_lib.init_cache(cfg, 2, 1024, device=dev)
+                for key, c in cache.items():
+                    for leaf in ("k", "v"):
+                        full[key]["attn"][leaf][:, :, :512] = c["attn"][leaf]
+                nxt = lg.argmax(-1).to(torch.int32)
+                ld, full = srv.fn(p_loc, t_loc, full, nxt,
+                                  torch.tensor(512, dtype=torch.int32,
+                                               device=dev))
+                outs.append((lg, cache, ld, full))
+            (a1, b1, c1, d1), (a2, b2, c2, d2) = outs
+            same = (torch.equal(a1, a2) and _bit_equal(torch, b1, b2)
+                    and torch.equal(c1, c2) and _bit_equal(torch, d1, d2))
+            print(f"mesh (1, 1) {cfg.name}: prefill (B=2, S=512) logits and "
+                  f"cache, one decode step at 512 of a 1024-deep cache: "
+                  f"bit-equal to the single-device steps {same}")
+            check(same, "mesh (1, 1) prefill / serve differ from one device")
+            del outs, a1, b1, c1, d1, a2, b2, c2, d2
+        del params, trainable, p_loc, t_loc, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"mesh (1, 1) {cfg.name}: {time.perf_counter() - t_arch:.1f} s")
+    (Path(out_dir) / "mesh_rows_1.json").write_text(json.dumps(rows))
+
+
+def _near_tie_tokens(torch, got, want, want_logits, got_logits):
+    """Decoded tokens (B, N) equal, or each row's first divergence a near
+    tie: the one-card top-2 logit gap there no larger than the largest
+    |mesh - one-card| logit difference of that row and step."""
+    for b in range(want.shape[0]):
+        diff = (got[b] != want[b]).nonzero()
+        if len(diff) == 0:
+            continue
+        j = int(diff[0])
+        top2 = want_logits[j][b].float().topk(2).values
+        gap = float(top2[0] - top2[1])
+        d = float((got_logits[j][b].float() - want_logits[j][b].float())
+                  .abs().max())
+        check(gap <= d, f"row {b} diverges at step {j}: top-2 gap {gap:.4f} "
+              f"> max |mesh - one card| {d:.4f}")
+    return int((got != want).any(dim=1).sum())
+
+
+def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
+    """One train step (B = 4, S = 1024, n_micro 2, 2 routing groups), then a
+    prefill (B = 4, S = 256) and 4 greedy decode steps (a 512-deep cache)
+    on ``mesh`` (None: one device).  Returns loss, counts, the updated
+    adapters (whole), tokens (4, 5) and each step's logits (whole)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.optim import adam
+    shape = ShapeConfig("t", 1024, 4, "train")
+    tb = steps.build_train(cfg, shape, n_micro=2, num_groups=2, device=dev,
+                           mesh=mesh)
+    batch = synthetic_batch(cfg, shape, torch.Generator(
+        device=dev).manual_seed(43), dev)
+    p, tr = params, trainable
+    if mesh is not None:
+        p = shd.shard_tree(params, tb.specs["params"], mesh)
+        tr = shd.shard_tree(trainable, tb.specs["trainable"], mesh)
+        batch = [steps.shard_batch(b, mesh, 2) for b in batch]
+    new, _, m = tb.fn(p, tr, adam.init(tr), *batch)
+    if mesh is not None:
+        new = shd.gather_tree(new, tb.specs["trainable"], mesh)
+    pre = steps.build_prefill(cfg, ShapeConfig("p", 256, 4, "prefill"),
+                              mesh=mesh)
+    srv = steps.build_serve(cfg, ShapeConfig("d", 512, 4, "decode"),
+                            mesh=mesh)
+    prompt = torch.randint(0, cfg.vocab_size, (4, 256), generator=torch.Generator(
+        device=dev).manual_seed(44), device=dev, dtype=torch.int32)
+    rows = None if mesh is None else pre.specs["batch"]
+    if mesh is not None:
+        prompt = steps.shard_batch(prompt, mesh)
+    lg, cache = pre.fn(p, tr, prompt)
+
+    def pad(t):
+        out = t.new_zeros(t.shape[:2] + (512,) + t.shape[3:])
+        out[:, :, :256] = t
+        return out
+    cache = {key: {"attn": {leaf: pad(c["attn"][leaf]) for leaf in ("k", "v")}}
+             for key, c in cache.items()}
+    logits, toks = [lg[:, 0]], [lg.argmax(-1)]
+    for i in range(4):
+        lg, cache = srv.fn(p, tr, cache, toks[-1].to(torch.int32),
+                           torch.tensor(256 + i, dtype=torch.int32,
+                                        device=dev))
+        logits.append(lg[:, 0])
+        toks.append(lg.argmax(-1))
+    tokens = torch.cat(toks, dim=1)
+    if mesh is not None:
+        tokens = shd.gather_leaf(tokens, rows, mesh)
+        logits = [shd.gather_leaf(x, rows, mesh) for x in logits]
+    counts = m["counts"]
+    return float(m["loss"]), counts, new, tokens, logits
+
+
+def _mesh_four(rank, world, out_dir):
+    """Phase 21 with four cards: (a) qwen3-moe-235b-a22b at full width, 2
+    layers, on (1, 4), (2, 2) and (2, 1, 2) against rank 0's one-card run
+    of the same weights: loss and updated adapters within close_16bit,
+    counts' total equal and at most 2% of the routes moved, tokens equal
+    or near-ties; (b) qwen3-moe-235b-a22b and llama3-405b at the deepest
+    whole-period cut the estimate fits on (2, 2): two train steps at 4096
+    tokens (batch 8), then a prefill (8 x 4096) and 8 decode steps; (c)
+    on rank 0, the kernels at (2, 2)'s per-rank shapes timed."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import INPUT_SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import mesh_serve
+    from repro_torch.launch.train import MESH_RESERVE, mesh_train
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log = print if rank == 0 else (lambda *_: None)
+    kc = _kernel_tools(torch, dev, [torch.empty(
+        2 ** 28, dtype=torch.float32, device=dev)])
+    res = {"meshes": {}, "deep": {}}
+
+    cfg = get_config("qwen3-moe-235b-a22b", "full").replace(num_layers=2)
+    params, trainable = _mesh_state(torch, cfg, dev, 51)
+    want = None
+    if rank == 0:
+        want = _two_layer_run(torch, cfg, params, trainable, None, dev)
+        log(f"one card: {cfg.name} 2 layers loss {want[0]:.6f}, tokens "
+            f"row 0 {want[3][0].tolist()}")
+    dist.barrier()
+    for shape, axes in MESH_SHAPES:
+        mesh = mesh_lib.Mesh(shape, axes)
+        got = _two_layer_run(torch, cfg, params, trainable, mesh, dev)
+        if rank == 0:
+            # the loss is fp32 of bf16 logits: close_16bit's rule
+            loss_err = abs(got[0] - want[0])
+            check(loss_err <= 1e-2 * abs(want[0]) + 1e-2,
+                  f"mesh {shape} loss {got[0]} vs one card {want[0]}")
+            ad_err = max(kc["close"](a, b, f"mesh {shape} adapters")
+                         for a, b in zip(_leaves(got[2]), _leaves(want[2])))
+            cg, cw = got[1]["pos0"], want[1]["pos0"]
+            moved = float((cg - cw).abs().sum()) / 2
+            total = float(cw.sum())
+            check(float(cg.sum()) == total and moved <= 0.02 * total,
+                  f"mesh {shape} counts: {moved} of {total} routes moved")
+            n_div = _near_tie_tokens(torch, got[3], want[3], want[4], got[4])
+            lg_err = max(float((a.float() - b.float()).abs().max())
+                         for a, b in zip(got[4], want[4]))
+            res["meshes"][str(shape)] = {
+                "loss": got[0], "loss_one_card": want[0],
+                "adapter_err": ad_err, "routes_moved": moved,
+                "routes": total, "rows_diverged": n_div,
+                "logit_err": lg_err}
+            log(f"mesh {shape} {cfg.name} 2 layers: loss {got[0]:.6f} "
+                f"(one card {want[0]:.6f}, |d| {loss_err:.3e}), adapters max "
+                f"|d| {ad_err:.3e}, routes moved {moved:.0f} of {total:.0f}, "
+                f"decoded rows diverged {n_div} of 4 (near-ties), logits max "
+                f"|d| {lg_err:.3e}")
+        dist.barrier()
+    del params, trainable, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh = mesh_lib.Mesh((2, 2), ("data", "model"))
+    base = INPUT_SHAPES["train_4k"]
+    shape = ShapeConfig(base.name, base.seq_len, 8, "train")
+    memory = steps.device_bytes(dev) - MESH_RESERVE
+    for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
+        t_arch = time.perf_counter()
+        full = get_config(arch, "full")
+        layers = steps.deepest_fit(full, shape, mesh, memory)
+        check(layers > 0, f"{arch}: no depth fits (2, 2)")
+        cfg = full.replace(num_layers=layers)
+        log(f"deep {arch} on (2, 2): {layers} of {full.num_layers} layers "
+            f"(the deepest whole-period cut the estimate fits "
+            f"{memory / 2 ** 30:.1f} GiB a card), train_4k's batch cut "
+            f"256 -> 8")
+        _build.reset_launches()
+        tr = mesh_train(cfg, shape, mesh, dev, steps=2, seed=61, log=log)
+        launches = dict(_build.LAUNCHES)
+        gc.collect()
+        torch.cuda.empty_cache()
+        sv = mesh_serve(cfg, mesh, dev, batch=8, prompt_len=4096,
+                        cache_len=4096 + 8, new_tokens=9, seed=71, log=log)
+        meta = tr["meta"]
+        est = meta["rank_fixed_bytes"] + meta["act_bytes"]
+        res["deep"][arch] = {
+            "layers": layers, "of": full.num_layers, "meta": {
+                k: v for k, v in meta.items() if k != "mesh"},
+            "estimate_bytes": est,
+            "steps": [{k: v for k, v in s.items()} for s in tr["steps"]],
+            "train_launches": launches,
+            "prefill_s": sv["prefill_s"], "decode_ms": sv["decode_ms"],
+            "decode_tokens_per_s": sv["tokens_per_s"],
+            "decode_comm": sv["comm"], "serve_peak_bytes": sv["peak_bytes"]}
+        log(f"deep {arch}: estimate {est / 2 ** 30:.2f} GiB a rank; "
+            f"{time.perf_counter() - t_arch:.1f} s")
+        del tr, sv
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    if rank == 0:
+        rows = _mesh_rank_shape_rows(torch, dev, kc, res)
+        res["rows"] = rows
+        (Path(out_dir) / "mesh_four.json").write_text(json.dumps(res))
+
+
+def _mesh_rank_shape_rows(torch, dev, kc, res):
+    """Rank 0: the kernels at (2, 2)'s per-rank shapes of the deep runs
+    (S = 4096, one sequence a microbatch), held against their plain
+    versions and timed: flash at qwen3's 32/2 and llama3's 64/4 heads,
+    ``lora_matmul`` at qwen3's q (4096 -> 4096) and llama3's FFN w1
+    (16384 -> 26624), ``lora_matmul_experts`` at 64 local experts; the
+    router as on one card (it is replicated)."""
+    from repro_torch.kernels import backend, ref
+    gen = torch.Generator(device=dev).manual_seed(81)
+    t = kc["time_ms"]
+    rows = []
+    S = 4096
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                * scale).to(torch.bfloat16)
+
+    for arch, H, KV in (("qwen3-moe-235b-a22b", 32, 2),
+                        ("llama3-405b", 64, 4)):
+        launches = res["deep"][arch]["train_launches"]
+        q, k, v = randn(1, S, H, 128), randn(1, S, KV, 128), randn(1, S, KV, 128)
+        kw = {"causal": True, "window": 0, "softcap": 0.0}
+        err = kc["close"](backend.flash_attention(q, k, v, **kw),
+                          ref.flash_attention_ref(
+                              q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), **kw).transpose(1, 2),
+                          f"flash {arch} (2, 2)")
+        f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(
+            torch, ("flash_attention", (q, k, v), kw), kc)
+        rows.append(_row(
+            f"flash_attention (21 {arch} (2, 2) per rank, B=1, S={S}, H={H}, "
+            f"KV={KV}, D=128)", "flash_attention.cu", "flash_attention.py:92",
+            err, f_ms, f_pl, bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
+            launches["flash_attention"], f_what))
+        del q, k, v
+    for what, M, K, N, arch in (("q per rank", S, 4096, 4096,
+                                 "qwen3-moe-235b-a22b"),
+                                ("w1 per rank", S, 16384, 26624,
+                                 "llama3-405b")):
+        rows += _lora_shape_rows(
+            torch, dev, kc, f"21 {arch} (2, 2)", [(M, K, N, 16, what)],
+            res["deep"][arch]["train_launches"]["lora_matmul"], 82, 2.0)
+    E, C, K, N = 64, 8 * 168, 4096, 1536
+    x, w = randn(E, C, K), randn(E, K, N, scale=K ** -0.5)
+    a, b = randn(E, K, 16, scale=K ** -0.5), randn(E, 16, N, scale=0.5)
+    err = kc["close"](backend.lora_matmul_experts(x, w, a, b, scale=2.0),
+                      ref.lora_matmul_experts_ref(x, w, a, b, 2.0),
+                      "experts (2, 2)")
+    rows.append(_row(
+        f"lora_matmul_experts (21 qwen3 w1 (2, 2) per rank, E={E}, "
+        f"G·C={C}, {K}->{N}, r=16)", "lora_matmul.cu", "lora_matmul.py:101",
+        err, t(lambda: backend.lora_matmul_experts(x, w, a, b, scale=2.0)),
+        t(lambda: ref.lora_matmul_experts_ref(x, w, a, b, 2.0)),
+        bound_ms(2 * E * (C * K + K * N + K * 16 + 16 * N + C * N),
+                 2.0 * E * C * (K * N + K * 16 + 16 * N), BF16_FLOPS),
+        t(lambda: torch.bmm(x, w)),
+        res["deep"]["qwen3-moe-235b-a22b"]["train_launches"][
+            "lora_matmul_experts"], "torch.bmm(x, W), base product only"))
+    return rows
+
+
+def mesh_phase(torch):
+    """Phase 21: the card mesh (the module docstring).  The parent frees
+    its cached memory, then spawns the workers (one a card, NCCL); their
+    checks raise there and fail the phase.  Returns the kernel rows."""
+    import gc
+
+    from repro_torch.launch.mesh import spawn
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    n = torch.cuda.device_count()
+    print(f"mesh phase: {n} card(s) visible; mesh (1, 1) on one card "
+          "(a world of one NCCL rank)")
+    spawn(_mesh_one, 1, str(MESH_DIR), backend="nccl")
+    rows = json.loads((MESH_DIR / "mesh_rows_1.json").read_text())
+    if n >= 4:
+        cards = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip().splitlines()
+        print("mesh phase: four cards visible (" + "; ".join(cards)
+              + "): meshes (1, 4), (2, 2), (2, 1, 2) at 2 layers, then the "
+              "deepest cuts on (2, 2)")
+        spawn(_mesh_four, 4, str(MESH_DIR), backend="nccl")
+        four = json.loads((MESH_DIR / "mesh_four.json").read_text())
+        rows += four.pop("rows")
+        print(f"mesh four-card results: {json.dumps(four)}")
+    else:
+        print("mesh phase: (1, 4), (2, 2), (2, 1, 2) and the deepest cuts "
+              f"need four cards; {n} visible, so only (1, 1) ran")
+    print(f"mesh phase: {time.perf_counter() - t0:.1f} s")
+    return rows
 
 
 if __name__ == "__main__":

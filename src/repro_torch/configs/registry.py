@@ -1,11 +1,12 @@
-"""Architecture registry of the port: only the archs it can serve and train.
+"""Architecture registry of the port: the reference's twelve archs
+(``repro/configs/registry.py``).
 
-The reference registry (``repro/configs/registry.py``) knows twelve archs;
-the port knows the ten that run on one card (attention with a dense FFN,
-a routed MoE, or a routed MoE with shared experts; the Mamba-2 block,
-alone or in Jamba's period-8 hybrid stack with interleaved MoE; audio
-codebooks, ``musicgen-large``).  The two that need several cards come
-with the multi-chip slice: asking for one raises ``KeyError`` naming it.
+Ten run on one card (attention with a dense FFN, a routed MoE, or a
+routed MoE with shared experts; the Mamba-2 block, alone or in Jamba's
+period-8 hybrid stack with interleaved MoE; audio codebooks,
+``musicgen-large``).  ``qwen3-moe-235b-a22b`` and ``llama3-405b`` need
+several cards: at full width they run on the card mesh
+(``launch/mesh.py``, ``launch/steps.py`` with ``mesh=``), cut in depth.
 """
 from __future__ import annotations
 
@@ -15,24 +16,19 @@ from .base import ModelConfig
 
 _ARCH_MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
     "granite-20b": "granite_20b",
     "chameleon-34b": "chameleon_34b",
     "qwen2-moe-a2.7b": "qwen2_moe_a2_7b",
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "mamba2-780m": "mamba2_780m",
     "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "llama3-405b": "llama3_405b",
     "musicgen-large": "musicgen_large",
     # the paper's own evaluation models
     "olmo-1.3b": "olmo_1_3b",
     "olmoe-1.3b-6.9b": "olmoe_1_3b_6_9b",
 }
-
-# archs of the reference registry that later slices of the port bring
-_LATER = {
-    "qwen3-moe-235b-a22b": "the multi-chip slice",
-    "llama3-405b": "the multi-chip slice",
-}
-
 
 def list_archs():
     return list(_ARCH_MODULES)
@@ -43,9 +39,6 @@ def get_config(arch: str, variant: str = "full") -> ModelConfig:
     the sub-quadratic option required for long_500k on attention archs:
     ``attention_window`` = the module's ``SWA_WINDOW``, default 8192)."""
     if arch not in _ARCH_MODULES:
-        if arch in _LATER:
-            raise KeyError(f"arch {arch!r} is not ported yet: it comes with "
-                           f"{_LATER[arch]}; the port knows {list_archs()}")
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     module = import_module(f"repro_torch.configs.{_ARCH_MODULES[arch]}")
     if variant == "full":

@@ -1,4 +1,5 @@
-"""Serving launcher of the port: the continuous-batching engine on one device.
+"""Serving launcher of the port: the continuous-batching engine on one
+device, or the sharded prefill and serve steps on the card mesh.
 
 ``--local`` runs the adaptive-k serving engine over a synthetic open-loop
 workload — a real request queue, the block-paged KV pool, grouped prefill
@@ -45,27 +46,41 @@ dispatch, as the reference's flag (the engine refuses capacity under
   PYTHONPATH=src python -m repro_torch.launch.serve --local --device cpu \
       --dispatch capacity
 
-Flags of the reference launcher that belong to later slices of the port
-are rejected with a message naming the slice.
+Without ``--local`` (as the reference's): the sharded prefill and serve
+steps (``launch/steps.py`` with ``mesh=``) on the production mesh of the
+visible cards, ``--variant full`` by default, at ``--shape``
+(``INPUT_SHAPES``, ``decode_32k`` by default; ``--batch`` and
+``--seq-len`` cut its batch and cache depth): a prefill of
+``--prompt-len`` tokens a row, then ``--new-tokens`` greedy decode steps
+against the cache, with each rank's shard of seeded random weights; it
+prints the prefill time, decode ms per step, tokens/s, each rank's peak
+memory and every cut (the depth: ``--layers`` or the deepest whole-period
+cut whose shards and cache fit a rank).  One worker a card, started by
+the launcher (``spawn``) or by ``torchrun``; ``--device cpu`` runs
+``--world`` gloo ranks (default 2).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --batch 8 --seq-len 4096 --new-tokens 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch qwen3-moe-235b-a22b --variant smoke --multi-pod --world 2 \
+      --batch 4 --seq-len 32 --prompt-len 8 --new-tokens 2
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
-from typing import Optional, Sequence
+import time
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
-from ..configs import get_config
+from ..configs import INPUT_SHAPES, ShapeConfig, get_config
 from ..models import model as model_lib
 from ..obs import MetricsRegistry, Tracer
 from ..serving import (ServingEngine, SpeculativeConfig, WorkloadConfig,
                        make_trace)
-
-LATER_FLAGS = {
-    "--shape": "the multi-chip slice (the production-mesh serve step)",
-    "--multi-pod": "the multi-chip slice (the production-mesh serve step)",
-}
+from ..tree import tree_map
 
 
 def parse_mix(spec: str, top_k: int):
@@ -132,12 +147,195 @@ def add_depth_flag(ap: argparse.ArgumentParser) -> None:
                          "of the layer pattern's period (0: the variant's)")
 
 
+def add_mesh_flags(ap: argparse.ArgumentParser, shape: str) -> None:
+    """The mesh launchers' flags (train.py and serve.py)."""
+    ap.add_argument("--shape", default=shape, choices=sorted(INPUT_SHAPES),
+                    help="the mesh step's input shape")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="a 2-way pod axis in front: (pod, data, model)")
+    ap.add_argument("--mesh-shape", default="",
+                    help="override the production mesh, e.g. 1,4 or 2,1,2")
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks to start (default: the visible cards; 2 "
+                         "gloo ranks with --device cpu)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="cut the shape's global batch to this")
+    ap.add_argument("--seq-len", type=int, default=0,
+                    help="cut the shape's sequence (train) or cache depth "
+                         "(decode) to this")
+    ap.add_argument("--timeout", type=float, default=0,
+                    help="seconds after which the spawned workers are "
+                         "killed (0: none)")
+
+
+def run_on_mesh(worker: Callable, args) -> None:
+    """Run ``worker(rank, world, vars(args))`` on every rank: under
+    ``torchrun`` in this process, else in one spawned process a rank."""
+    from . import mesh as mesh_lib
+    cuda = args.device == "cuda"
+    if cuda and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible "
+                         "(pass --device cpu for the plain versions)")
+    backend = "nccl" if cuda else "gloo"
+    opts = dict(vars(args))
+    opts["mesh_shape"] = (tuple(int(v) for v in args.mesh_shape.split(","))
+                          if args.mesh_shape else None)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        import torch.distributed as dist
+        rank, world = mesh_lib.init_from_env(backend)
+        try:
+            worker(rank, world, opts)
+        finally:
+            dist.destroy_process_group()
+        return
+    world = args.world or (torch.cuda.device_count() if cuda else 2)
+    mesh_lib.spawn(worker, world, opts, backend=backend,
+                   timeout=args.timeout or None)
+
+
+def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
+               cache_len: int, new_tokens: int, seed: int = 0,
+               k: Optional[int] = None,
+               log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """The sharded prefill of ``batch`` random prompts of ``prompt_len``
+    tokens, then ``new_tokens`` greedy decode steps against a
+    ``cache_len``-deep cache, on this rank of ``mesh`` (every rank calls
+    it; ``log`` prints on rank 0).  Returns the prefill s, each decode
+    step's ms, the decoded tokens (batch, new_tokens) of the whole batch,
+    the collectives of the decode steps and each rank's peak bytes (the
+    card only)."""
+    from ..models import parallel
+    from . import sharding as shd
+    from . import steps as steps_lib
+    from .mesh import rank_peaks
+    device = torch.device(device)
+    pre = steps_lib.build_prefill(
+        cfg, ShapeConfig("prefill", prompt_len, batch, "prefill"), k=k,
+        mesh=mesh)
+    srv = steps_lib.build_serve(
+        cfg, ShapeConfig("decode", cache_len, batch, "decode"), k=k,
+        mesh=mesh)
+    params = shd.init_sharded_params(cfg, mesh, seed, device)
+    trainable = shd.init_sharded_lora(cfg, mesh, seed + 1, pre.meta["k"] or 0,
+                                      device)
+    gen = torch.Generator(device=device).manual_seed(seed + 200)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                            generator=gen, device=device, dtype=torch.int32)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = pre.fn(params, trainable,
+                           steps_lib.shard_batch(prompts, mesh))
+    sync()
+    prefill_s = time.perf_counter() - t0
+
+    def pad(t):
+        out = t.new_zeros(t.shape[:2] + (cache_len,) + t.shape[3:])
+        out[:, :, :t.shape[2]] = t
+        return out
+    cache = tree_map(pad, cache)
+    nxt = logits.argmax(-1).to(torch.int32)
+    toks, step_ms = [nxt], []
+    parallel.comm_start()
+    for i in range(new_tokens - 1):
+        pos = torch.tensor(prompt_len + i, dtype=torch.int32, device=device)
+        t0 = time.perf_counter()
+        logits, cache = srv.fn(params, trainable, cache, nxt, pos)
+        nxt = logits.argmax(-1).to(torch.int32)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        toks.append(nxt)
+    comm = parallel.comm_stop()
+    rows = shd.batch_spec(batch, mesh, 1)
+    tokens = shd.gather_leaf(torch.cat(toks, dim=1), rows, mesh)
+    peaks = rank_peaks(device) if on_card else None
+    decode_s = sum(step_ms) / 1e3
+    out = {"prefill_s": prefill_s, "decode_ms": step_ms, "tokens": tokens,
+           "comm": comm, "peak_bytes": peaks,
+           "tokens_per_s": (batch * len(step_ms) / decode_s
+                            if decode_s else 0.0)}
+    med = sorted(step_ms)[len(step_ms) // 2] if step_ms else 0.0
+    peak = ("not measured (CPU)" if peaks is None else
+            "[" + ", ".join(f"{p / 2 ** 30:.2f}" for p in peaks) + "] GiB")
+    log(f"{cfg.name} ({cfg.num_layers} layers) on mesh {dict(mesh.shape)}: "
+        f"prefill {batch} x {prompt_len} tokens {prefill_s:.3f} s, "
+        f"{len(step_ms)} decode steps against a {cache_len}-deep cache: "
+        f"p50 {med:.2f} ms, {out['tokens_per_s']:.1f} tokens/s; peak per "
+        f"rank {peak}; decode collectives {comm['calls']} calls, "
+        f"{comm['bytes'] / 2 ** 20:.2f} MiB, {comm['ms']:.1f} ms")
+    log(f"tokens of row 0: {tokens[0].tolist()}")
+    return out
+
+
+def serve_fit(cfg, batch: int, cache_len: int, mesh, memory_bytes: int,
+              reserve: int = 8 * 2 ** 30) -> int:
+    """The most layers, in whole periods, whose shards and decode cache
+    fit one rank beside ``reserve`` bytes."""
+    from . import sharding as shd
+    from . import steps as steps_lib
+    P = cfg.pattern_period
+
+    def fits(n):
+        c = cfg.replace(num_layers=n * P)
+        p = steps_lib.abstract_params(c)
+        cache = steps_lib.abstract_cache(c, batch, cache_len)
+        need = (steps_lib.rank_bytes(p, shd.param_specs(c, p, mesh), mesh)
+                + steps_lib.rank_bytes(cache, shd.cache_specs(
+                    c, cache, mesh, batch), mesh))
+        return need + reserve <= memory_bytes
+
+    return steps_lib.most_periods(fits, cfg.num_layers // P) * P
+
+
+def _serve_worker(rank: int, world: int, opts: dict) -> None:
+    from . import mesh as mesh_lib
+    from . import steps as steps_lib
+    args = argparse.Namespace(**opts)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if args.device == "cuda" else torch.device("cpu"))
+    log = print if rank == 0 else (lambda *_: None)
+    mesh = mesh_lib.make_production_mesh(multi_pod=args.multi_pod,
+                                         mesh_shape=args.mesh_shape)
+    cfg = get_config(args.arch, args.variant or "full")
+    base = INPUT_SHAPES[args.shape]
+    batch = args.batch or base.global_batch
+    cache_len = args.seq_len or base.seq_len
+    cuts = [f"{what} {a} -> {b}" for what, a, b in (
+        ("batch", base.global_batch, batch),
+        ("cache depth", base.seq_len, cache_len)) if a != b]
+    layers = args.layers or serve_fit(cfg, batch, cache_len, mesh,
+                                      steps_lib.device_bytes(device))
+    if not layers:
+        raise SystemExit(f"{cfg.name}: not one period fits a rank with a "
+                         f"{batch} x {cache_len} cache")
+    if layers != cfg.num_layers:
+        cuts.append(f"depth {cfg.num_layers} -> {layers} layers")
+    cfg = cut_depth(cfg, layers)
+    log(f"cut: {', '.join(cuts) or 'none'}")
+    mesh_serve(cfg, mesh, device, batch=batch,
+               prompt_len=min(args.prompt_len, cache_len - args.new_tokens),
+               cache_len=cache_len, new_tokens=args.new_tokens, k=args.k,
+               log=log)
+    log("done")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
     ap.add_argument("--variant", choices=("smoke", "full", "swa"),
-                    default="smoke")
+                    default=None,
+                    help="default smoke with --local, full on the mesh")
     add_depth_flag(ap)
+    add_mesh_flags(ap, "decode_32k")
+    ap.add_argument("--prompt-len", type=int, default=128,
+                    help="mesh: prompt tokens a row of the prefill")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (plain versions)")
     ap.add_argument("--k", type=int, default=None,
@@ -213,25 +411,17 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
-    ap = build_parser()
-    args, extra = ap.parse_known_args(argv)
-    for tok in extra:
-        flag = tok.split("=", 1)[0]
-        if flag in LATER_FLAGS:
-            raise SystemExit(f"{flag}: comes with {LATER_FLAGS[flag]} of "
-                             "the PyTorch port")
-    if extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    args = build_parser().parse_args(argv)
     if not args.local:
-        raise SystemExit("without --local the reference builds the sharded "
-                         "production-mesh serve step, which comes with the "
-                         "multi-chip slice of the PyTorch port")
+        run_on_mesh(_serve_worker, args)
+        return
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device here "
                          "(pass --device cpu for the plain versions)")
 
-    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
+    cfg = cut_depth(get_config(args.arch, args.variant or "smoke"),
+                    args.layers)
     if cfg.num_codebooks > 0:
         raise SystemExit(f"{cfg.name}: the serving engine is text-only; "
                          "codebook (audio) archs have no engine path yet")

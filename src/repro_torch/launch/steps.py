@@ -1,5 +1,5 @@
-"""Single-device step functions: the port of ``repro/launch/steps.py``
-without the mesh and the sharding.
+"""Step functions: the port of ``repro/launch/steps.py``, on one device
+or on the card mesh (``mesh=``).
 
 One build function per input-shape kind:
 
@@ -41,6 +41,25 @@ misses), the plain SSD's (H, L, L) fp32 transients, 3·S·H·L·4 bytes (the
 reference's rule), the one-hot dispatch tensors of a capacity MoE layer,
 and the cross-entropy's fp32 logits that autograd keeps for every
 chunk.
+
+The mesh (``mesh=`` a ``launch.mesh.Mesh``; ``None`` keeps the
+single-device step, bit for bit).  Every rank calls the step on its
+shards (``launch/sharding.py``: ``shard_tree`` or ``init_sharded_*``)
+and its rows of the batch (:func:`shard_batch`); the model runs its
+sharded path (``models/parallel.py``).  The train step then all-reduces
+over the batch axes the gradient of every leaf not split on ``data``
+(those split there were reduce-scattered by their gather's backward; the
+``pod`` axis is all-reduced after it), and the activation counts; the
+clipping norm sums each leaf's squares over the axes the leaf is split
+on.  The loss is the global batch's masked mean on every rank.  The knob
+chooser follows the reference's data-parallel arithmetic against each
+rank's own bytes (its shards and trainable state, a layer's FSDP gathers
+and the LoRA backward's fp32 copies, its activations with heads, FFN
+columns, experts and vocabulary split ``model`` ways, all of what
+``memory_bytes`` leaves: no fraction is held back, so a caller passes the
+card's memory less its reserve);
+``act_mode`` stays ``"batch"``, and a step that would need ``"dmodel"``
+or ``"seq"`` raises, naming the next multi-chip slice.
 """
 from __future__ import annotations
 
@@ -55,8 +74,10 @@ from ..core import lora as lora_lib
 from ..federated import client as client_lib
 from ..models import mamba2 as ssm_mod
 from ..models import model as model_lib
+from ..models.parallel import Shard, all_reduce
 from ..optim import adam
-from ..tree import leaves, tree_map
+from ..tree import leaves, tree_map, tree_map_with_path
+from . import sharding as shd
 
 PyTree = Any
 _F32 = torch.float32
@@ -70,8 +91,9 @@ ACT_BUDGET_FRACTION = 0.5
 class StepBundle:
     name: str
     fn: Any                      # the step, a plain callable on tensors
-    args: Tuple[PyTree, ...]     # example args (meta tensors)
+    args: Tuple[PyTree, ...]     # example args (meta tensors, global shapes)
     meta: Dict[str, Any]
+    specs: Optional[Dict[str, Any]] = None   # the mesh's spec trees
 
 
 # --------------------------------------------------------------------------
@@ -149,10 +171,13 @@ def _remat_chunk(n_periods: int) -> int:
 
 
 def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
-                     k: Optional[int] = None) -> int:
+                     k: Optional[int] = None, model_ways: int = 1) -> int:
     """Estimated peak autograd footprint of one sequence of ``seq_len``
     tokens under layer checkpointing (the module docstring lists the
-    terms), over the P positions of one period."""
+    terms), over the P positions of one period.  ``model_ways``: on the
+    mesh, the terms that scale with heads, FFN columns, expert slots and
+    the vocabulary are one rank's share."""
+    M = model_ways
     S, d = seq_len, cfg.d_model
     n_periods = cfg.num_layers // cfg.pattern_period
     n_saved = (n_periods // remat_chunk + remat_chunk if remat_chunk > 1
@@ -165,7 +190,7 @@ def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
     acts = extra = 0
     if "attn" in kinds:
         # the plain flash backward's (H, S, S) fp32 recompute, one layer
-        extra += 3 * cfg.n_heads * S * S * 4
+        extra += 3 * cfg.n_heads * S * S * 4 // M
     if "ssm" in kinds:
         # the SSD's (H, L, L) fp32 transients and their gradients, as the
         # reference's knob rule counts them (one layer at a time)
@@ -173,37 +198,150 @@ def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
         extra += 3 * S * dims["n_heads"] * min(cfg.ssm.chunk_size, S) * 4
     for j, kind in enumerate(kinds):
         if kind == "attn":
-            acts += S * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd + 2 * S * d
+            acts += (S * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd // M
+                     + 2 * S * d)
         else:
             acts += S * (dims["in_dim"] + dims["conv_dim"]
                          + 2 * dims["d_inner"]) + 2 * S * d
         if cfg.layer_is_moe(j):
             kk = k or m.top_k
             group = min(S, 2048)
-            acts += S * kk * 3 * m.d_expert + S * 3 * m.d_shared_expert
+            acts += (S * kk * 3 * m.d_expert + S * 3 * m.d_shared_expert) // M
             # (G, Tg, E, C) fp32 dispatch and combine: C ~ Tg·k·cf/E
             acts += int(2 * S * group * kk * m.capacity_factor)
         else:
-            acts += S * 3 * cfg.d_ff
+            acts += S * 3 * cfg.d_ff // M
     # one period's activations and their gradients, fp32 at most
     layer = 2 * 4 * acts
-    ce = S * cfg.vocab_size * 6          # fp32 logits kept + a bf16 chunk
+    ce = S * cfg.vocab_size * 6 // M     # fp32 logits kept + a bf16 chunk
     return carries + layer + extra + ce
+
+
+def _data_size(mesh) -> int:
+    n = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+    return n
+
+
+def rank_bytes(tree: PyTree, specs: PyTree, mesh) -> int:
+    """Bytes of one rank's shards of ``tree`` (abstract leaves)."""
+    total = 0
+
+    def add(path, leaf):
+        nonlocal total
+        n = 1
+        for d in shd.local_shape(leaf.shape, shd.specs_at(specs, path),
+                                 mesh):
+            n *= d
+        total += n * leaf.element_size()
+    tree_map_with_path(add, tree)
+    return total
+
+
+def _period_gather_bytes(cfg: ModelConfig, a_params, mesh) -> int:
+    """A period's frozen weights as one rank holds them after the FSDP
+    gather (split ``model`` ways only), times three: the gathered copy and,
+    in the backward, the LoRA backward's fp32 copy."""
+    n = cfg.num_layers // cfg.pattern_period
+    per = sum(t.numel() * t.element_size()
+              for t in leaves(a_params["blocks"])) // max(n, 1)
+    return 3 * per // mesh.shape.get("model", 1)
+
+
+def _mesh_knobs(cfg, shape, mesh, memory_bytes, k):
+    """The reference's data-parallel n_micro rule against one rank's
+    bytes (the module docstring): the microbatch's activations must fit
+    what ``memory_bytes`` leaves after the rank's shards, trainable state
+    and FSDP gathers."""
+    dp = _data_size(mesh)
+    M = mesh.shape.get("model", 1)
+    B, S = shape.global_batch, shape.seq_len
+    n_periods = cfg.num_layers // cfg.pattern_period
+    chunk = _remat_chunk(n_periods)
+    per_seq = activation_bytes(cfg, S, chunk, k, model_ways=M)
+    a_params = abstract_params(cfg)
+    a_train = tree_map(lambda t: t.to(_F32), abstract_trainable(cfg, k or 0))
+    param_bytes = rank_bytes(a_params, shd.param_specs(cfg, a_params, mesh),
+                             mesh)
+    train_bytes = 4 * rank_bytes(
+        a_train, shd.trainable_specs(cfg, a_train, mesh), mesh)
+    fixed = param_bytes + train_bytes + _period_gather_bytes(cfg, a_params,
+                                                             mesh)
+    # the gathers' fp32 copies are counted in ``fixed`` and the activations
+    # at their worst, so a rank's budget is all that is left of
+    # ``memory_bytes`` (the caller keeps its reserve out of it)
+    budget = max(memory_bytes - fixed, 0)
+    n_micro = 1
+    while n_micro < B // max(dp, 1):
+        if max(B // (n_micro * dp), 1) * per_seq <= budget:
+            break
+        n_micro *= 2
+    mb_local = max(B // (n_micro * dp), 1)
+    if mb_local * per_seq > budget:
+        raise NotImplementedError(
+            f"{cfg.name} x {shape.name} on {mesh.shape}: one sequence's "
+            f"activations ({per_seq / 2 ** 30:.2f} GiB) exceed a rank's "
+            f"budget ({budget / 2 ** 30:.2f} GiB); the reference would shard "
+            "them (act_mode dmodel), which comes with the next multi-chip "
+            "slice: cut the depth or the sequence")
+    return {"n_micro": n_micro, "act_mode": "batch",
+            "remat_chunk": chunk if chunk > 1 else 0,
+            "act_bytes": mb_local * per_seq, "act_budget": budget,
+            "rank_param_bytes": param_bytes, "rank_train_bytes": train_bytes,
+            "rank_fixed_bytes": fixed}
+
+
+def deepest_fit(cfg: ModelConfig, shape: ShapeConfig, mesh,
+                memory_bytes: int, k: Optional[int] = None) -> int:
+    """The most layers, in whole periods of the layer pattern, at which
+    one rank's shards, trainable state, FSDP gathers and one microbatch's
+    activations fit ``memory_bytes`` by :func:`choose_train_knobs`'s
+    estimate on the ``mesh``; 0 if not even one period fits."""
+    P = cfg.pattern_period
+
+    def fits(n):
+        try:
+            _mesh_knobs(cfg.replace(num_layers=n * P), shape, mesh,
+                        memory_bytes, k)
+            return True
+        except NotImplementedError:
+            return False
+
+    return most_periods(fits, cfg.num_layers // P) * P
+
+
+def most_periods(fits, n_periods: int) -> int:
+    """The largest n <= ``n_periods`` with ``fits(n)`` (``fits`` holding
+    for every smaller n too), 0 if none."""
+    lo, hi = 0, n_periods
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if fits(mid):
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
 
 
 def choose_train_knobs(cfg: ModelConfig, shape: ShapeConfig, *,
                        memory_bytes: Optional[int] = None,
-                       device="cuda", k: Optional[int] = None
-                       ) -> Dict[str, Any]:
+                       device="cuda", k: Optional[int] = None,
+                       mesh=None) -> Dict[str, Any]:
     """Pick (n_micro, remat_chunk) so one microbatch's footprint fits the
     card's activation budget (the module docstring's rule): two-level √L
     checkpointing, and the fewest microbatches that fit (n_micro doubles
     from 1; a model whose one-sequence microbatch does not fit gets
     ``n_micro = global_batch``).  ``act_mode`` is always ``"batch"``: one
     card has no other axis to shard the activations over.  ``memory_bytes``
-    defaults to :func:`device_bytes` of ``device``."""
+    defaults to :func:`device_bytes` of ``device``.  On the ``mesh``: the
+    reference's data-parallel rule against one rank's bytes
+    (``n_micro`` up to B / data ways; the module docstring)."""
     if memory_bytes is None:
         memory_bytes = device_bytes(device)
+    if mesh is not None:
+        return _mesh_knobs(cfg, shape, mesh, memory_bytes, k)
     B, S = shape.global_batch, shape.seq_len
     n_periods = cfg.num_layers // cfg.pattern_period
     chunk = _remat_chunk(n_periods)
@@ -227,11 +365,12 @@ def choose_train_knobs(cfg: ModelConfig, shape: ShapeConfig, *,
 
 
 def choose_num_groups(cfg: ModelConfig, batch: int, seq: int,
-                      target_group: int = 2048) -> int:
-    """GShard routing groups of the capacity dispatch: T_g stays near
-    ``target_group`` tokens, since capacity C grows with T_g·k/E and the
-    (G, T_g, E, C) one-hots with T_g squared.  (The reference also rounds
-    G up to the data parallelism, which is 1 here.)"""
+                      target_group: int = 2048, mesh=None) -> int:
+    """GShard routing groups of the capacity dispatch over ``batch`` x
+    ``seq`` global tokens: T_g stays near ``target_group`` tokens, since
+    capacity C grows with T_g·k/E and the (G, T_g, E, C) one-hots with T_g
+    squared; on the ``mesh`` G is rounded up to the data parallelism, so
+    each rank holds whole groups (as the reference's)."""
     if not cfg.moe.enabled:
         return 1
     T = batch * seq
@@ -240,6 +379,9 @@ def choose_num_groups(cfg: ModelConfig, batch: int, seq: int,
     g = 1
     while g * 2 <= T // target_group and T % (g * 2) == 0:
         g *= 2
+    dp = 1 if mesh is None else _data_size(mesh)
+    while g < dp and T % (g * 2) == 0:     # >= one group per data shard
+        g *= 2
     return g
 
 
@@ -247,14 +389,58 @@ def choose_num_groups(cfg: ModelConfig, batch: int, seq: int,
 # train step
 # --------------------------------------------------------------------------
 
+def shard_batch(t: torch.Tensor, mesh, n_micro: int = 1) -> torch.Tensor:
+    """This rank's rows of a global batch (B, ...): microbatch ``i`` is
+    global rows ``[i·mb, (i+1)·mb)`` split over the batch axes, as the
+    reference's train step reshapes its batch (with ``n_micro`` 1, the
+    batch spec's contiguous block).  A batch that does not divide the
+    batch axes is replicated: every rank gets it whole."""
+    dp = _data_size(mesh)
+    B = t.shape[0]
+    if B % (dp * n_micro):
+        if n_micro == 1:
+            return t
+        raise ValueError(f"batch {B} does not split into {n_micro} "
+                         f"microbatches over {dp} data ways")
+    mb = B // n_micro
+    mbl = mb // dp
+    i = mesh.index(tuple(a for a in ("pod", "data")
+                         if a in mesh.axis_names))
+    return torch.cat([t[j * mb + i * mbl:j * mb + (i + 1) * mbl]
+                      for j in range(n_micro)])
+
+
+def _reduce_grads(grads: PyTree, t_specs: PyTree, mesh) -> PyTree:
+    """Each leaf's gradient all-reduced over the batch axes it is not
+    split on (a leaf split on ``data`` was reduce-scattered there)."""
+    baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+    def red(path, g):
+        axes = shd.spec_axes(shd.specs_at(t_specs, path))
+        group = mesh.group(tuple(a for a in baxes if a not in axes))
+        return g if group is None else all_reduce(g, group)
+    return tree_map_with_path(red, grads)
+
+
+def _norm_groups(t_specs: PyTree, mesh) -> PyTree:
+    return tree_map(lambda spec: mesh.group(shd.spec_axes(spec)), t_specs)
+
+
 def make_train_step(cfg: ModelConfig, *, k: Optional[int], tc: TrainConfig,
                     n_micro: int, num_groups: int, remat: bool = True,
-                    remat_chunk: int = 0, rescaler_trainable: bool = True):
+                    remat_chunk: int = 0, rescaler_trainable: bool = True,
+                    mesh=None, t_specs: Optional[PyTree] = None):
     """Returns step(params, trainable, opt_state, tokens, labels, mask)
     -> (trainable, opt_state, metrics): the reference's step.  Gradients
     of the ``n_micro`` microbatches are summed in fp32 in order and divided
     by ``n_micro``; the loss is their mean; ``metrics["counts"]`` sums the
-    activation counts per ``pos{p}``."""
+    activation counts per ``pos{p}``.  On the ``mesh`` (with the trainable
+    tree's spec tree ``t_specs``): the module docstring's reductions; the
+    batch is this rank's rows (:func:`shard_batch` with ``n_micro``), the
+    loss, counts and token count the global batch's."""
+    shard = None if mesh is None else Shard(mesh)
+    dp = 1 if mesh is None else _data_size(mesh)
+    norm_groups = None if mesh is None else _norm_groups(t_specs, mesh)
 
     def step(params, trainable, opt_state, tokens, labels, mask):
         B, S = tokens.shape[:2]
@@ -274,7 +460,7 @@ def make_train_step(cfg: ModelConfig, *, k: Optional[int], tc: TrainConfig,
             loss, counts = model_lib.lm_loss(
                 cfg, params, tokens[sl], labels[sl], mask[sl], trainable=tr,
                 k=k, remat=remat, remat_chunk=remat_chunk,
-                num_groups=num_groups)
+                num_groups=num_groups, shard=shard)
             grads = torch.autograd.grad(loss, flat, allow_unused=True)
             for t, g in zip(flat, grads):
                 if g is not None:
@@ -283,15 +469,22 @@ def make_train_step(cfg: ModelConfig, *, k: Optional[int], tc: TrainConfig,
                 c_acc[key] = c_acc[key] + counts[key]
             l_acc = l_acc + loss.detach().to(_F32)
         grads = tree_map(lambda t: g_acc[id(t)] / n_micro, tr)
+        if mesh is not None:
+            grads = _reduce_grads(grads, t_specs, mesh)
+            group = shard.batch
+            if group is not None:
+                c_acc = {key: all_reduce(c, group)
+                         for key, c in c_acc.items()}
         if not rescaler_trainable and "rescaler" in grads:
             grads["rescaler"] = tree_map(torch.zeros_like,
                                          grads["rescaler"])
         new_trainable, new_opt = adam.update(
             grads, opt_state, trainable, lr=tc.learning_rate,
             beta1=tc.beta1, beta2=tc.beta2, eps=tc.eps,
-            weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
+            weight_decay=tc.weight_decay, grad_clip=tc.grad_clip,
+            norm_groups=norm_groups)
         metrics = {"loss": l_acc / n_micro, "counts": c_acc,
-                   "tokens": float(B * S)}
+                   "tokens": float(B * S * dp)}
         return new_trainable, new_opt, metrics
 
     return step
@@ -309,83 +502,129 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, *,
                 n_micro: Optional[int] = None,
                 num_groups: Optional[int] = None,
                 remat_chunk: Optional[int] = None, remat: bool = True,
-                device="cuda") -> StepBundle:
+                device="cuda", mesh=None,
+                memory_bytes: Optional[int] = None) -> StepBundle:
     """The train step with its knobs: each one not given is chosen by
-    :func:`choose_train_knobs` for ``device``'s memory and
-    :func:`choose_num_groups`."""
+    :func:`choose_train_knobs` for ``device``'s memory (or
+    ``memory_bytes``) and :func:`choose_num_groups`.  ``mesh``: the card
+    mesh's step (the module docstring); ``specs`` holds the parameter,
+    trainable and optimizer spec trees, and ``meta`` each rank's bytes."""
     tc = tc or TrainConfig()
     k = k if k is not None else (cfg.moe.top_k or None)
-    knobs = choose_train_knobs(cfg, shape, device=device, k=k)
+    knobs = choose_train_knobs(cfg, shape, device=device, k=k, mesh=mesh,
+                               memory_bytes=memory_bytes)
     n_micro = n_micro if n_micro is not None else knobs["n_micro"]
     remat_chunk = (remat_chunk if remat_chunk is not None
                    else knobs["remat_chunk"])
     num_groups = (num_groups if num_groups is not None else
                   choose_num_groups(cfg, shape.global_batch // n_micro,
-                                    shape.seq_len))
+                                    shape.seq_len, mesh=mesh))
+    args = _train_args(cfg, shape, k)
+    specs = t_specs = None
+    if mesh is not None:
+        if shape.global_batch % (n_micro * _data_size(mesh)):
+            raise ValueError(f"global batch {shape.global_batch} does not "
+                             f"split into {n_micro} microbatches over "
+                             f"{_data_size(mesh)} data ways")
+        t_specs = shd.trainable_specs(cfg, args[1], mesh)
+        specs = {"params": shd.param_specs(cfg, args[0], mesh),
+                 "trainable": t_specs, "opt": shd.opt_specs(t_specs),
+                 "batch": shd.batch_spec(shape.global_batch, mesh,
+                                         len(args[3].shape) - 1)}
     step = make_train_step(cfg, k=k, tc=tc, n_micro=n_micro,
                            num_groups=num_groups, remat=remat,
-                           remat_chunk=remat_chunk)
-    args = _train_args(cfg, shape, k)
-    return StepBundle(
-        name="train_step", fn=step, args=args,
-        meta={"n_micro": n_micro, "act_mode": knobs["act_mode"],
-              "num_groups": num_groups, "k": k, "remat": remat,
-              "remat_chunk": remat_chunk,
-              "param_bytes": state_bytes(args[0]),
-              "trainable_bytes": state_bytes(args[1]),
-              "act_bytes": knobs["act_bytes"],
-              "act_budget": knobs["act_budget"]})
+                           remat_chunk=remat_chunk, mesh=mesh,
+                           t_specs=t_specs)
+    meta = {"n_micro": n_micro, "act_mode": knobs["act_mode"],
+            "num_groups": num_groups, "k": k, "remat": remat,
+            "remat_chunk": remat_chunk,
+            "param_bytes": state_bytes(args[0]),
+            "trainable_bytes": state_bytes(args[1]),
+            "act_bytes": knobs["act_bytes"],
+            "act_budget": knobs["act_budget"]}
+    if mesh is not None:
+        meta.update(mesh=dict(mesh.shape),
+                    **{key: knobs[key] for key in (
+                        "rank_param_bytes", "rank_train_bytes",
+                        "rank_fixed_bytes")})
+    return StepBundle(name="train_step", fn=step, args=args, meta=meta,
+                      specs=specs)
 
 
 # --------------------------------------------------------------------------
 # prefill and serve (decode) steps
 # --------------------------------------------------------------------------
 
+def _mesh_specs(cfg, shape, mesh, a_params, a_train, a_cache):
+    return {"params": shd.param_specs(cfg, a_params, mesh),
+            "trainable": shd.trainable_specs(cfg, a_train, mesh),
+            "cache": shd.cache_specs(cfg, a_cache, mesh, shape.global_batch),
+            "batch": shd.batch_spec(shape.global_batch, mesh, 1)}
+
+
+def _shard_for(mesh, batch: int):
+    if mesh is None:
+        return None
+    return Shard(mesh, batch_sharded=batch % _data_size(mesh) == 0)
+
+
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *,
                   k: Optional[int] = None,
-                  num_groups: Optional[int] = None) -> StepBundle:
-    """fn(params, trainable, tokens) -> (last logits (B, 1, V), cache)."""
+                  num_groups: Optional[int] = None, mesh=None) -> StepBundle:
+    """fn(params, trainable, tokens) -> (last logits (B, 1, V), cache).
+    On the ``mesh``: this rank's shards and rows (:func:`shard_batch`), the
+    logits whole, the cache this rank's rows and KV heads
+    (``sharding.cache_specs``, in ``specs["cache"]``)."""
     k = k if k is not None else (cfg.moe.top_k or None)
     num_groups = (num_groups if num_groups is not None else
-                  choose_num_groups(cfg, shape.global_batch, shape.seq_len))
+                  choose_num_groups(cfg, shape.global_batch, shape.seq_len,
+                                    mesh=mesh))
+    shard = _shard_for(mesh, shape.global_batch)
 
     def step(params, trainable, tokens):
         return model_lib.prefill(cfg, params, tokens, trainable=trainable,
                                  k=k, num_groups=num_groups,
-                                 dispatch="capacity")
+                                 dispatch="capacity", shard=shard)
 
     a_params = abstract_params(cfg)
+    a_train = abstract_trainable(cfg, k or 0)
+    a_cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
     return StepBundle(
         name="prefill_step", fn=step,
-        args=(a_params, abstract_trainable(cfg, k or 0),
-              input_specs(cfg, shape)["tokens"]),
+        args=(a_params, a_train, input_specs(cfg, shape)["tokens"]),
         meta={"num_groups": num_groups, "k": k,
-              "cache_bytes": state_bytes(abstract_cache(
-                  cfg, shape.global_batch, shape.seq_len)),
-              "param_bytes": state_bytes(a_params)})
+              "cache_bytes": state_bytes(a_cache),
+              "param_bytes": state_bytes(a_params)},
+        specs=None if mesh is None else _mesh_specs(cfg, shape, mesh,
+                                                    a_params, a_train,
+                                                    a_cache))
 
 
 def build_serve(cfg: ModelConfig, shape: ShapeConfig, *,
-                k: Optional[int] = None) -> StepBundle:
+                k: Optional[int] = None, mesh=None) -> StepBundle:
     """ONE new token with a ``seq_len``-deep cache: fn(params, trainable,
     cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache), the cache
-    written in place."""
+    written in place.  On the ``mesh``: as :func:`build_prefill`'s."""
     k = k if k is not None else (cfg.moe.top_k or None)
+    shard = _shard_for(mesh, shape.global_batch)
 
     def step(params, trainable, cache, tokens, pos):
         return model_lib.decode_step(cfg, params, cache, tokens, pos,
                                      trainable=trainable, k=k,
-                                     dispatch="capacity")
+                                     dispatch="capacity", shard=shard)
 
     a_params = abstract_params(cfg)
+    a_train = abstract_trainable(cfg, k or 0)
     a_cache = abstract_cache(cfg, shape.global_batch, shape.seq_len)
     inputs = input_specs(cfg, shape)
     return StepBundle(
         name="serve_step", fn=step,
-        args=(a_params, abstract_trainable(cfg, k or 0), a_cache,
-              inputs["tokens"], inputs["pos"]),
+        args=(a_params, a_train, a_cache, inputs["tokens"], inputs["pos"]),
         meta={"k": k, "cache_bytes": state_bytes(a_cache),
-              "param_bytes": state_bytes(a_params)})
+              "param_bytes": state_bytes(a_params)},
+        specs=None if mesh is None else _mesh_specs(cfg, shape, mesh,
+                                                    a_params, a_train,
+                                                    a_cache))
 
 
 def build_step(cfg: ModelConfig, shape: ShapeConfig,

@@ -1,6 +1,6 @@
-"""Training launcher of the port: on one device.
+"""Training launcher of the port.
 
-Two modes, as the reference launcher's:
+Three modes, as the reference launcher's:
 
   * ``--federated`` assembles an experiment (``build_experiment``: base
     model, global LoRA, Dirichlet-partitioned synthetic corpus, budgeted
@@ -23,8 +23,24 @@ Two modes, as the reference launcher's:
     token batches ((B, S, K) codebook tokens for an audio arch): it prints
     the chosen knobs, then each step's loss and time, and stops if a loss
     is not finite.
+  * default: the sharded train step (``launch/steps.py`` with ``mesh=``)
+    on the production mesh of the visible cards (``launch/mesh.py``:
+    (2, 2) on four, (2, 1, 2) with ``--multi-pod``; ``--mesh-shape``
+    overrides it) at ``--shape`` (``INPUT_SHAPES``), ``--variant full``
+    by default: the launcher starts one worker a card itself (the
+    ``spawn`` start method, a ``file://`` rendezvous), or under ``torchrun``
+    joins the world its environment describes.  Each rank makes only its
+    shard of seeded random weights and adapters (``init_sharded_*``) and
+    takes its rows of a seeded random batch; ``--steps`` steps print the
+    loss, s/step, tokens/s, each rank's peak memory against the knob
+    chooser's estimate and the collectives' calls, bytes and time.  The
+    depth is ``--layers`` or the deepest whole-period cut the estimate
+    fits, ``--batch`` / ``--seq-len`` cut the shape; every cut is
+    printed.  On ``--device cpu`` the ranks are ``--world`` gloo
+    processes (default 2).  The SSM, hybrid and codebook archs come with
+    the next multi-chip slice.
 
-Both run on the CUDA kernels unless given ``--device cpu`` (their plain
+All run on the CUDA kernels unless given ``--device cpu`` (their plain
 versions).  ``--variant`` defaults to the reduced smoke config, as the
 reference's launcher does; ``--arch`` takes any arch of the port's
 registry, and ``--layers`` cuts its depth in whole periods of its layer
@@ -37,35 +53,38 @@ pattern (``jamba-v0.1-52b`` FULL does not fit one card).
       --checkpoint-every 2 --checkpoint-to build/fed.ckpt
   PYTHONPATH=src python -m repro_torch.launch.train --local \\
       --arch olmo-1.3b --device cpu --steps 2
-
-The reference launcher's production-mesh step (``--shape``,
-``--multi-pod``) comes with the multi-chip slice of the port and is
-refused with a message naming it.
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch qwen3-moe-235b-a22b --shape train_4k --batch 8 --steps 2
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch llama3-405b --variant smoke --multi-pod --world 2 \\
+      --batch 4 --seq-len 32 --steps 1
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
-from typing import Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..configs import FederatedConfig, ShapeConfig, TrainConfig, get_config
+from ..configs import (INPUT_SHAPES, FederatedConfig, ShapeConfig,
+                       TrainConfig, get_config)
 from ..core import lora as lora_lib
 from ..data.synthetic import DataConfig
 from ..federated.simulation import build_experiment, run_experiment
 from ..models import model as model_lib
+from ..models import parallel
 from ..optim import adam
+from . import mesh as mesh_lib
+from . import sharding as shd
 from . import steps as steps_lib
-from .serve import add_depth_flag, cut_depth
+from .serve import add_depth_flag, add_mesh_flags, cut_depth, run_on_mesh
 
-_MULTI_CHIP = "the multi-chip slice (the production-mesh train step)"
-LATER_FLAGS = {
-    "--shape": _MULTI_CHIP,
-    "--multi-pod": _MULTI_CHIP,
-}
+# a card's memory the mesh step's depth estimate keeps out: the CUDA
+# context, NCCL's buffers, the allocator's fragmentation
+MESH_RESERVE = 8 * 2 ** 30
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,10 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=5,
                     help="--local: train steps to run")
     ap.add_argument("--arch", default="olmoe-1.3b-6.9b")
-    ap.add_argument("--variant", default="smoke",
+    ap.add_argument("--variant", default=None,
                     help="full | smoke | swa (full with sliding-window "
-                         "attention)")
+                         "attention); default smoke with --federated / "
+                         "--local, full on the mesh")
     add_depth_flag(ap)
+    add_mesh_flags(ap, "train_4k")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--clients", type=int, default=8)
@@ -104,14 +125,6 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume-from", default=None,
                     help="continue from a checkpoint")
     return ap
-
-
-def _refuse_later_flags(argv: Sequence[str]) -> None:
-    for arg in argv:
-        flag = arg.split("=", 1)[0]
-        if flag in LATER_FLAGS:
-            raise SystemExit(f"{flag}: not ported yet, it comes with "
-                             f"{LATER_FLAGS[flag]}")
 
 
 def _device(name: str) -> torch.device:
@@ -140,7 +153,8 @@ def synthetic_batch(cfg, shape: ShapeConfig, generator: torch.Generator,
 def run_local(args) -> None:
     """--local: the train step of ``launch/steps.py`` on this device."""
     device = _device(args.device)
-    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
+    cfg = cut_depth(get_config(args.arch, args.variant or "smoke"),
+                    args.layers)
     shape = ShapeConfig("local_train", seq_len=64, global_batch=8,
                         kind="train")
     bundle = steps_lib.build_train(cfg, shape, k=args.k, tc=TrainConfig(),
@@ -170,20 +184,108 @@ def run_local(args) -> None:
     print("done")
 
 
+def mesh_train(cfg, shape: ShapeConfig, mesh, device, *, steps: int,
+               seed: int = 0, k: Optional[int] = None,
+               log: Callable[[str], None] = print) -> Dict[str, Any]:
+    """``steps`` sharded train steps of ``cfg`` (depth already cut) at
+    ``shape`` on this rank of ``mesh``: seeded shards of random weights
+    and adapters, this rank's rows of a seeded random global batch.
+    Every rank calls it; ``log`` prints on rank 0.  Returns the bundle's
+    meta and per step: loss, s, tokens/s, each rank's peak bytes (the
+    card only) and the collectives' counts (``parallel.comm_stop``)."""
+    device = torch.device(device)
+    bundle = steps_lib.build_train(cfg, shape, k=k, tc=TrainConfig(),
+                                   device=device, mesh=mesh)
+    meta = bundle.meta
+    log(f"{cfg.name} ({cfg.num_layers} layers) x {shape.name} (batch "
+        f"{shape.global_batch}, {shape.seq_len} tokens) on mesh "
+        f"{meta['mesh']}: n_micro {meta['n_micro']}, groups "
+        f"{meta['num_groups']}, remat chunk {meta['remat_chunk']}; a rank's "
+        f"estimate: shards + trainable state + gathers "
+        f"{meta['rank_fixed_bytes'] / 2 ** 30:.2f} GiB, a microbatch's "
+        f"activations {meta['act_bytes'] / 2 ** 30:.2f} GiB")
+    params = shd.init_sharded_params(cfg, mesh, seed, device)
+    trainable = shd.init_sharded_lora(cfg, mesh, seed + 1,
+                                      meta["k"] or 0, device)
+    opt = adam.init(trainable)
+    gen = torch.Generator(device=device).manual_seed(seed + 100)
+    on_card = device.type == "cuda"
+    out = {"meta": meta, "steps": []}
+    for step in range(steps):
+        batch = [steps_lib.shard_batch(t, mesh, meta["n_micro"])
+                 for t in synthetic_batch(cfg, shape, gen, device)]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        parallel.comm_start()
+        t0 = time.perf_counter()
+        trainable, opt, metrics = bundle.fn(params, trainable, opt, *batch)
+        loss = float(metrics["loss"])
+        if on_card:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        comm = parallel.comm_stop()
+        peaks = mesh_lib.rank_peaks(device) if on_card else None
+        rec = {"loss": loss, "s": dt,
+               "tokens_per_s": shape.global_batch * shape.seq_len / dt,
+               "peak_bytes": peaks, "comm": comm}
+        out["steps"].append(rec)
+        peak = ("not measured (CPU)" if peaks is None else
+                "[" + ", ".join(f"{p / 2 ** 30:.2f}" for p in peaks)
+                + "] GiB")
+        log(f"step {step}: loss {loss:.4f}, {dt:.3f} s/step, "
+            f"{rec['tokens_per_s']:.1f} tokens/s, peak per rank {peak}; "
+            f"collectives {comm['calls']} calls, "
+            f"{comm['bytes'] / 2 ** 30:.3f} GiB, {comm['ms']:.1f} ms")
+        if not np.isfinite(loss):
+            raise SystemExit(f"step {step}: the loss is not finite")
+    return out
+
+
+def _train_worker(rank: int, world: int, opts: dict) -> None:
+    args = argparse.Namespace(**opts)
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if args.device == "cuda" else torch.device("cpu"))
+    log = print if rank == 0 else (lambda *_: None)
+    mesh = mesh_lib.make_production_mesh(multi_pod=args.multi_pod,
+                                         mesh_shape=args.mesh_shape)
+    cfg = get_config(args.arch, args.variant or "full")
+    base = INPUT_SHAPES[args.shape]
+    shape = ShapeConfig(base.name, args.seq_len or base.seq_len,
+                        args.batch or base.global_batch, "train")
+    cuts = [f"{what} {a} -> {b}" for what, a, b in (
+        ("batch", base.global_batch, shape.global_batch),
+        ("sequence", base.seq_len, shape.seq_len)) if a != b]
+    layers = args.layers or steps_lib.deepest_fit(
+        cfg, shape, mesh, steps_lib.device_bytes(device) - MESH_RESERVE,
+        args.k)
+    if not layers:
+        raise SystemExit(f"{cfg.name}: not one period fits a rank at "
+                         f"{shape.seq_len} tokens")
+    if layers != cfg.num_layers:
+        cuts.append(f"depth {cfg.num_layers} -> {layers} layers"
+                    + ("" if args.layers else " (the deepest the estimate "
+                       "fits)"))
+    cfg = cut_depth(cfg, layers)
+    log(f"cut: {', '.join(cuts) or 'none'}")
+    mesh_train(cfg, shape, mesh, device, steps=args.steps, seed=args.seed,
+               k=args.k, log=log)
+    log("done")
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
-    _refuse_later_flags(argv)
     args = build_parser().parse_args(argv)
     if args.local:
         run_local(args)
         return
     if not args.federated:
-        raise SystemExit("pass --federated or --local: without them the "
-                         "reference runs the production-mesh train step, "
-                         "which comes with the multi-chip slice")
+        run_on_mesh(_train_worker, args)
+        return
     device = _device(args.device)
 
-    cfg = cut_depth(get_config(args.arch, args.variant), args.layers)
+    cfg = cut_depth(get_config(args.arch, args.variant or "smoke"),
+                    args.layers)
     if cfg.num_codebooks:
         # the reference's --federated builds a (B, S) text corpus for any
         # arch (its DataConfig has no num_codebooks), which an audio model

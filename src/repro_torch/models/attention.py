@@ -49,7 +49,9 @@ from typing import Optional
 import torch
 
 from ..kernels import backend as kernel_backend
-from .layers import apply_rope, lora_dense, rms_norm, softcap
+from . import parallel
+from .layers import (apply_rope, col_dense, lora_dense, rms_norm, row_dense,
+                     softcap)
 
 NEG_INF = -1e30
 _F32 = torch.float32
@@ -283,6 +285,111 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
             apply_rope(k, positions, cfg.rope_theta), v)
 
 
+def kv_layout(cfg, sh) -> tuple:
+    """On the mesh: (local q heads, the first and the number of KV heads
+    they read, whether K/V are split by head over ``model``).  With the KV
+    heads dividing the model axis each rank projects and caches its own
+    (KV/M of them); otherwise every rank projects all KV heads (their
+    columns gathered where the rule split them mid-head) and its query
+    heads read a slice."""
+    H, KV, M = cfg.n_heads, cfg.n_kv_heads, sh.M
+    if H % M:
+        raise NotImplementedError(f"{cfg.name}: {H} query heads do not divide "
+                                  f"a {M}-way model axis")
+    Hl, rep = H // M, H // KV
+    if KV % M == 0:
+        return Hl, sh.mi * (KV // M), KV // M, True
+    if Hl % rep and rep % Hl:
+        raise NotImplementedError(f"{cfg.name}: {Hl} query heads a rank do "
+                                  f"not align with groups of {rep}")
+    return Hl, sh.mi * Hl // rep, max(Hl // rep, 1), False
+
+
+def _project_qkv_sharded(p: dict, cfg, x: torch.Tensor,
+                         positions: torch.Tensor, lg: dict,
+                         lora_scale: float, sh):
+    """:func:`_project_qkv` on the mesh: this rank's query heads and K/V
+    heads (all of them where they do not divide the model axis, see
+    :func:`kv_layout`), from column-split ``wq``/``wk``/``wv``."""
+    B, S, _ = x.shape
+    hd = cfg.head_dim_
+    Hl, _, _, kv_split = kv_layout(cfg, sh)
+    xc = parallel.copy_to(x, sh.model)
+    q = col_dense(xc, p["wq"], lg.get("wq"), lora_scale, sh)
+    kv = []
+    for name in ("wk", "wv"):
+        w, lp = p[name], lg.get(name)
+        full = cfg.n_kv_heads * hd
+        if not kv_split and parallel.split_dim(full, w.shape[-1], sh.M,
+                                               name):
+            # split mid-head by the rule: gather the columns, so every rank
+            # projects every KV head (b's gradient is then partial on each
+            # rank: the gather's reduce-scatter sums it back)
+            w = parallel.gather_frozen(w, sh.model, w.dim() - 1)
+            if lp is not None:
+                lp = {"a": lp["a"],
+                      "b": parallel.gather(lp["b"], sh.model,
+                                           lp["b"].dim() - 1)}
+        elif not kv_split and lp is not None:
+            # replicated by the rule: b's gradient is partial on each rank
+            lp = {"a": lp["a"], "b": parallel.copy_to(lp["b"], sh.model)}
+        kv.append(col_dense(xc, w, lp, lora_scale, sh))
+    k, v = kv
+    q = q.reshape(B, S, Hl, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(p["q_norm"], q, cfg.rms_eps)
+        k = rms_norm(p["k_norm"], k, cfg.rms_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _local_kv(t: torch.Tensor, cfg, sh) -> torch.Tensor:
+    """The KV heads this rank's query heads read, of ``t`` (..., KV', hd)
+    holding all KV heads or this rank's own."""
+    _, kv0, nkv, kv_split = kv_layout(cfg, sh)
+    return t if kv_split else t.narrow(-2, kv0, nkv)
+
+
+def _apply_attention_sharded(p: dict, cfg, x: torch.Tensor,
+                             positions: torch.Tensor, *, lora, lora_scale,
+                             cache, cache_pos, return_cache, block_table,
+                             suffix_readonly, sh):
+    """:func:`apply_attention` on the mesh: prefill / training (flash over
+    this rank's heads) and the slotted one-token decode step (the cache
+    holds this rank's KV heads, or all of them where they do not divide
+    the model axis); ``wo`` row-split, its output all-reduced."""
+    B, S, D = x.shape
+    lg = lora or {}
+    if block_table is not None or suffix_readonly or (cache is not None
+                                                      and S > 1):
+        raise NotImplementedError("the mesh runs prefill, training and the "
+                                  "slotted decode step; the paged pool, "
+                                  "suffix prefill and speculative verify "
+                                  "stay single-card")
+    q, k, v = _project_qkv_sharded(p, cfg, x, positions, lg, lora_scale, sh)
+    window = cfg.attention_window
+    cap = cfg.attn_logit_softcap
+    new_cache = None
+    if cache is None:
+        out = kernel_backend.flash_attention(
+            q, _local_kv(k, cfg, sh), _local_kv(v, cfg, sh), causal=True,
+            window=window, softcap=cap)
+        if return_cache:
+            new_cache = {"k": _ring_piece(k, window),
+                         "v": _ring_piece(v, window)}
+    else:
+        _slotted_write(cache, k, v, cache_pos, window=window)
+        out = decode_attention(q, _local_kv(cache["k"], cfg, sh),
+                               _local_kv(cache["v"], cfg, sh), cache_pos,
+                               window=window, logit_softcap=cap)
+        new_cache = cache
+    out = out.reshape(B, S, -1)
+    return row_dense(out, p["wo"], lg.get("wo"), lora_scale, sh,
+                     D), new_cache
+
+
 def _ring_piece(t: torch.Tensor, window: int) -> torch.Tensor:
     """A prefill's K or V (B,S,KV,D) as the decode cache: on a ring
     (``0 < window <= S``) the last ``window`` tokens, rolled so token ``t``
@@ -301,7 +408,7 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
                     return_cache: bool = False,
                     block_table: Optional[torch.Tensor] = None,
                     page_span: Optional[int] = None,
-                    suffix_readonly: bool = False):
+                    suffix_readonly: bool = False, shard=None):
     """x: (B,S,D_model).  Prefill when ``cache`` is None.  With a cache and
     ``cache_pos``: single-token decode (S == 1) or speculative verify
     (S > 1, the S tokens teacher-forced at ``cache_pos + s``), block-paged
@@ -314,7 +421,15 @@ def apply_attention(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     written (rows sharing attached blocks must not rewrite them), the new
     K/V come back as a contiguous (B,S,KV,D) piece for the caller to
     scatter.  Returns (out, new_cache): for prefill with ``return_cache``
-    and for the suffix the new K/V; otherwise the (mutated) cache."""
+    and for the suffix the new K/V; otherwise the (mutated) cache.
+    ``shard`` (the card mesh, ``models/parallel.py``): this rank's heads,
+    :func:`_apply_attention_sharded`."""
+    if shard is not None:
+        return _apply_attention_sharded(
+            p, cfg, x, positions, lora=lora, lora_scale=lora_scale,
+            cache=cache, cache_pos=cache_pos, return_cache=return_cache,
+            block_table=block_table, suffix_readonly=suffix_readonly,
+            sh=shard)
     B, S, _ = x.shape
     lg = lora or {}
     q, k, v = _project_qkv(p, cfg, x, positions, lg, lora_scale)

@@ -25,6 +25,15 @@ in both.  Both are updated in place by :func:`decode_step`; the reference
 threads them through the scan carry and returns new ones.
 :func:`draft_window` runs the speculative draft: W reduced-k steps that
 never write the cache (attention-only models).
+
+On the card mesh the training, prefill and slotted decode entry points
+take ``shard`` (``models/parallel.py``): every tree is then this rank's
+shard (``launch/sharding.py``), the batch this rank's rows, and each
+layer runs its sharded path (vocabulary-split embedding and head, heads
+and FFN columns and experts split over ``model``, FSDP gathers over
+``data``) to the unsharded model's result.  Attention archs with a dense
+FFN or a routed MoE; the SSM, hybrid and codebook archs come with the
+next multi-chip slice.
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ import torch.utils.checkpoint
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
 from . import moe_layer as moe_mod
+from . import parallel
 from .layers import apply_ffn, dense_init, embed_init, rms_norm
 
 _F32 = torch.float32
@@ -128,11 +138,27 @@ def init_params(cfg, generator: torch.Generator,
 # embedding / head
 # ==========================================================================
 
-def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
+def _check_mesh(cfg, shard) -> None:
+    if shard is not None and (cfg.num_codebooks or not _attention_only(cfg)):
+        raise NotImplementedError(
+            f"{cfg.name}: the SSM, hybrid and codebook archs on the mesh come "
+            "with the next multi-chip slice")
+
+
+def embed_tokens(params, cfg, tokens: torch.Tensor,
+                 shard=None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, D); for an audio model tokens (B, S, K) ->
     the sum of the K codebooks' lookups, added in order k = 0 ... K-1
-    (MusicGen's summed input embeddings)."""
+    (MusicGen's summed input embeddings).  On the mesh each rank looks up
+    its vocabulary rows (the others zero) and the lookups are all-reduced
+    over ``model``."""
     emb = params["embed"]["tokens"]
+    if shard is not None and emb.shape[0] != cfg.vocab_size:
+        Vl = emb.shape[0]
+        rel = tokens.long() - shard.mi * Vl
+        mine = (rel >= 0) & (rel < Vl)
+        x = emb[rel.clamp(0, Vl - 1)] * mine[..., None].to(emb.dtype)
+        return parallel.reduce_from(x, shard.model)
     if cfg.num_codebooks:
         x = emb[0][tokens[..., 0].long()]
         for k in range(1, cfg.num_codebooks):
@@ -141,9 +167,13 @@ def embed_tokens(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
     return emb[tokens.long()]
 
 
-def lm_head(params, cfg, h: torch.Tensor) -> torch.Tensor:
+def lm_head(params, cfg, h: torch.Tensor, shard=None) -> torch.Tensor:
     """(B, S, D) -> logits (B, S, V), or (B, S, K, V) for an audio model
-    (one head per codebook)."""
+    (one head per codebook).  On the mesh the whole V, gathered over
+    ``model`` from each rank's columns (:func:`lm_head_local`)."""
+    if shard is not None:
+        return parallel.gather(lm_head_local(params, cfg, h), shard.model,
+                               -1)
     if cfg.tie_embeddings:
         w = params["embed"]["tokens"]
         if cfg.num_codebooks:
@@ -153,6 +183,21 @@ def lm_head(params, cfg, h: torch.Tensor) -> torch.Tensor:
     if cfg.num_codebooks:
         return torch.einsum("bsd,kdv->bskv", h, w)
     return h @ w
+
+
+def _vocab_cols(params, cfg) -> int:
+    """The head's vocabulary columns on this rank."""
+    if cfg.tie_embeddings:
+        return params["embed"]["tokens"].shape[0]
+    return params["lm_head"].shape[-1]
+
+
+def lm_head_local(params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """This rank's vocabulary columns of the logits (its rows of a tied
+    embedding, its columns of the head); all of them off the mesh."""
+    if cfg.tie_embeddings:
+        return h @ params["embed"]["tokens"].T
+    return h @ params["lm_head"]
 
 
 # ==========================================================================
@@ -170,7 +215,7 @@ def _apply_block(cfg, kind: str, p: dict, x: torch.Tensor, positions, *,
                  lora, rescaler, lora_scale, k, cache=None, cache_pos=None,
                  return_cache=False, slot_mask=None, block_table=None,
                  page_span=None, dispatch=None, suffix_readonly=False,
-                 num_groups=1):
+                 num_groups=1, shard=None):
     """One block position.  Returns (x, MoE aux or None, the position's
     new cache ``{"attn": ...}`` / ``{"ssm": ...}`` or None).  A decode
     step (a cache and S == 1) writes a Mamba position's state rows in
@@ -184,7 +229,7 @@ def _apply_block(cfg, kind: str, p: dict, x: torch.Tensor, positions, *,
             lora_scale=lora_scale, cache=(cache or {}).get("attn"),
             cache_pos=cache_pos, return_cache=return_cache,
             block_table=block_table, page_span=page_span,
-            suffix_readonly=suffix_readonly)
+            suffix_readonly=suffix_readonly, shard=shard)
         if mc is not None:
             new_cache = {"attn": mc}
     else:
@@ -206,11 +251,12 @@ def _apply_block(cfg, kind: str, p: dict, x: torch.Tensor, positions, *,
                                     rescaler=rescaler, lora=lg.get("moe"),
                                     lora_scale=lora_scale,
                                     slot_mask=slot_mask, dispatch=dispatch,
-                                    num_groups=num_groups)
+                                    num_groups=num_groups, shard=shard)
         x = x + h2
     elif "ffn" in p:
         h2 = rms_norm(p["ffn_norm"], x, cfg.rms_eps)
-        x = x + apply_ffn(p["ffn"], h2, lg.get("ffn"), lora_scale)
+        x = x + apply_ffn(p["ffn"], h2, lg.get("ffn"), lora_scale,
+                          shard=shard)
     return x, aux, new_cache
 
 
@@ -218,7 +264,7 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                cache_pos=None, return_cache=False, slot_mask=None,
                block_table=None, page_span=None, dispatch=None,
                suffix_readonly=False, num_groups=1, remat=False,
-               remat_chunk=0):
+               remat_chunk=0, shard=None):
     """The layer stack as a loop over the leading n_periods axis, each
     period running its P positions in order; position ``pos{j}`` of
     period ``i`` reads views of its stacked weights, LoRA adapters
@@ -259,7 +305,8 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                 cache_pos=cache_pos, return_cache=return_cache,
                 slot_mask=slot_mask, block_table=block_table,
                 page_span=page_span, dispatch=dispatch,
-                suffix_readonly=suffix_readonly, num_groups=num_groups)
+                suffix_readonly=suffix_readonly, num_groups=num_groups,
+                shard=shard)
             if aux is not None:
                 counts[key] = aux.activation_counts
             if nc is not None:
@@ -308,20 +355,23 @@ def _checkpoint(fn, *args):
 
 def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
                    k=None, positions=None, dispatch=None, remat=False,
-                   remat_chunk=0, num_groups=1):
+                   remat_chunk=0, num_groups=1, shard=None):
     """tokens (B, S), or (B, S, K) for an audio model -> (final hidden
     states (B, S, D) after the final norm, activation counts {pos{j}:
     (n_periods, E)} per MoE position).
     MoE layers dispatch on ``capacity`` unless told otherwise, as in the
     reference, over ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
-    checkpointing (:func:`_run_stack`)."""
+    checkpointing (:func:`_run_stack`).  ``shard``: the card mesh (the
+    module docstring)."""
+    _check_mesh(cfg, shard)
     S = tokens.shape[1]
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, shard)
     h, counts, _ = _run_stack(cfg, params, x, positions, trainable=trainable,
                               k=k, dispatch=dispatch, num_groups=num_groups,
-                              remat=remat, remat_chunk=remat_chunk)
+                              remat=remat, remat_chunk=remat_chunk,
+                              shard=shard)
     return rms_norm(params["final_norm"], h, cfg.rms_eps), counts
 
 
@@ -336,12 +386,19 @@ def forward(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
 
 def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
                     mask: Optional[torch.Tensor] = None,
-                    chunk: int = 512) -> torch.Tensor:
+                    chunk: int = 512, shard=None) -> torch.Tensor:
     """Masked mean cross-entropy over sequence chunks: h (B, S, D); labels
     (B, S), or (B, S, K) for an audio model; mask (B, S) 0/1.  Each
     chunk's logits are formed in fp32 and summed into (total, count) in
     chunk order, as the reference's scan.  With codebooks a position's
-    NLL is the mean of its K codebooks' NLLs, taken before the mask."""
+    NLL is the mean of its K codebooks' NLLs, taken before the mask.
+
+    On the mesh (``shard``) the logits are this rank's vocabulary columns
+    and the NLL is ``parallel.vocab_parallel_nll``'s; the loss is the
+    global masked mean: the sum and the count are each all-reduced over
+    the batch axes (not a mean of the ranks' means)."""
+    if shard is not None and _vocab_cols(params, cfg) != cfg.vocab_size:
+        return _vocab_parallel_ce(cfg, params, h, labels, mask, chunk, shard)
     B, S, _ = h.shape
     chunk = min(chunk, S)
     while S % chunk:
@@ -361,16 +418,49 @@ def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
         mm = mask[:, c0:c0 + chunk].to(_F32)
         tot = tot + (nll * mm).sum()
         cnt = cnt + mm.sum()
+    if shard is not None:
+        tot = parallel.reduce_from(tot, shard.batch)
+        cnt = parallel.reduce_from(cnt, shard.batch)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _vocab_parallel_ce(cfg, params, h, labels, mask, chunk, sh):
+    """:func:`chunked_ce_loss` over vocabulary-split logits."""
+    B, S, _ = h.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    if mask is None:
+        mask = torch.ones((B, S), dtype=_F32, device=h.device)
+    hc = parallel.copy_to(h, sh.model)
+    tot = torch.zeros((), dtype=_F32, device=h.device)
+    cnt = torch.zeros((), dtype=_F32, device=h.device)
+    for c0 in range(0, S, chunk):
+        logits = lm_head_local(params, cfg, hc[:, c0:c0 + chunk]).to(_F32)
+        Vl = logits.shape[-1]
+        nll = parallel.vocab_parallel_nll(
+            logits.reshape(-1, Vl), labels[:, c0:c0 + chunk].reshape(-1),
+            sh.mi * Vl, sh.model).reshape(B, -1)
+        mm = mask[:, c0:c0 + chunk].to(_F32)
+        tot = tot + (nll * mm).sum()
+        cnt = cnt + mm.sum()
+    tot = parallel.reduce_from(tot, sh.batch)
+    cnt = parallel.reduce_from(cnt, sh.batch)
     return tot / torch.clamp(cnt, min=1.0)
 
 
 def lm_loss(cfg, params, tokens, labels, mask=None, *, trainable=None,
-            k=None, dispatch=None, remat=False, remat_chunk=0, num_groups=1):
-    """Full LM loss.  Returns (loss, activation counts)."""
+            k=None, dispatch=None, remat=False, remat_chunk=0, num_groups=1,
+            shard=None):
+    """Full LM loss.  Returns (loss, activation counts).  On the mesh
+    (``shard``) the loss is the global batch's and the counts this rank's
+    tokens'."""
     h, counts = forward_hidden(cfg, params, tokens, trainable=trainable,
                                k=k, dispatch=dispatch, remat=remat,
-                               remat_chunk=remat_chunk, num_groups=num_groups)
-    return chunked_ce_loss(cfg, params, h, labels, mask), counts
+                               remat_chunk=remat_chunk, num_groups=num_groups,
+                               shard=shard)
+    return chunked_ce_loss(cfg, params, h, labels, mask,
+                           shard=shard), counts
 
 
 # ==========================================================================
@@ -432,7 +522,7 @@ def _stacked(per_period: list, kind: str) -> dict:
 
 def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             cache_len: Optional[int] = None, slot_mask=None,
-            dispatch: str = "ragged", num_groups: int = 1):
+            dispatch: str = "ragged", num_groups: int = 1, shard=None):
     """Forward pass that also returns the contiguous decode cache.
     Returns (logits_last (B,1,V), cache): attention leaves (n_periods, B,
     cache_len_for(cache_len or S), KV, hd), zero-padded past the prompt
@@ -441,13 +531,17 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     w``, no padding); Mamba leaves the state after the prompt, ``conv``
     in the model's dtype and ``ssm`` in fp32 (n_periods, B, ...).
     ``num_groups``: the one-hot dispatch modes' routing groups
-    (:func:`moe_layer.apply_moe`)."""
+    (:func:`moe_layer.apply_moe`).  On the mesh (``shard``): this rank's
+    rows and KV heads of the cache (``launch/sharding.cache_specs``), the
+    logits whole."""
+    _check_mesh(cfg, shard)
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, shard)
     h, _, new = _run_stack(cfg, params, x, positions, trainable=trainable,
                            k=k, return_cache=True, slot_mask=slot_mask,
-                           dispatch=dispatch, num_groups=num_groups)
+                           dispatch=dispatch, num_groups=num_groups,
+                           shard=shard)
     target = cache_len_for(cfg, cache_len or S)
     cache = {}
     for key, per in new.items():
@@ -463,7 +557,7 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
                 kv[leaf] = torch.cat([stacked, pad], dim=2)
         cache[key] = {"attn": kv}
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.rms_eps)
-    return lm_head(params, cfg, h), cache
+    return lm_head(params, cfg, h, shard), cache
 
 
 def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
@@ -513,7 +607,7 @@ def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
                 trainable=None, k=None, slot_mask=None, block_table=None,
                 page_span=None, dispatch: str = "ragged",
-                return_counts: bool = False):
+                return_counts: bool = False, shard=None):
     """One decode step over the whole slot batch.  tokens: (B, S); pos:
     (B,) per-row positions (or a scalar).  ``S`` is normally 1; ``S > 1``
     is the speculative verify step (attention-only models: a Mamba
@@ -525,8 +619,11 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
     one they are the slotted rows of :func:`init_cache`.  Mamba state
     rows are per slot in both.  The cache is written in place.  ``k``:
     int or per-slot tuple; ``slot_mask``: (B,) 0/1 rows in use.  Returns
-    (logits (B,S,V), cache) [+ counts {pos{j}: (n_periods, E)}]."""
-    x = embed_tokens(params, cfg, tokens)
+    (logits (B,S,V), cache) [+ counts {pos{j}: (n_periods, E)}].  On the
+    mesh (``shard``): the slotted cache's rows and KV heads of this rank
+    (``launch/sharding.cache_specs``), a static ``k``, one-hot dispatch."""
+    _check_mesh(cfg, shard)
+    x = embed_tokens(params, cfg, tokens, shard)
     B, S = x.shape[0], x.shape[1]
     if S > 1 and not _attention_only(cfg):
         raise ValueError("the S > 1 verify step requires attention-only "
@@ -537,9 +634,10 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
     h, counts, _ = _run_stack(
         cfg, params, x, positions, trainable=trainable, k=k, cache=cache,
         cache_pos=pos, return_cache=True, slot_mask=slot_mask,
-        block_table=block_table, page_span=page_span, dispatch=dispatch)
+        block_table=block_table, page_span=page_span, dispatch=dispatch,
+        shard=shard)
     h = rms_norm(params["final_norm"], h, cfg.rms_eps)
-    logits = lm_head(params, cfg, h)
+    logits = lm_head(params, cfg, h, shard)
     if return_counts:
         return logits, cache, counts
     return logits, cache

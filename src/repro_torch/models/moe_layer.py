@@ -25,8 +25,17 @@
 Routing is global; the one-hot modes dispatch over ``num_groups`` equal
 routing groups of the batch (GShard groups, each with its own capacity:
 the serving engine's dense prefill runs one group per row, so the one-hot
-tensors grow with the bucket and not with its square).  Groups sharded
-across chips come with the multi-chip slice.
+tensors grow with the bucket and not with its square).
+
+On the card mesh (``shard``, ``models/parallel.py``) the one-hot modes
+run the schedule the reference's ``_moe_shard_fns`` describe: the router
+is replicated and runs on every rank; each rank's routing groups are
+whole groups of the global batch (G a multiple of the batch ways, else
+the tokens are gathered over the batch axes and every rank routes them
+all); the (G, Tg, E, C) one-hots are built with the full E; each rank
+takes its E/M experts' slice of the slot tensor and of the combine
+one-hot, runs its experts, and the (G, Tg, D) output is all-reduced over
+``model``.  No expert all-to-all.
 """
 from __future__ import annotations
 
@@ -37,7 +46,9 @@ import torch.nn.functional as F
 
 from ..kernels import backend as kernel_backend
 from ..kernels.ragged_dispatch import ragged_plan
-from .layers import apply_ffn, lora_expert_einsum
+from . import parallel
+from .layers import (apply_ffn, expert_adapter, expert_weight,
+                     lora_expert_einsum)
 
 _F32 = torch.float32
 
@@ -83,12 +94,14 @@ def resolve_dispatch(dispatch, no_drop: bool) -> str:
 def _one_hot_expert_ffn(p: dict, cfg, xg: torch.Tensor, weights, mask, *,
                         dispatch: str, k: Optional[int],
                         n_assign: Optional[int], lora: dict,
-                        lora_scale: float) -> torch.Tensor:
+                        lora_scale: float, shard=None) -> torch.Tensor:
     """GShard one-hot dispatch + expert SwiGLU + combine.  ``xg``: (G, Tg,
     D) grouped tokens; ``weights``/``mask``: (G, Tg, E).  A token's place
     in an expert's queue is its rank in token order among its group's
     tokens routed there; places past C are dropped.  The G groups' slots
-    meet in one (E, G·C, D) expert product."""
+    meet in one (E, G·C, D) expert product.  On the mesh (``shard``) this
+    rank's experts' slice of the one-hots, its experts, and the output
+    all-reduced over ``model``."""
     m = cfg.moe
     G, Tg, D = xg.shape
     E = m.num_experts
@@ -106,15 +119,31 @@ def _one_hot_expert_ffn(p: dict, cfg, xg: torch.Tensor, weights, mask, *,
     dispatch_oh = ((pos[..., None] == slot) & keep[..., None]).to(xg.dtype)
     combine = dispatch_oh * weights[..., None].to(xg.dtype)    # (G,Tg,E,C)
 
+    ex = p["experts"]
+    w = {key: ex[key] for key in ("w1", "w3", "w2")}
+    lp = {key: lora.get(key) for key in w}
+    if shard is not None:
+        d_exp = m.d_expert
+        for key, d_in in (("w1", D), ("w3", D), ("w2", d_exp)):
+            w[key] = expert_weight(w[key], d_in, shard)
+            lp[key] = expert_adapter(lp[key], d_in, shard)
+        El = w["w1"].shape[0]
+        if El != E:
+            e0 = shard.mi * El
+            dispatch_oh = dispatch_oh.narrow(2, e0, El)
+            combine = combine.narrow(2, e0, El)
+            E = El
     slots = torch.einsum("gtec,gtd->egcd", dispatch_oh, xg).reshape(
         E, G * C, D)
-    ex = p["experts"]
-    gate = lora_expert_einsum(slots, ex["w1"], lora.get("w1"), lora_scale)
-    up = lora_expert_einsum(slots, ex["w3"], lora.get("w3"), lora_scale)
+    gate = lora_expert_einsum(slots, w["w1"], lp["w1"], lora_scale)
+    up = lora_expert_einsum(slots, w["w3"], lp["w3"], lora_scale)
     h = F.silu(gate.to(_F32)).to(up.dtype) * up
-    eo = lora_expert_einsum(h, ex["w2"], lora.get("w2"), lora_scale)
-    return torch.einsum("gtec,egcd->gtd", combine,
-                        eo.reshape(E, G, C, D))                   # (G,Tg,D)
+    eo = lora_expert_einsum(h, w["w2"], lp["w2"], lora_scale)
+    out = torch.einsum("gtec,egcd->gtd", combine,
+                       eo.reshape(E, G, C, D))                    # (G,Tg,D)
+    if shard is not None:
+        out = parallel.reduce_from(out, shard.model)
+    return out
 
 
 def _ragged_expert_ffn(p: dict, x2d: torch.Tensor, weights, mask, *,
@@ -144,7 +173,8 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
               rescaler: Optional[torch.Tensor] = None,
               lora: Optional[dict] = None, lora_scale: float = 0.0,
               slot_mask: Optional[torch.Tensor] = None,
-              dispatch: Optional[str] = None, num_groups: int = 1):
+              dispatch: Optional[str] = None, num_groups: int = 1,
+              shard=None):
     """x: (B, S, D) -> (out (B, S, D), MoEAux).
 
     ``k``: an int for every token, or a length-B tuple of per-row budgets
@@ -154,8 +184,15 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
     ``dispatch``: ``"capacity"`` (default), ``"dense"`` or ``"ragged"``.
     ``lora``: the block's ``{"experts": {w1, w2, w3}, "shared": ...}``
     adapters.  ``num_groups``: the one-hot modes' routing groups (equal
-    slices of the B·S tokens; per-row budgets under capacity need one)."""
+    slices of the B·S tokens; per-row budgets under capacity need one).
+    ``shard``: the card mesh (the module docstring); ``num_groups`` is
+    then the global batch's, and the counts are this rank's tokens'."""
     dispatch = resolve_dispatch(dispatch, False)
+    if shard is not None:
+        return _apply_moe_sharded(p, cfg, x, k=k, rescaler=rescaler,
+                                  lora=lora, lora_scale=lora_scale,
+                                  slot_mask=slot_mask, dispatch=dispatch,
+                                  num_groups=num_groups, sh=shard)
     le = (lora or {}).get("experts") or {}
     m = cfg.moe
     B, S, D = x.shape
@@ -225,5 +262,55 @@ def apply_moe(p: dict, cfg, x: torch.Tensor, *, k,
 
     aux = MoEAux(activation_counts=counts,
                  total_tokens=torch.full((), float(T), device=x.device),
+                 load_balance_loss=lb)
+    return out.reshape(B, S, D), aux
+
+
+def _apply_moe_sharded(p: dict, cfg, x: torch.Tensor, *, k, rescaler, lora,
+                       lora_scale, slot_mask, dispatch, num_groups, sh):
+    """:func:`apply_moe` on the mesh (the module docstring's schedule),
+    one-hot dispatch with a static k."""
+    if dispatch == "ragged" or isinstance(k, (tuple, list)) \
+            or slot_mask is not None:
+        raise NotImplementedError("the mesh routes with a static k on the "
+                                  "one-hot dispatch modes; ragged dispatch "
+                                  "and per-row budgets stay single-card")
+    le = (lora or {}).get("experts") or {}
+    m = cfg.moe
+    B, S, D = x.shape
+    E = m.num_experts
+    G = num_groups
+    gathered = sh.B > 1 and G % sh.B != 0
+    if gathered:
+        # the groups span ranks: every rank routes the global batch
+        xr = parallel.gather(x, sh.batch, 0)
+    else:
+        xr = x
+        G //= sh.B
+    Bg = xr.shape[0]
+    T = Bg * S
+    if T % G:
+        raise ValueError(f"{T} tokens do not split into {G} groups")
+    x2d = xr.reshape(T, D)
+    xc = parallel.copy_to(x2d, sh.model)
+    logits = xc @ p["router"]                                     # (T, E)
+    weights, mask, counts = kernel_backend.router(logits, k)
+    probs = torch.softmax(logits.to(_F32), dim=-1)
+    lb = E * (probs.mean(0) * mask.mean(0)).mean() * E
+    out = _one_hot_expert_ffn(
+        p, cfg, xc.reshape(G, T // G, D), weights.reshape(G, T // G, E),
+        mask.reshape(G, T // G, E), dispatch=dispatch, k=k, n_assign=None,
+        lora=le, lora_scale=lora_scale, shard=sh).reshape(T, D)
+    if rescaler is not None:
+        out = out * rescaler.to(out.dtype)
+    if "shared" in p:
+        out = out + apply_ffn(p["shared"], x2d, (lora or {}).get("shared"),
+                              lora_scale, shard=sh)
+    if gathered:
+        rows = slice(sh.bi * B * S, (sh.bi + 1) * B * S)
+        out = out[rows]
+        counts = mask[rows].sum(0).to(counts.dtype)
+    aux = MoEAux(activation_counts=counts,
+                 total_tokens=torch.full((), float(B * S), device=x.device),
                  load_balance_loss=lb)
     return out.reshape(B, S, D), aux

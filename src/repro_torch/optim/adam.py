@@ -6,6 +6,12 @@ False are frozen: parameter and moments keep their values).  Each update
 is computed in fp32 and cast back to the leaf's dtype.  Functional, as the
 reference: :func:`update` returns new trees and leaves its inputs as they
 were.
+
+On the card mesh (``launch/steps.py`` with ``mesh=``) every rank updates
+its shard of each leaf; only the clipping norm crosses ranks:
+``norm_groups`` gives each leaf the process group of the axes it is split
+over, and its sum of squares is all-reduced there, so a leaf replicated
+on an axis is counted once.
 """
 from __future__ import annotations
 
@@ -33,13 +39,22 @@ def init(params: PyTree) -> AdamState:
                      nu=tree_map(zeros, params))
 
 
-def global_norm(tree: PyTree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(_F32)))
-                          for g in leaves(tree)))
+def global_norm(tree: PyTree, groups: Optional[PyTree] = None
+                ) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares; with ``groups`` (a tree of
+    process groups or None, one a leaf) each leaf's sum is first
+    all-reduced over its group (the shards of a split leaf)."""
+    sums = (torch.sum(torch.square(g.to(_F32))) for g in leaves(tree))
+    if groups is not None:
+        from ..models.parallel import all_reduce
+        sums = [s if grp is None else all_reduce(s, grp)
+                for s, grp in zip(sums, leaves(groups))]
+    return torch.sqrt(sum(sums))
 
 
-def clip_by_global_norm(grads: PyTree, max_norm: float) -> PyTree:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: PyTree, max_norm: float,
+                        groups: Optional[PyTree] = None) -> PyTree:
+    norm = global_norm(grads, groups)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g.to(_F32) * scale, grads)
 
@@ -49,10 +64,13 @@ def update(grads: PyTree, state: AdamState, params: PyTree, *,
            lr: float, beta1: float = 0.9, beta2: float = 0.999,
            eps: float = 1e-8, weight_decay: float = 0.0,
            grad_clip: float = 0.0,
-           mask: Optional[PyTree] = None) -> Tuple[PyTree, AdamState]:
-    """Returns (new_params, new_state)."""
+           mask: Optional[PyTree] = None,
+           norm_groups: Optional[PyTree] = None
+           ) -> Tuple[PyTree, AdamState]:
+    """Returns (new_params, new_state).  ``norm_groups``: the mesh's
+    per-leaf groups for the clipping norm (the module docstring)."""
     if grad_clip > 0:
-        grads = clip_by_global_norm(grads, grad_clip)
+        grads = clip_by_global_norm(grads, grad_clip, norm_groups)
     step = state.step + 1
     # bias corrections in fp32, as the reference's traced step counter
     t = np.float32(step)

@@ -84,15 +84,16 @@ def test_registry_configs_match_the_reference(arch):
 
 
 def test_registry_knows_seven_archs_and_names_the_rest():
-    from repro_torch.configs import registry
+    # the rest are ported now: the registry is the reference's, the two
+    # multi-card archs (which run on the card mesh) included
     assert sorted(tconfigs.list_archs()) == sorted(
         ARCHS + ["olmoe-1.3b-6.9b", "mamba2-780m", "jamba-v0.1-52b",
-                 "musicgen-large"])
-    assert sorted(registry._LATER) == sorted(
-        set(jreg.list_archs()) - set(tconfigs.list_archs()))
-    for arch, slice_ in registry._LATER.items():
-        with pytest.raises(KeyError, match=slice_):
-            tconfigs.get_config(arch)
+                 "musicgen-large", "qwen3-moe-235b-a22b", "llama3-405b"])
+    assert sorted(tconfigs.list_archs()) == sorted(jreg.list_archs())
+    for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
+        for variant in ("full", "smoke", "swa"):
+            assert tconfigs.get_config(arch, variant) == config_from_jax(
+                jreg.get_config(arch, variant))
     # the sliding-window variant (a later slice once, ported now)
     assert tconfigs.get_config("olmo-1.3b", "swa") == config_from_jax(
         jreg.get_config("olmo-1.3b", "swa"))

@@ -72,11 +72,13 @@ def test_configs_match_the_reference():
 
 
 def test_registry_names_the_later_slice_for_unported_archs():
-    # the two archs that need several cards (musicgen-large, the last
-    # single-card one, is ported)
+    # every arch is ported now: the registry equals the reference's
+    # twelve, the two multi-card archs included, and an unknown name
+    # still raises
+    from repro.configs import registry as jreg
+    assert sorted(tconfigs.list_archs()) == sorted(jreg.list_archs())
     for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
-        with pytest.raises(KeyError, match="multi-chip slice"):
-            tconfigs.get_config(arch)
+        assert tconfigs.get_config(arch) == port_cfg(jreg.get_config(arch))
     with pytest.raises(KeyError, match="unknown arch"):
         tconfigs.get_config("no-such-arch")
 
@@ -251,9 +253,22 @@ def test_decode_counts_match_prefix_of_mask():
 
 def test_later_slice_branches_raise():
     x = torch.tensor(PROMPTS)
-    with pytest.raises(NotImplementedError, match="multi-chip slice"):
-        tlayers.lora_expert_einsum(torch.ones(1, 2, 3, 4), torch.ones(2, 4, 4),
-                                   None, 1.0)
+    # grouped (G, E, C, d) expert slots (a later slice once, ported now):
+    # the reference's 4-D einsum, without and with an adapter
+    xs = RNG.normal(size=(2, 3, 4, 8)).astype(np.float32)
+    w = RNG.normal(size=(3, 8, 5)).astype(np.float32)
+    lp = {"a": RNG.normal(size=(3, 8, 2)).astype(np.float32),
+          "b": RNG.normal(size=(3, 2, 5)).astype(np.float32)}
+    for pair in (None, lp):
+        close(tlayers.lora_expert_einsum(
+            torch.tensor(xs), torch.tensor(w),
+            None if pair is None else {k: torch.tensor(v)
+                                       for k, v in pair.items()}, 0.5),
+            jlayers.lora_expert_einsum(
+                jnp.asarray(xs), jnp.asarray(w),
+                None if pair is None else {k: jnp.asarray(v)
+                                           for k, v in pair.items()}, 0.5),
+            1e-5)
     # logit softcap (a later slice once, ported now): the prefill's logits
     # and cache equal JAX's blockwise capped path
     tl, tc = tmodel.prefill(TCFG.replace(attn_logit_softcap=30.0), TPARAMS,

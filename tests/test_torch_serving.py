@@ -147,10 +147,27 @@ def test_serve_launcher_runs_on_cpu(capsys):
     assert "gen_tokens: 15" in out
 
 
+_MESH_SERVE = ["--device", "cpu", "--variant", "smoke", "--world", "2",
+               "--timeout", "300",
+               "--batch", "4", "--seq-len", "24", "--prompt-len", "8",
+               "--new-tokens", "3"]
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--local", "--multi-pod"], "multi-chip"),
-    (["--device", "cpu"], "multi-chip"),
+    pytest.param(["--multi-pod", "--arch", "qwen3-moe-235b-a22b"]
+                 + _MESH_SERVE, "{'pod': 2, 'data': 1, 'model': 1}",
+                 id="argv0-multi-chip"),
+    pytest.param(["--arch", "llama3-405b", "--shape", "decode_32k"]
+                 + _MESH_SERVE, "{'data': 1, 'model': 2}",
+                 id="argv1-multi-chip"),
 ])
-def test_serve_launcher_rejects_later_slice_flags(argv, match):
-    with pytest.raises(SystemExit, match=match):
-        tserve.main(argv)
+def test_serve_launcher_rejects_later_slice_flags(argv, match, capfd):
+    # --multi-pod and the mesh path without --local (a later slice once,
+    # ported now): the sharded prefill and decode steps on a 2-rank gloo
+    # world at smoke size
+    tserve.main(argv)
+    out = capfd.readouterr().out
+    assert "cut: batch 128 -> 4, cache depth 32768 -> 24" in out
+    assert f"on mesh {match}: prefill 4 x 8 tokens" in out
+    assert "2 decode steps against a 24-deep cache" in out
+    assert out.rstrip().endswith("done")
