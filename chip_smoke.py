@@ -6,11 +6,12 @@ serving (the federated adapter unmerged), the registry's other archs,
 the single-device train step, the device round driver, the
 sliding-window ``swa`` variant, the SSM and hybrid families
 (``mamba2-780m``, ``jamba-v0.1-52b``), audio codebooks (``musicgen-large``),
-the attention logit softcap and the card mesh — on one NVIDIA GPU, and
-the mesh's multi-card steps when four are visible.
+the attention logit softcap, the card mesh and its dry run — on one
+NVIDIA GPU, and the mesh's multi-card steps with their activation modes
+when four are visible.
 
     python3 chip_smoke.py           # every phase (one card)
-    python3 chip_smoke.py --mesh    # the build and phase 21 alone
+    python3 chip_smoke.py --mesh    # the build and phases 21-22 alone
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc`` and
 nothing else of the network or the filesystem.  Phases:
@@ -278,6 +279,31 @@ nothing else of the network or the filesystem.  Phases:
    estimate, the collectives' calls, bytes and ms), a prefill of 8 x 4096
    tokens and 8 decode steps; then the kernels at (2, 2)'s per-rank
    shapes timed on rank 0;
+22. ``act_mode`` and the dry run (with 21; ``models/parallel.py``
+   ``split_to`` / ``gather_from``, ``launch/dryrun.py``,
+   ``launch/roofline.py``) — the dry run of each (arch, step, mesh,
+   act_mode) the cards run here goes to subprocesses of its own (a
+   process that has started NCCL cannot start torch's ``fake`` backend),
+   started once the card workers have returned, so it never runs beside
+   a timed window: every pair traced once as rank 0 of a fake
+   world of the same shape on ``meta`` tensors, at the same knobs.  On
+   one card: the (1, 1) pairs of phase 21 (their estimated peak beside
+   the measured one; a world of one has no collectives).  With four
+   cards, after phase 21's deep runs: qwen3-moe and llama3 at phase 21's
+   depths on (2, 2) (4096 tokens, batch 8), phase 21's weights and first
+   batch, its ``n_micro``, ``num_groups`` and ``remat_chunk`` passed
+   explicitly: one train step with ``act_mode`` "batch", "dmodel" and
+   "sp" each — dmodel and sp bit-equal to batch (loss, counts, adapters,
+   Adam's moments), s/step, peak per rank, the collectives by kind,
+   launch counts — and every kernel call of one microbatch's forward in
+   dmodel and sp (the 2-layer cut, S = 4096) against its plain version
+   within close_16bit; the depth ``deepest_fit`` gives with the dmodel
+   fallback beside phase 21's; then each dry-run pair's collective calls
+   and bytes by kind equal to what the cards counted (the 2-layer qwen3
+   on (2, 2) and (1, 4), the deep runs' train, prefill and decode steps,
+   dmodel and sp), its estimated peak beside the measured one and its
+   roofline terms beside the measured s/step and collective ms; one
+   16 x 16 pair (qwen3-moe x train_4k) traced, its wall time printed;
 20. summary — a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -424,7 +450,7 @@ def main() -> int:
         if "Compiling entry" in line or "Used" in line or "spill" in line:
             print(line.strip(), file=sys.stderr)
     if "--mesh" in sys.argv[1:]:
-        # phase 21 alone (the four-card run)
+        # phases 21-22 alone (the four-card run)
         print(json.dumps({"kernels": mesh_phase(torch)}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1155,7 +1181,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows += audio_softcap_phase(torch, dev, check, kc)
 
-    # ------------------------------------------------ 21. the card mesh
+    # ------------------------------------------------ 21-22. the card mesh,
+    #                                     act_mode and the dry run
     rows += mesh_phase(torch)
 
     # ------------------------------------------------ 20. summary
@@ -5357,7 +5384,7 @@ def _mesh_one(rank, world, out_dir):
     kc = _kernel_tools(torch, dev, [torch.empty(
         2 ** 28, dtype=torch.float32, device=dev)])
     mesh = mesh_lib.make_production_mesh(mesh_shape=(1, 1))
-    rows = []
+    rows, peaks = [], {}
     for arch, tag in (("qwen3-moe-235b-a22b", "Q"), ("llama3-405b", "L")):
         t_arch = time.perf_counter()
         cfg = get_config(arch, "full").replace(num_layers=2)
@@ -5375,6 +5402,7 @@ def _mesh_one(rank, world, out_dir):
         p_loc = shd.shard_tree(params, on_mesh.specs["params"], mesh)
         t_loc = shd.shard_tree(trainable, on_mesh.specs["trainable"], mesh)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _build.reset_launches()
         t0 = time.perf_counter()
         tr2, opt2, m2 = on_mesh.fn(p_loc, t_loc, adam.init(t_loc),
@@ -5382,6 +5410,7 @@ def _mesh_one(rank, world, out_dir):
                                      for b in batch))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        peaks[f"{arch} train"] = torch.cuda.max_memory_allocated()
         launches = dict(_build.LAUNCHES)
         same = (torch.equal(m1["loss"], m2["loss"])
                 and _bit_equal(torch, m1["counts"], m2["counts"])
@@ -5428,15 +5457,19 @@ def _mesh_one(rank, world, out_dir):
             for m in (None, mesh):
                 pre = steps.build_prefill(cfg, pshape, mesh=m)
                 srv = steps.build_serve(cfg, dshape, mesh=m)
+                torch.cuda.reset_peak_memory_stats()
                 lg, cache = pre.fn(p_loc, t_loc, prompt)
+                peaks[f"{arch} prefill"] = torch.cuda.max_memory_allocated()
                 full = model_lib.init_cache(cfg, 2, 1024, device=dev)
                 for key, c in cache.items():
                     for leaf in ("k", "v"):
                         full[key]["attn"][leaf][:, :, :512] = c["attn"][leaf]
                 nxt = lg.argmax(-1).to(torch.int32)
+                torch.cuda.reset_peak_memory_stats()
                 ld, full = srv.fn(p_loc, t_loc, full, nxt,
                                   torch.tensor(512, dtype=torch.int32,
                                                device=dev))
+                peaks[f"{arch} decode"] = torch.cuda.max_memory_allocated()
                 outs.append((lg, cache, ld, full))
             (a1, b1, c1, d1), (a2, b2, c2, d2) = outs
             same = (torch.equal(a1, a2) and _bit_equal(torch, b1, b2)
@@ -5451,6 +5484,7 @@ def _mesh_one(rank, world, out_dir):
         torch.cuda.empty_cache()
         print(f"mesh (1, 1) {cfg.name}: {time.perf_counter() - t_arch:.1f} s")
     (Path(out_dir) / "mesh_rows_1.json").write_text(json.dumps(rows))
+    (Path(out_dir) / "mesh_one.json").write_text(json.dumps(peaks))
 
 
 def _near_tie_tokens(torch, got, want, want_logits, got_logits):
@@ -5475,12 +5509,23 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
     """One train step (B = 4, S = 1024, n_micro 2, 2 routing groups), then a
     prefill (B = 4, S = 256) and 4 greedy decode steps (a 512-deep cache)
     on ``mesh`` (None: one device).  Returns loss, counts, the updated
-    adapters (whole), tokens (4, 5) and each step's logits (whole)."""
+    adapters (whole), tokens (4, 5), each step's logits (whole) and the
+    collectives by kind of the train step, the prefill and one decode
+    step (the four steps' over 4)."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import parallel
     from repro_torch.optim import adam
+    comm = {}
+
+    def counted(what, fn, n=1):
+        parallel.comm_start()
+        out = fn()
+        c = parallel.comm_stop()["by_kind"]
+        comm[what] = {k: [v[0] / n, v[1] / n] for k, v in c.items()}
+        return out
     shape = ShapeConfig("t", 1024, 4, "train")
     tb = steps.build_train(cfg, shape, n_micro=2, num_groups=2, device=dev,
                            mesh=mesh)
@@ -5491,7 +5536,7 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
         p = shd.shard_tree(params, tb.specs["params"], mesh)
         tr = shd.shard_tree(trainable, tb.specs["trainable"], mesh)
         batch = [steps.shard_batch(b, mesh, 2) for b in batch]
-    new, _, m = tb.fn(p, tr, adam.init(tr), *batch)
+    new, _, m = counted("train", lambda: tb.fn(p, tr, adam.init(tr), *batch))
     if mesh is not None:
         new = shd.gather_tree(new, tb.specs["trainable"], mesh)
     pre = steps.build_prefill(cfg, ShapeConfig("p", 256, 4, "prefill"),
@@ -5503,7 +5548,7 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
     rows = None if mesh is None else pre.specs["batch"]
     if mesh is not None:
         prompt = steps.shard_batch(prompt, mesh)
-    lg, cache = pre.fn(p, tr, prompt)
+    lg, cache = counted("prefill", lambda: pre.fn(p, tr, prompt))
 
     def pad(t):
         out = t.new_zeros(t.shape[:2] + (512,) + t.shape[3:])
@@ -5512,18 +5557,22 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
     cache = {key: {"attn": {leaf: pad(c["attn"][leaf]) for leaf in ("k", "v")}}
              for key, c in cache.items()}
     logits, toks = [lg[:, 0]], [lg.argmax(-1)]
-    for i in range(4):
-        lg, cache = srv.fn(p, tr, cache, toks[-1].to(torch.int32),
-                           torch.tensor(256 + i, dtype=torch.int32,
-                                        device=dev))
-        logits.append(lg[:, 0])
-        toks.append(lg.argmax(-1))
+
+    def decode():
+        nonlocal lg, cache
+        for i in range(4):
+            lg, cache = srv.fn(p, tr, cache, toks[-1].to(torch.int32),
+                               torch.tensor(256 + i, dtype=torch.int32,
+                                            device=dev))
+            logits.append(lg[:, 0])
+            toks.append(lg.argmax(-1))
+    counted("decode", decode, n=4)
     tokens = torch.cat(toks, dim=1)
     if mesh is not None:
         tokens = shd.gather_leaf(tokens, rows, mesh)
         logits = [shd.gather_leaf(x, rows, mesh) for x in logits]
     counts = m["counts"]
-    return float(m["loss"]), counts, new, tokens, logits
+    return float(m["loss"]), counts, new, tokens, logits, comm
 
 
 def _mesh_four(rank, world, out_dir):
@@ -5533,8 +5582,11 @@ def _mesh_four(rank, world, out_dir):
     counts' total equal and at most 2% of the routes moved, tokens equal
     or near-ties; (b) qwen3-moe-235b-a22b and llama3-405b at the deepest
     whole-period cut the estimate fits on (2, 2): two train steps at 4096
-    tokens (batch 8), then a prefill (8 x 4096) and 8 decode steps; (c)
-    on rank 0, the kernels at (2, 2)'s per-rank shapes timed."""
+    tokens (batch 8), then a prefill (8 x 4096) and 8 decode steps;
+    phase 22 (a): both archs at those depths trained once in each
+    act_mode (:func:`_act_mode_steps`) and every kernel call of a dmodel
+    and an sp forward checked (:func:`_act_mode_calls`); (c) on rank 0,
+    the kernels at (2, 2)'s per-rank shapes timed."""
     import gc
 
     import torch
@@ -5582,7 +5634,7 @@ def _mesh_four(rank, world, out_dir):
                 "loss": got[0], "loss_one_card": want[0],
                 "adapter_err": ad_err, "routes_moved": moved,
                 "routes": total, "rows_diverged": n_div,
-                "logit_err": lg_err}
+                "logit_err": lg_err, "comm": got[5]}
             log(f"mesh {shape} {cfg.name} 2 layers: loss {got[0]:.6f} "
                 f"(one card {want[0]:.6f}, |d| {loss_err:.3e}), adapters max "
                 f"|d| {ad_err:.3e}, routes moved {moved:.0f} of {total:.0f}, "
@@ -5600,7 +5652,7 @@ def _mesh_four(rank, world, out_dir):
     for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
         t_arch = time.perf_counter()
         full = get_config(arch, "full")
-        layers = steps.deepest_fit(full, shape, mesh, memory)
+        layers = _batch_depth(steps, full, shape, mesh, memory)
         check(layers > 0, f"{arch}: no depth fits (2, 2)")
         cfg = full.replace(num_layers=layers)
         log(f"deep {arch} on (2, 2): {layers} of {full.num_layers} layers "
@@ -5624,13 +5676,35 @@ def _mesh_four(rank, world, out_dir):
             "train_launches": launches,
             "prefill_s": sv["prefill_s"], "decode_ms": sv["decode_ms"],
             "decode_tokens_per_s": sv["tokens_per_s"],
-            "decode_comm": sv["comm"], "serve_peak_bytes": sv["peak_bytes"]}
+            "decode_comm": sv["comm"], "prefill_comm": sv["prefill_comm"],
+            "serve_peak_bytes": sv["peak_bytes"]}
         log(f"deep {arch}: estimate {est / 2 ** 30:.2f} GiB a rank; "
             f"{time.perf_counter() - t_arch:.1f} s")
         del tr, sv
         gc.collect()
         torch.cuda.empty_cache()
         dist.barrier()
+
+    # phase 22 (a): the activation modes at phase 21's depths
+    res["act_mode"] = {}
+    for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
+        full = get_config(arch, "full")
+        layers = res["deep"][arch]["layers"]
+        res["act_mode"][arch] = _act_mode_steps(
+            torch, full.replace(num_layers=layers), shape, mesh, dev, log,
+            res["deep"][arch]["meta"])
+        res["act_mode"][arch]["deepest_fit_dmodel"] = steps.deepest_fit(
+            full, shape, mesh, memory)
+        log(f"22 {arch}: deepest_fit with the dmodel fallback "
+            f"{res['act_mode'][arch]['deepest_fit_dmodel']} layers (phase "
+            f"21, batch only: {layers})")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    res["act_mode_calls"] = _act_mode_calls(torch, mesh, dev, kc, log)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
 
     if rank == 0:
         rows = _mesh_rank_shape_rows(torch, dev, kc, res)
@@ -5699,6 +5773,346 @@ def _mesh_rank_shape_rows(torch, dev, kc, res):
     return rows
 
 
+# --------------------------------------------------------------------------
+# 22. act_mode on the mesh, and the dry run against the cards
+# --------------------------------------------------------------------------
+
+ACT_MODES = ("batch", "dmodel", "sp")
+DEEP_ARCHS = ("qwen3-moe-235b-a22b", "llama3-405b")
+CARDS_PER_NODE = 4               # the four-card machine is one node
+
+
+def _host(tree):
+    if isinstance(tree, dict):
+        return {k: _host(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _want_launches(cfg):
+    return ["flash_attention", "lora_matmul"] + (
+        ["topk_router", "lora_matmul_experts"] if cfg.moe.enabled else [])
+
+
+def _batch_depth(steps, full, shape, mesh, memory):
+    """Phase 21's depth: the deepest whole-period cut at which the knob
+    chooser keeps act_mode "batch" within ``memory`` a card (its own
+    ``deepest_fit`` also counts the "dmodel" fallback, phase 22 (a))."""
+    def fits(n):
+        try:
+            knobs = steps.choose_train_knobs(
+                full.replace(num_layers=n * full.pattern_period), shape,
+                mesh=mesh, memory_bytes=memory)
+        except steps.DoesNotFit:
+            return False
+        return knobs["act_mode"] == "batch"
+    P = full.pattern_period
+    return steps.most_periods(fits, full.num_layers // P) * P
+
+
+def _act_mode_steps(torch, cfg, shape, mesh, dev, log, chosen):
+    """Phase 22 (a) for one arch, on every rank: phase 21's weights (seed
+    61), trainable tree and first batch at its depth, one train step in
+    each act_mode at the knobs phase 21's run chose (``chosen``, its
+    meta), passed explicitly.
+    The launch counters are zeroed before each step and read after it.
+    Each step's loss, counts, adapters and Adam moments go to the host;
+    dmodel and sp must equal batch's bit for bit."""
+    import gc
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import rank_peaks
+    from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import parallel
+    from repro_torch.optim import adam
+    seed = 61
+    knobs = {k: chosen[k] for k in ("n_micro", "num_groups", "remat_chunk")}
+    params = shd.init_sharded_params(cfg, mesh, seed, dev)
+    trainable = shd.init_sharded_lora(cfg, mesh, seed + 1, chosen["k"] or 0,
+                                      dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+    batch = [steps.shard_batch(t, mesh, knobs["n_micro"])
+             for t in synthetic_batch(cfg, shape, gen, dev)]
+    out, host = {"knobs": knobs}, {}
+    for mode in ACT_MODES:
+        b = steps.build_train(cfg, shape, tc=TrainConfig(), device=dev,
+                              mesh=mesh, act_mode=mode, **knobs)
+        check(b.meta["act_mode"] == mode, f"{cfg.name}: {mode} ran as "
+              f"{b.meta['act_mode']}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        parallel.comm_start()
+        t0 = time.perf_counter()
+        tr, opt, m = b.fn(params, trainable, adam.init(trainable), *batch)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        comm = parallel.comm_stop()
+        launches = dict(_build.LAUNCHES)
+        peaks = rank_peaks(dev)
+        host[mode] = _host({"loss": m["loss"], "counts": m["counts"],
+                            "trainable": tr, "mu": opt.mu, "nu": opt.nu})
+        out[mode] = {"loss": float(m["loss"]), "s": dt,
+                     "tokens_per_s": shape.global_batch * shape.seq_len / dt,
+                     "peak_bytes": peaks, "comm": comm,
+                     "launches": launches, "act_bytes": b.meta["act_bytes"]}
+        kinds = ", ".join(f"{k} {v[0]} calls {v[1] / 2 ** 30:.3f} GiB "
+                          f"{v[2]:.1f} ms" for k, v in comm["by_kind"].items())
+        log(f"22 {cfg.name} ({cfg.num_layers} layers) act_mode {mode}: loss "
+            f"{out[mode]['loss']:.6f}, {dt:.3f} s/step, peak per rank ["
+            + ", ".join(f"{p / 2 ** 30:.2f}" for p in peaks) + "] GiB "
+            f"(estimate's activations {b.meta['act_bytes'] / 2 ** 30:.2f} "
+            f"GiB); collectives {kinds}; launches {json.dumps(launches)}")
+        check(all(launches[k] > 0 for k in _want_launches(cfg)),
+              f"{cfg.name} {mode} step launched {launches}")
+        del tr, opt, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    for mode in ACT_MODES[1:]:
+        same = _bit_equal(torch, host[mode], host["batch"])
+        out[mode]["bit_equal"] = same
+        drop = [(a - b) / 2 ** 30 for a, b in zip(out["batch"]["peak_bytes"],
+                                                  out[mode]["peak_bytes"])]
+        log(f"22 {cfg.name}: {mode} bit-equal to batch (loss, counts, "
+            f"adapters, Adam) {same}; peak per rank fell by ["
+            + ", ".join(f"{d:.2f}" for d in drop) + "] GiB")
+        check(same, f"{cfg.name}: the {mode} step differs from the batch "
+              "step")
+    del params, trainable, batch
+    return out
+
+
+def _act_mode_calls(torch, mesh, dev, kc, log):
+    """Phase 22 (a), the kernels: qwen3-moe and llama3 at full width cut to
+    2 layers on every rank of ``mesh``; every kernel call of one
+    microbatch's forward (B = 1 a rank, S = 4096) in dmodel and in sp
+    against its plain version within close_16bit.  Returns {arch: {mode:
+    max err by kernel}}."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.parallel import Shard
+    out = {}
+    for arch in DEEP_ARCHS:
+        cfg = get_config(arch, "full").replace(num_layers=2)
+        params, trainable = _mesh_state(torch, cfg, dev, 31)
+        a_params = steps.abstract_params(cfg)
+        p_loc = shd.shard_tree(params, shd.param_specs(cfg, a_params, mesh),
+                               mesh)
+        t_loc = shd.shard_tree(trainable, shd.trainable_specs(
+            cfg, trainable, mesh), mesh)
+        del params, trainable
+        gen = torch.Generator(device=dev).manual_seed(91)
+        tok = torch.randint(0, cfg.vocab_size, (1, 4096), generator=gen,
+                            device=dev, dtype=torch.int32)
+        lab = tok.roll(-1, dims=1)
+        mask = torch.ones((1, 4096), device=dev)
+        out[arch] = {}
+        # the deep steps' routing groups: 2 sequences a microbatch
+        groups = steps.choose_num_groups(cfg, 2, 4096, mesh=mesh)
+        for mode in ACT_MODES[1:]:
+            with torch.no_grad():
+                _, calls = _recorded(torch, lambda: model_lib.lm_loss(
+                    cfg, p_loc, tok, lab, mask, trainable=t_loc,
+                    k=cfg.moe.top_k or None, num_groups=groups,
+                    shard=Shard(mesh, act_mode=mode)))
+            errs = _mesh_call_checks(torch, cfg, calls, kc,
+                                     f"22 {cfg.name} (2, 2) {mode}")
+            out[arch][mode] = errs
+            log(f"22 {cfg.name} (2, 2) {mode}: every kernel call of one "
+                f"microbatch's forward (B=1 a rank, S=4096) vs plain, max "
+                f"err {json.dumps(errs)}")
+            del calls
+        del p_loc, t_loc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dry_pairs(memory, layers=None):
+    """The dry-run pairs of the cards' runs: {tag: spec}, the knob
+    chooser's budget ``memory`` as on the cards.  One card (``layers``
+    None): phase 21's (1, 1) pairs.  Four (``layers``: {arch: the depth
+    the workers ran}): the 2-layer qwen3 on (2, 2) and (1, 4), the deep
+    runs' train steps in each act_mode, their prefill and decode step,
+    and one 16 x 16 pair."""
+    q, l = DEEP_ARCHS
+
+    def pair(arch, shape, mesh, layers=None, card=None, **overrides):
+        # card: where the cards' run keeps its counts (_card_counts)
+        return {"arch": arch, "shape": shape, "mesh": mesh,
+                "replace": {"num_layers": layers} if layers else None,
+                "overrides": overrides, "memory_bytes": memory,
+                "card": card}
+    if layers is None:
+        pairs = {f"(1, 1) {a} train": pair(a, ["train_2k", 2048, 2, "train"],
+                                           [1, 1], 2, n_micro=2)
+                 for a in DEEP_ARCHS}
+        pairs[f"(1, 1) {q} prefill"] = pair(q, ["p", 512, 2, "prefill"],
+                                            [1, 1], 2)
+        pairs[f"(1, 1) {q} decode"] = pair(q, ["d", 1024, 2, "decode"],
+                                           [1, 1], 2)
+        return pairs
+    pairs = {}
+    for mesh in ([2, 2], [1, 4]):
+        tag = f"({mesh[0]}, {mesh[1]}) {q} 2 layers"
+        two = ["meshes", str(tuple(mesh))]
+        pairs[f"{tag} train"] = pair(q, ["t", 1024, 4, "train"], mesh, 2,
+                                     two + ["train"], n_micro=2,
+                                     num_groups=2)
+        pairs[f"{tag} prefill"] = pair(q, ["p", 256, 4, "prefill"], mesh, 2,
+                                       two + ["prefill"])
+        pairs[f"{tag} decode"] = pair(q, ["d", 512, 4, "decode"], mesh, 2,
+                                      two + ["decode"])
+    for arch, n in layers.items():
+        tag = f"(2, 2) {arch} {n} layers"
+        for mode in ACT_MODES:
+            pairs[f"{tag} train {mode}"] = pair(
+                arch, ["train_4k", 4096, 8, "train"], [2, 2], n,
+                ["deep", arch, mode], act_mode=mode)
+        pairs[f"{tag} prefill"] = pair(arch, ["prefill", 4096, 8, "prefill"],
+                                       [2, 2], n, ["deep", arch, "prefill"])
+        pairs[f"{tag} decode"] = pair(arch, ["decode", 4104, 8, "decode"],
+                                      [2, 2], n, ["deep", arch, "decode"])
+    pairs[f"(16, 16) {q} train_4k"] = pair(q, ["train_4k", 4096, 256,
+                                              "train"], [16, 16])
+    return pairs
+
+
+DRY_RUN = """
+import json, sys, time
+import torch
+torch.set_num_threads(1)
+from repro_torch.configs import ShapeConfig
+from repro_torch.launch.dryrun import run_pair
+pairs, out = json.load(open(sys.argv[1])), {}
+for tag, p in pairs.items():
+    t0 = time.perf_counter()
+    rec = run_pair(p["arch"], p["shape"][0], shape=ShapeConfig(*p["shape"]),
+                   mesh_shape=tuple(p["mesh"]), cfg_replace=p["replace"],
+                   overrides=p["overrides"], memory_bytes=p["memory_bytes"],
+                   cards_per_node=int(sys.argv[3]))
+    rec["wall_s"] = time.perf_counter() - t0
+    out[tag] = rec
+json.dump(out, open(sys.argv[2], "w"), default=str)
+"""
+
+
+def _start_dry(pairs, name, procs):
+    """The dry run of ``pairs`` in ``procs`` subprocesses of their own (no
+    card visible to them: a fake world and ``meta`` tensors only)."""
+    import os
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    tags = list(pairs)
+    running = []
+    for i in range(procs):
+        mine = {t: pairs[t] for t in tags[i::procs]}
+        if not mine:
+            continue
+        spec = MESH_DIR / f"dry_{name}_{i}.json"
+        res = MESH_DIR / f"dry_{name}_{i}_out.json"
+        spec.write_text(json.dumps(mine))
+        log = open(MESH_DIR / f"dry_{name}_{i}.log", "w")
+        running.append((subprocess.Popen(
+            [sys.executable, "-c", DRY_RUN, str(spec), str(res),
+             str(CARDS_PER_NODE)], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT)), res, log))
+    return running
+
+
+def _finish_dry(running, timeout=900):
+    recs = {}
+    for proc, res, log in running:
+        rc = proc.wait(timeout=timeout)
+        log.close()
+        check(rc == 0, f"dry run exited {rc}: "
+              + Path(log.name).read_text()[-2000:])
+        recs.update(json.loads(res.read_text()))
+    return recs
+
+
+def _gib(b):
+    return "not measured" if b is None else f"{b / 2 ** 30:.2f} GiB"
+
+
+def _compare_one(recs, peaks):
+    """The (1, 1) pairs: no collectives in a world of one; the estimate's
+    peak beside the measured one."""
+    for tag, rec in recs.items():
+        check(not rec["collectives"]["execs_by_kind"],
+              f"dry run {tag}: collectives in a world of one")
+        what = tag.split(" ", 2)[2]
+        r = rec["roofline"]
+        print(f"22 dry run {tag}: estimate {rec['memory']['peak_gb']:.2f} "
+              f"GiB a rank vs measured {_gib(peaks.get(what))}; roofline "
+              f"compute {r['t_compute_ms']:.2f} memory {r['t_memory_ms']:.2f}"
+              f" ms; traced in {rec['t_trace_s']} s")
+
+
+def _card_counts(card, res):
+    """What the cards counted for a dry-run pair (its spec's ``card``):
+    ({kind: [calls, bytes]}, measured peak bytes or None, seconds or None,
+    collective ms or None)."""
+    def by_kind(comm, n=1):
+        return {k: [v[0] / n, v[1] / n] for k, v in comm["by_kind"].items()}
+    if card[0] == "meshes":
+        return res["meshes"][card[1]]["comm"][card[2]], None, None, None
+    _, arch, what = card
+    deep = res["deep"][arch]
+    if what == "prefill":
+        return (by_kind(deep["prefill_comm"]), max(deep["serve_peak_bytes"]),
+                deep["prefill_s"], deep["prefill_comm"]["ms"])
+    if what == "decode":
+        n = len(deep["decode_ms"])
+        ms = sorted(deep["decode_ms"])[n // 2]
+        return (by_kind(deep["decode_comm"], n),
+                max(deep["serve_peak_bytes"]), ms / 1e3,
+                deep["decode_comm"]["ms"] / n)
+    if what == "batch":
+        st = deep["steps"][-1]
+    else:
+        st = res["act_mode"][arch][what]
+    return (by_kind(st["comm"]), max(st["peak_bytes"]), st["s"],
+            st["comm"]["ms"])
+
+
+def _compare_four(recs, pairs, res):
+    """Each pair's collective calls and bytes by kind equal to the
+    cards'; the estimate's peak and the roofline beside the measured."""
+    for tag, rec in recs.items():
+        r = rec["roofline"]
+        if tag.startswith("(16, 16)"):
+            print(f"22 dry run {tag}: traced in {rec['t_trace_s']} s "
+                  f"({rec['wall_s']:.1f} s with the build); "
+                  f"{json.dumps(rec['collectives']['execs_by_kind'])}; "
+                  f"estimate {rec['memory']['peak_gb']:.2f} GiB a rank; "
+                  f"roofline compute {r['t_compute_ms']:.1f} memory "
+                  f"{r['t_memory_ms']:.1f} collective "
+                  f"{r['t_collective_ms']:.1f} ms ({r['bottleneck']})")
+            continue
+        got, peak, sec, coll_ms = _card_counts(pairs[tag]["card"], res)
+        dry = {k: [rec["collectives"]["execs_by_kind"][k],
+                   rec["collectives"]["bytes_by_kind"][k]]
+               for k in rec["collectives"]["execs_by_kind"]}
+        same = dry == got
+        print(f"22 dry run {tag}: collectives {json.dumps(dry)} vs cards "
+              f"{json.dumps(got)}: equal {same}; estimate "
+              f"{rec['memory']['peak_gb']:.2f} GiB a rank vs measured peak "
+              f"{_gib(peak)}; roofline compute {r['t_compute_ms']:.1f} "
+              f"memory {r['t_memory_ms']:.1f} collective "
+              f"{r['t_collective_ms']:.1f} ms ({r['bottleneck']}) vs "
+              + ("not measured" if sec is None else
+                 f"{sec * 1e3:.1f} ms a step, collectives {coll_ms:.1f} ms")
+              + f"; traced in {rec['t_trace_s']} s")
+        check(same, f"dry run {tag}: the collectives differ from the cards'")
+
+
 def mesh_phase(torch):
     """Phase 21: the card mesh (the module docstring).  The parent frees
     its cached memory, then spawns the workers (one a card, NCCL); their
@@ -5713,8 +6127,24 @@ def mesh_phase(torch):
     n = torch.cuda.device_count()
     print(f"mesh phase: {n} card(s) visible; mesh (1, 1) on one card "
           "(a world of one NCCL rank)")
+    from repro_torch.launch.steps import device_bytes
+    from repro_torch.launch.train import MESH_RESERVE
+    from repro_torch.launch.dryrun import MEMORY_BYTES
+    total = device_bytes("cuda")
+    # the knob chooser's budget, as train.py sets it on this card
+    memory = total - MESH_RESERVE
+    print(f"mesh phase: the card's total_memory {total} B; the dry run's "
+          f"default budget assumes {MEMORY_BYTES + MESH_RESERVE} B: "
+          f"{'equal' if total == MEMORY_BYTES + MESH_RESERVE else 'differ'}")
+    # the dry runs start once the workers have returned: none of their
+    # timed windows shares the host with them
     spawn(_mesh_one, 1, str(MESH_DIR), backend="nccl")
     rows = json.loads((MESH_DIR / "mesh_rows_1.json").read_text())
+    t1 = time.perf_counter()
+    _compare_one(_finish_dry(_start_dry(_dry_pairs(memory), "one", 1)),
+                 json.loads((MESH_DIR / "mesh_one.json").read_text()))
+    print(f"22 dry run (1, 1): {time.perf_counter() - t1:.1f} s after "
+          "the card")
     if n >= 4:
         cards = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5727,6 +6157,12 @@ def mesh_phase(torch):
         four = json.loads((MESH_DIR / "mesh_four.json").read_text())
         rows += four.pop("rows")
         print(f"mesh four-card results: {json.dumps(four)}")
+        t1 = time.perf_counter()
+        pairs = _dry_pairs(memory, {a: four["deep"][a]["layers"]
+                                    for a in DEEP_ARCHS})
+        _compare_four(_finish_dry(_start_dry(pairs, "four", 4)), pairs, four)
+        print(f"22 dry run: {time.perf_counter() - t1:.1f} s after the "
+              "cards")
     else:
         print("mesh phase: (1, 4), (2, 2), (2, 1, 2) and the deepest cuts "
               f"need four cards; {n} visible, so only (1, 1) ran")

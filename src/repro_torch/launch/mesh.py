@@ -24,7 +24,9 @@ where such a group would have one rank): ``mesh.group("model")``,
 
 Workers: :func:`spawn` starts one process a card with the ``spawn`` start
 method and a ``file://`` rendezvous, or :func:`init_from_env` joins the
-world ``torchrun`` describes in the environment.
+world ``torchrun`` describes in the environment.  The dry run
+(``launch/dryrun.py``) plays rank 0 of a world of any size in one
+process instead (:func:`fake_world`).
 """
 from __future__ import annotations
 
@@ -151,13 +153,30 @@ def make_production_mesh(*, multi_pod: bool = False,
     """The mesh over every rank of the process group (one a card):
     :func:`production_shape`, or ``mesh_shape`` (the role of the
     reference's dry-run override), with axes ``("data", "model")`` or
-    ``("pod", "data", "model")``."""
+    ``("pod", "data", "model")``.  On a world of 256 (512) ranks that is
+    the reference's 16 x 16 (2 x 16 x 16) mesh; on four cards (2, 2) or
+    (2, 1, 2)."""
     world = (dist.get_world_size()
              if dist.is_available() and dist.is_initialized() else 1)
     axes = AXIS_ORDER if multi_pod else AXIS_ORDER[1:]
     shape = (tuple(mesh_shape) if mesh_shape is not None
              else production_shape(world, multi_pod))
     return Mesh(shape, axes)
+
+
+def fake_world(world: int) -> None:
+    """Make this process rank 0 of a world of ``world`` ranks on torch's
+    ``fake`` process-group backend (``torch.testing._internal.distributed
+    .fake_pg``): every collective returns at once and moves nothing, so
+    a step on ``meta`` tensors traces the collectives rank 0 would make.
+    For the dry run only; a process that has started another backend
+    (NCCL, gloo) cannot start this one too.  An earlier fake world is
+    replaced."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def batch_axes(mesh: Mesh) -> Tuple[str, ...]:

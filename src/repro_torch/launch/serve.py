@@ -202,8 +202,9 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     ``cache_len``-deep cache, on this rank of ``mesh`` (every rank calls
     it; ``log`` prints on rank 0).  Returns the prefill s, each decode
     step's ms, the decoded tokens (batch, new_tokens) of the whole batch,
-    the collectives of the decode steps and each rank's peak bytes (the
-    card only)."""
+    the collectives of the prefill and of the decode steps
+    (``parallel.comm_stop()``) and each rank's
+    peak bytes (the card only)."""
     from ..models import parallel
     from . import sharding as shd
     from . import steps as steps_lib
@@ -230,11 +231,13 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     sync()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+    parallel.comm_start()
     t0 = time.perf_counter()
     logits, cache = pre.fn(params, trainable,
                            steps_lib.shard_batch(prompts, mesh))
     sync()
     prefill_s = time.perf_counter() - t0
+    prefill_comm = parallel.comm_stop()
 
     def pad(t):
         out = t.new_zeros(t.shape[:2] + (cache_len,) + t.shape[3:])
@@ -258,7 +261,7 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     peaks = rank_peaks(device) if on_card else None
     decode_s = sum(step_ms) / 1e3
     out = {"prefill_s": prefill_s, "decode_ms": step_ms, "tokens": tokens,
-           "comm": comm, "peak_bytes": peaks,
+           "comm": comm, "prefill_comm": prefill_comm, "peak_bytes": peaks,
            "tokens_per_s": (batch * len(step_ms) / decode_s
                             if decode_s else 0.0)}
     med = sorted(step_ms)[len(step_ms) // 2] if step_ms else 0.0

@@ -57,9 +57,14 @@ rank's own bytes (its shards and trainable state, a layer's FSDP gathers
 and the LoRA backward's fp32 copies, its activations with heads, FFN
 columns, experts and vocabulary split ``model`` ways, all of what
 ``memory_bytes`` leaves: no fraction is held back, so a caller passes the
-card's memory less its reserve);
-``act_mode`` stays ``"batch"``, and a step that would need ``"dmodel"``
-or ``"seq"`` raises, naming the next multi-chip slice.
+card's memory less its reserve).  ``act_mode`` is ``"batch"`` when one
+microbatch fits so, else ``"dmodel"`` (the reference's last resort: the
+checkpointed carries held as each rank's 1/M of D, counted so in
+:func:`activation_bytes`); a step where neither fits raises
+:class:`DoesNotFit`.  ``"sp"`` (the carries held as each rank's 1/M of
+the sequence, Megatron-style) is never chosen, only asked for, as in the
+reference.  Both run in ``models/model.py`` (``Shard.act_mode``) and give
+the ``"batch"`` step's result bit for bit.
 """
 from __future__ import annotations
 
@@ -171,19 +176,21 @@ def _remat_chunk(n_periods: int) -> int:
 
 
 def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
-                     k: Optional[int] = None, model_ways: int = 1) -> int:
+                     k: Optional[int] = None, model_ways: int = 1,
+                     carry_ways: int = 1) -> int:
     """Estimated peak autograd footprint of one sequence of ``seq_len``
     tokens under layer checkpointing (the module docstring lists the
     terms), over the P positions of one period.  ``model_ways``: on the
     mesh, the terms that scale with heads, FFN columns, expert slots and
-    the vocabulary are one rank's share."""
+    the vocabulary are one rank's share; ``carry_ways``: the checkpointed
+    carries are one rank's share too (``act_mode`` "dmodel" or "sp")."""
     M = model_ways
     S, d = seq_len, cfg.d_model
     n_periods = cfg.num_layers // cfg.pattern_period
     n_saved = (n_periods // remat_chunk + remat_chunk if remat_chunk > 1
                else n_periods)
     itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    carries = n_saved * S * d * itemsize
+    carries = n_saved * S * d * itemsize // carry_ways
     hd = cfg.head_dim_
     m = cfg.moe
     kinds = [cfg.layer_kind(j) for j in range(cfg.pattern_period)]
@@ -240,57 +247,67 @@ def rank_bytes(tree: PyTree, specs: PyTree, mesh) -> int:
     return total
 
 
-def _period_gather_bytes(cfg: ModelConfig, a_params, mesh) -> int:
+def period_gather_bytes(cfg: ModelConfig, a_params, mesh,
+                        copies: int = 3) -> int:
     """A period's frozen weights as one rank holds them after the FSDP
-    gather (split ``model`` ways only), times three: the gathered copy and,
-    in the backward, the LoRA backward's fp32 copy."""
+    gather (split ``model`` ways only), times ``copies``: in training
+    three, the gathered copy and, in the backward, the LoRA backward's
+    fp32 copy."""
     n = cfg.num_layers // cfg.pattern_period
     per = sum(t.numel() * t.element_size()
               for t in leaves(a_params["blocks"])) // max(n, 1)
-    return 3 * per // mesh.shape.get("model", 1)
+    return copies * per // mesh.shape.get("model", 1)
+
+
+class DoesNotFit(ValueError):
+    """One microbatch of one sequence exceeds a rank's budget in every
+    activation mode the chooser may pick."""
 
 
 def _mesh_knobs(cfg, shape, mesh, memory_bytes, k):
     """The reference's data-parallel n_micro rule against one rank's
     bytes (the module docstring): the microbatch's activations must fit
     what ``memory_bytes`` leaves after the rank's shards, trainable state
-    and FSDP gathers."""
+    and FSDP gathers, in "batch" if they fit so, else in "dmodel"."""
     dp = _data_size(mesh)
     M = mesh.shape.get("model", 1)
     B, S = shape.global_batch, shape.seq_len
     n_periods = cfg.num_layers // cfg.pattern_period
     chunk = _remat_chunk(n_periods)
-    per_seq = activation_bytes(cfg, S, chunk, k, model_ways=M)
     a_params = abstract_params(cfg)
     a_train = tree_map(lambda t: t.to(_F32), abstract_trainable(cfg, k or 0))
     param_bytes = rank_bytes(a_params, shd.param_specs(cfg, a_params, mesh),
                              mesh)
     train_bytes = 4 * rank_bytes(
         a_train, shd.trainable_specs(cfg, a_train, mesh), mesh)
-    fixed = param_bytes + train_bytes + _period_gather_bytes(cfg, a_params,
-                                                             mesh)
+    fixed = param_bytes + train_bytes + period_gather_bytes(cfg, a_params,
+                                                            mesh)
     # the gathers' fp32 copies are counted in ``fixed`` and the activations
     # at their worst, so a rank's budget is all that is left of
     # ``memory_bytes`` (the caller keeps its reserve out of it)
     budget = max(memory_bytes - fixed, 0)
-    n_micro = 1
-    while n_micro < B // max(dp, 1):
-        if max(B // (n_micro * dp), 1) * per_seq <= budget:
-            break
-        n_micro *= 2
-    mb_local = max(B // (n_micro * dp), 1)
-    if mb_local * per_seq > budget:
-        raise NotImplementedError(
-            f"{cfg.name} x {shape.name} on {mesh.shape}: one sequence's "
-            f"activations ({per_seq / 2 ** 30:.2f} GiB) exceed a rank's "
-            f"budget ({budget / 2 ** 30:.2f} GiB); the reference would shard "
-            "them (act_mode dmodel), which comes with the next multi-chip "
-            "slice: cut the depth or the sequence")
-    return {"n_micro": n_micro, "act_mode": "batch",
-            "remat_chunk": chunk if chunk > 1 else 0,
-            "act_bytes": mb_local * per_seq, "act_budget": budget,
-            "rank_param_bytes": param_bytes, "rank_train_bytes": train_bytes,
-            "rank_fixed_bytes": fixed}
+    tried = []
+    for mode in ("batch", "dmodel"):
+        per_seq = activation_bytes(cfg, S, chunk, k, model_ways=M,
+                                   carry_ways=1 if mode == "batch" else M)
+        n_micro = 1
+        while n_micro < B // max(dp, 1):
+            if max(B // (n_micro * dp), 1) * per_seq <= budget:
+                break
+            n_micro *= 2
+        mb_local = max(B // (n_micro * dp), 1)
+        if mb_local * per_seq <= budget:
+            return {"n_micro": n_micro, "act_mode": mode,
+                    "remat_chunk": chunk if chunk > 1 else 0,
+                    "act_bytes": mb_local * per_seq, "act_budget": budget,
+                    "rank_param_bytes": param_bytes,
+                    "rank_train_bytes": train_bytes,
+                    "rank_fixed_bytes": fixed}
+        tried.append(f"{mode} {per_seq / 2 ** 30:.2f} GiB")
+    raise DoesNotFit(
+        f"{cfg.name} x {shape.name} on {mesh.shape}: one sequence's "
+        f"activations ({', '.join(tried)}) exceed a rank's budget "
+        f"({budget / 2 ** 30:.2f} GiB): cut the depth or the sequence")
 
 
 def deepest_fit(cfg: ModelConfig, shape: ShapeConfig, mesh,
@@ -298,7 +315,8 @@ def deepest_fit(cfg: ModelConfig, shape: ShapeConfig, mesh,
     """The most layers, in whole periods of the layer pattern, at which
     one rank's shards, trainable state, FSDP gathers and one microbatch's
     activations fit ``memory_bytes`` by :func:`choose_train_knobs`'s
-    estimate on the ``mesh``; 0 if not even one period fits."""
+    estimate on the ``mesh`` ("batch" or "dmodel"); 0 if not even one
+    period fits."""
     P = cfg.pattern_period
 
     def fits(n):
@@ -306,7 +324,7 @@ def deepest_fit(cfg: ModelConfig, shape: ShapeConfig, mesh,
             _mesh_knobs(cfg.replace(num_layers=n * P), shape, mesh,
                         memory_bytes, k)
             return True
-        except NotImplementedError:
+        except DoesNotFit:
             return False
 
     return most_periods(fits, cfg.num_layers // P) * P
@@ -333,11 +351,12 @@ def choose_train_knobs(cfg: ModelConfig, shape: ShapeConfig, *,
     card's activation budget (the module docstring's rule): two-level √L
     checkpointing, and the fewest microbatches that fit (n_micro doubles
     from 1; a model whose one-sequence microbatch does not fit gets
-    ``n_micro = global_batch``).  ``act_mode`` is always ``"batch"``: one
-    card has no other axis to shard the activations over.  ``memory_bytes``
+    ``n_micro = global_batch``).  ``act_mode`` is ``"batch"``: one card
+    has no other axis to shard the activations over.  ``memory_bytes``
     defaults to :func:`device_bytes` of ``device``.  On the ``mesh``: the
     reference's data-parallel rule against one rank's bytes
-    (``n_micro`` up to B / data ways; the module docstring)."""
+    (``n_micro`` up to B / data ways), ``"batch"`` when it fits, else
+    ``"dmodel"`` (the module docstring)."""
     if memory_bytes is None:
         memory_bytes = device_bytes(device)
     if mesh is not None:
@@ -429,7 +448,8 @@ def _norm_groups(t_specs: PyTree, mesh) -> PyTree:
 def make_train_step(cfg: ModelConfig, *, k: Optional[int], tc: TrainConfig,
                     n_micro: int, num_groups: int, remat: bool = True,
                     remat_chunk: int = 0, rescaler_trainable: bool = True,
-                    mesh=None, t_specs: Optional[PyTree] = None):
+                    mesh=None, t_specs: Optional[PyTree] = None,
+                    act_mode: str = "batch"):
     """Returns step(params, trainable, opt_state, tokens, labels, mask)
     -> (trainable, opt_state, metrics): the reference's step.  Gradients
     of the ``n_micro`` microbatches are summed in fp32 in order and divided
@@ -437,8 +457,13 @@ def make_train_step(cfg: ModelConfig, *, k: Optional[int], tc: TrainConfig,
     activation counts per ``pos{p}``.  On the ``mesh`` (with the trainable
     tree's spec tree ``t_specs``): the module docstring's reductions; the
     batch is this rank's rows (:func:`shard_batch` with ``n_micro``), the
-    loss, counts and token count the global batch's."""
-    shard = None if mesh is None else Shard(mesh)
+    loss, counts and token count the global batch's; ``act_mode`` (one of
+    ``parallel.ACT_MODES``) how the checkpointed carries are held.  One
+    device (``mesh`` None) runs ``"batch"`` only."""
+    if mesh is None and act_mode != "batch":
+        raise ValueError(f"act_mode {act_mode!r}: one device runs 'batch' "
+                         "only")
+    shard = None if mesh is None else Shard(mesh, act_mode=act_mode)
     dp = 1 if mesh is None else _data_size(mesh)
     norm_groups = None if mesh is None else _norm_groups(t_specs, mesh)
 
@@ -503,29 +528,40 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, *,
                 num_groups: Optional[int] = None,
                 remat_chunk: Optional[int] = None, remat: bool = True,
                 device="cuda", mesh=None,
-                memory_bytes: Optional[int] = None) -> StepBundle:
+                memory_bytes: Optional[int] = None,
+                act_mode: Optional[str] = None) -> StepBundle:
     """The train step with its knobs: each one not given is chosen by
     :func:`choose_train_knobs` for ``device``'s memory (or
     ``memory_bytes``) and :func:`choose_num_groups`.  ``mesh``: the card
     mesh's step (the module docstring); ``specs`` holds the parameter,
-    trainable and optimizer spec trees, and ``meta`` each rank's bytes."""
+    trainable and optimizer spec trees, and ``meta`` each rank's bytes
+    (``act_bytes`` one microbatch's in the mode that runs) and in
+    ``act_mode`` the mode that runs ("batch" where the ``model`` axis has
+    one rank)."""
     tc = tc or TrainConfig()
     k = k if k is not None else (cfg.moe.top_k or None)
     knobs = choose_train_knobs(cfg, shape, device=device, k=k, mesh=mesh,
                                memory_bytes=memory_bytes)
     n_micro = n_micro if n_micro is not None else knobs["n_micro"]
+    act_mode = act_mode if act_mode is not None else knobs["act_mode"]
     remat_chunk = (remat_chunk if remat_chunk is not None
                    else knobs["remat_chunk"])
     num_groups = (num_groups if num_groups is not None else
                   choose_num_groups(cfg, shape.global_batch // n_micro,
                                     shape.seq_len, mesh=mesh))
     args = _train_args(cfg, shape, k)
+    act_bytes = knobs["act_bytes"]
     specs = t_specs = None
     if mesh is not None:
         if shape.global_batch % (n_micro * _data_size(mesh)):
             raise ValueError(f"global batch {shape.global_batch} does not "
                              f"split into {n_micro} microbatches over "
                              f"{_data_size(mesh)} data ways")
+        M = mesh.shape.get("model", 1)
+        act_bytes = max(shape.global_batch // (n_micro * _data_size(mesh)),
+                        1) * activation_bytes(
+            cfg, shape.seq_len, remat_chunk, k, model_ways=M,
+            carry_ways=1 if act_mode == "batch" else M)
         t_specs = shd.trainable_specs(cfg, args[1], mesh)
         specs = {"params": shd.param_specs(cfg, args[0], mesh),
                  "trainable": t_specs, "opt": shd.opt_specs(t_specs),
@@ -534,13 +570,14 @@ def build_train(cfg: ModelConfig, shape: ShapeConfig, *,
     step = make_train_step(cfg, k=k, tc=tc, n_micro=n_micro,
                            num_groups=num_groups, remat=remat,
                            remat_chunk=remat_chunk, mesh=mesh,
-                           t_specs=t_specs)
-    meta = {"n_micro": n_micro, "act_mode": knobs["act_mode"],
+                           t_specs=t_specs, act_mode=act_mode)
+    runs = act_mode if mesh is not None and M > 1 else "batch"
+    meta = {"n_micro": n_micro, "act_mode": runs,
             "num_groups": num_groups, "k": k, "remat": remat,
             "remat_chunk": remat_chunk,
             "param_bytes": state_bytes(args[0]),
             "trainable_bytes": state_bytes(args[1]),
-            "act_bytes": knobs["act_bytes"],
+            "act_bytes": act_bytes,
             "act_budget": knobs["act_budget"]}
     if mesh is not None:
         meta.update(mesh=dict(mesh.shape),

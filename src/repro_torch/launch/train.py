@@ -82,8 +82,8 @@ from . import sharding as shd
 from . import steps as steps_lib
 from .serve import add_depth_flag, add_mesh_flags, cut_depth, run_on_mesh
 
-# a card's memory the mesh step's depth estimate keeps out: the CUDA
-# context, NCCL's buffers, the allocator's fragmentation
+# a card's memory the mesh step's knob and depth estimates keep out: the
+# CUDA context, NCCL's buffers, the allocator's fragmentation
 MESH_RESERVE = 8 * 2 ** 30
 
 
@@ -194,8 +194,9 @@ def mesh_train(cfg, shape: ShapeConfig, mesh, device, *, steps: int,
     meta and per step: loss, s, tokens/s, each rank's peak bytes (the
     card only) and the collectives' counts (``parallel.comm_stop``)."""
     device = torch.device(device)
-    bundle = steps_lib.build_train(cfg, shape, k=k, tc=TrainConfig(),
-                                   device=device, mesh=mesh)
+    bundle = steps_lib.build_train(
+        cfg, shape, k=k, tc=TrainConfig(), device=device, mesh=mesh,
+        memory_bytes=steps_lib.device_bytes(device) - MESH_RESERVE)
     meta = bundle.meta
     log(f"{cfg.name} ({cfg.num_layers} layers) x {shape.name} (batch "
         f"{shape.global_batch}, {shape.seq_len} tokens) on mesh "

@@ -278,7 +278,16 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
     n_periods`` the periods go in groups of ``remat_chunk`` (lowered to a
     divisor of n_periods) checkpointed at both levels, the reference's
     two-level (√L) scheme: n_periods/g + g saved inputs for one more
-    forward.  Loss and gradients are those of the plain loop."""
+    forward.  Loss and gradients are those of the plain loop.
+
+    ``shard.act_mode`` "dmodel" or "sp" (cacheless calls on a ``model``
+    axis of more than one rank): between periods the residual stream is
+    held as this rank's slice of D or of S (``parallel.split_to`` at a
+    period's end, ``gather_from`` at its start; the reference's ``act_fn``
+    on its scan carry), so a checkpoint keeps 1/M of each saved input;
+    inside a period the blocks run on the whole tensor, as the
+    reference's ``inner_act_fn`` gathers it.  The collectives only move
+    data: loss and gradients are the "batch" mode's, bit for bit."""
     trainable = trainable or {}
     lora_blocks = (trainable.get("lora") or {}).get("blocks") or {}
     rescalers = trainable.get("rescaler") or {}
@@ -313,10 +322,24 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
                 new[key] = nc
         return x, counts, new
 
+    cacheless = cache is None and not return_cache
+    split = (cacheless and shard is not None and shard.model is not None
+             and shard.act_mode != "batch")
+    step = period
+    if split:
+        dim = -1 if shard.act_mode == "dmodel" else 1
+
+        def step(i, x):
+            x, counts, new = period(i, parallel.gather_from(x, shard.model,
+                                                            dim))
+            return parallel.split_to(x, shard.model, dim), counts, new
+
+        x = parallel.split_to(x, shard.model, dim)
+
     per_counts, per_cache = [], []
-    if not remat or cache is not None or return_cache:
+    if not remat or not cacheless:
         for i in range(n):
-            x, c, nc = period(i, x)
+            x, c, nc = step(i, x)
             per_counts.append(c)
             per_cache.append(nc)
     elif 1 < remat_chunk < n:
@@ -327,7 +350,7 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
         def group(x, g0):
             cs = []
             for i in range(g0, g0 + g):
-                x, c, _ = _checkpoint(period, i, x)
+                x, c, _ = _checkpoint(step, i, x)
                 cs.append(c)
             return x, cs
 
@@ -336,8 +359,10 @@ def _run_stack(cfg, params, x, positions, *, trainable, k, cache=None,
             per_counts.extend(cs)
     else:
         for i in range(n):
-            x, c, _ = _checkpoint(period, i, x)
+            x, c, _ = _checkpoint(step, i, x)
             per_counts.append(c)
+    if split:
+        x = parallel.gather_from(x, shard.model, dim)
     out_counts = {key: torch.stack([c[key] for c in per_counts])
                   for key in keys if per_counts and key in per_counts[0]}
     out_cache = {key: [nc[key] for nc in per_cache]

@@ -18,7 +18,14 @@ gathers, each a no-op on an axis of one rank:
     adapter factor stored split (``a`` on ``data``, a row-split ``b`` on
     ``model``) but used whole by partial computations;
   * :func:`vocab_parallel_nll` — the cross-entropy over vocabulary-split
-    logits, with its own backward.
+    logits, with its own backward;
+  * :func:`split_to` / :func:`gather_from` — Megatron's split / gather
+    pair for a tensor whose gradient every rank of the group holds whole
+    (the residual stream between periods under ``act_mode`` "dmodel" or
+    "sp", ``models/model.py``): this rank's slice forward and an
+    all-gather backward, and the reverse.  :func:`gather` is not that
+    pair: its backward reduce-scatters, which would add up the group's
+    identical copies of such a gradient.
 
 Frozen weights are gathered outside autograd (:func:`gather_frozen`):
 they carry no gradient.  Collectives use ``all_reduce``,
@@ -29,7 +36,9 @@ cards and on gloo in the CPU tests; none sits inside a kernel.
 module between them: calls, bytes (the tensor each rank sends in) and
 time (CUDA events on the current stream around each call, so a call's
 time includes waiting for the slowest rank to arrive; host time on the
-CPU).  Off by default: the path then runs no event.
+CPU) and, per call, the shape and dtype sent and the group's ranks (the
+roofline charges a group inside one node and one across nodes at
+different rates).  Off by default: the path then runs no event.
 """
 from __future__ import annotations
 
@@ -43,13 +52,25 @@ import torch.distributed as dist
 _F32 = torch.float32
 
 
+ACT_MODES = ("batch", "dmodel", "sp")
+
+
 @dataclasses.dataclass
 class Shard:
     """What the sharded model needs of the mesh: the groups and sizes of
-    its axes, and whether this step's batch is split over the batch axes
-    (a batch that does not divide them is replicated)."""
+    its axes, whether this step's batch is split over the batch axes (a
+    batch that does not divide them is replicated), and how the residual
+    stream is held between checkpointed periods (``act_mode``, one of
+    :data:`ACT_MODES`: whole on every ``model`` rank, or this rank's
+    slice of D or of S)."""
     mesh: Any
     batch_sharded: bool = True
+    act_mode: str = "batch"
+
+    def __post_init__(self):
+        if self.act_mode not in ACT_MODES:
+            raise ValueError(f"act_mode {self.act_mode!r}: one of "
+                             f"{ACT_MODES}")
 
     @property
     def model(self):
@@ -98,14 +119,18 @@ def comm_start() -> None:
     _COMM["calls"] = []
 
 
-def comm_stop() -> Dict[str, Any]:
+def comm_stop(log: bool = False) -> Dict[str, Any]:
     """Stop counting; returns {"calls", "bytes", "ms", "by_kind": {kind:
-    [calls, bytes, ms]}} since :func:`comm_start`."""
+    [calls, bytes, ms]}} since :func:`comm_start`, and with ``log`` also
+    "log": [{"kind", "bytes", "ms", "shape", "dtype", "ranks"} per call,
+    in order]."""
     calls, _COMM["calls"] = _COMM["calls"] or [], None
     if calls and isinstance(calls[0][2], torch.cuda.Event):
         torch.cuda.synchronize()
     out = {"calls": len(calls), "bytes": 0, "ms": 0.0, "by_kind": {}}
-    for kind, nbytes, t0, t1 in calls:
+    if log:
+        out["log"] = []
+    for kind, nbytes, t0, t1, shape, dtype, ranks in calls:
         ms = (t0.elapsed_time(t1) if isinstance(t0, torch.cuda.Event)
               else (t1 - t0) * 1e3)
         out["bytes"] += nbytes
@@ -114,10 +139,14 @@ def comm_stop() -> Dict[str, Any]:
         k[0] += 1
         k[1] += nbytes
         k[2] += ms
+        if log:
+            out["log"].append({"kind": kind, "bytes": nbytes, "ms": ms,
+                               "shape": shape, "dtype": dtype,
+                               "ranks": ranks})
     return out
 
 
-def _run(kind: str, x: torch.Tensor, fn) -> None:
+def _run(kind: str, x: torch.Tensor, fn, group) -> None:
     calls = _COMM["calls"]
     if calls is None:
         fn()
@@ -131,7 +160,9 @@ def _run(kind: str, x: torch.Tensor, fn) -> None:
         t0 = time.perf_counter()
         fn()
         t1 = time.perf_counter()
-    calls.append((kind, x.numel() * x.element_size(), t0, t1))
+    calls.append((kind, x.numel() * x.element_size(), t0, t1,
+                  list(x.shape), str(x.dtype).replace("torch.", ""),
+                  list(dist.get_process_group_ranks(group))))
 
 
 def _size(group) -> int:
@@ -141,7 +172,8 @@ def _size(group) -> int:
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """In place on a contiguous copy; returns it."""
     x = x.contiguous()
-    _run("all_reduce", x, lambda: dist.all_reduce(x, op=op, group=group))
+    _run("all_reduce", x, lambda: dist.all_reduce(x, op=op, group=group),
+         group)
     return x
 
 
@@ -150,7 +182,7 @@ def _all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     moved = x.movedim(dim, 0).contiguous()
     out = moved.new_empty((n * moved.shape[0],) + moved.shape[1:])
     _run("all_gather", moved, lambda: dist.all_gather_into_tensor(
-        out, moved, group=group))
+        out, moved, group=group), group)
     return out.movedim(0, dim)
 
 
@@ -159,7 +191,7 @@ def _reduce_scatter(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     moved = x.movedim(dim, 0).contiguous()
     out = moved.new_empty((moved.shape[0] // n,) + moved.shape[1:])
     _run("reduce_scatter", moved, lambda: dist.reduce_scatter_tensor(
-        out, moved, group=group))
+        out, moved, group=group), group)
     return out.movedim(0, dim)
 
 
@@ -219,6 +251,64 @@ def gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if not x.requires_grad:
         return _all_gather(x, group, dim)
     return _Gather.apply(x, group, dim)
+
+
+def _slice(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice of ``dim`` (its own storage, so the whole tensor
+    can be freed)."""
+    n = _size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of a {tuple(x.shape)} tensor "
+                         f"({x.shape[dim]}) does not split {n} ways")
+    chunk = x.shape[dim] // n
+    return x.narrow(dim, dist.get_rank(group) * chunk, chunk).clone(
+        memory_format=torch.contiguous_format)
+
+
+def _whole(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The all-gather of ``dim`` laid out as a contiguous tensor: the
+    blocks then see the memory layout, and so the rounding, of the
+    "batch" mode's carry."""
+    return _all_gather(x, group, dim).contiguous()
+
+
+class _SplitTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _slice(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole(g, ctx.group, ctx.dim), None, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return _whole(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _slice(g, ctx.group, ctx.dim), None, None
+
+
+def split_to(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's slice of ``dim`` forward; the gradient's slices
+    all-gathered backward.  ``x`` must be whole and alike on every rank of
+    ``group``; a ``dim`` that does not split evenly raises ``ValueError``."""
+    if group is None:
+        return x
+    return _SplitTo.apply(x, group, dim)
+
+
+def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """All-gather of ``dim`` forward; backward, this rank's slice of the
+    gradient, which every rank of ``group`` holds whole and alike."""
+    if group is None:
+        return x
+    return _GatherFrom.apply(x, group, dim)
 
 
 @torch.no_grad()
