@@ -258,27 +258,35 @@ nothing else of the network or the filesystem.  Phases:
    ``launch/steps.py`` with ``mesh=``) — the parent frees its cached
    memory and spawns one NCCL worker a card (``launch.mesh.spawn``; a
    worker's failed check fails the phase): on one card a world of one,
-   mesh (1, 1): ``qwen3-moe-235b-a22b`` and ``llama3-405b`` at full width
-   cut to 2 layers, the mesh train step (B = 2, S = 2048, n_micro 2, the
+   mesh (1, 1): ``qwen3-moe-235b-a22b``, ``llama3-405b``, ``mamba2-780m``
+   and ``musicgen-large`` at full width cut to 2 layers and
+   ``jamba-v0.1-52b`` to one period of 8, the mesh train step (B = 2,
+   S = 2048, n_micro 2, the
    adapters' ``b`` off zero, rescalers at 0.7) bit-equal to the
    single-device ``build_train`` on the same weights and batch (loss,
    counts, adapters, Adam's moments), launch counts, every kernel call of
-   one mesh forward (the router at E = 128, k = 8, flash at 64/4 and
-   128/8 heads, ``lora_matmul`` at q/k/v/o and llama's FFN,
-   ``lora_matmul_experts`` at 128 experts) against its plain version
-   within close_16bit and layer 0's timed beside bound, plain and
-   library; qwen3's mesh prefill and decode step bit-equal to the
-   single-device steps.  With four cards visible (``--mesh`` on a
-   four-card machine): the 2-layer qwen3 on (1, 4), (2, 2) and (2, 1, 2)
-   against rank 0's one-card run (loss and adapters within close_16bit,
-   the counts' total equal and at most 2% of routes moved, decoded
-   tokens equal or near-ties); qwen3 and llama3 at the deepest
-   whole-period cut the knob chooser's estimate fits on (2, 2) (the
-   card's memory less 8 GiB): two train steps at 4096 tokens (train_4k's
-   batch cut to 8: loss, s/step, tokens/s, peak per rank against the
-   estimate, the collectives' calls, bytes and ms), a prefill of 8 x 4096
-   tokens and 8 decode steps; then the kernels at (2, 2)'s per-rank
-   shapes timed on rank 0;
+   one mesh forward (the router at E = 128, k = 8 and E = 16, k = 2,
+   flash at 64/4, 128/8, 32/8 and 32/32 heads, ``lora_matmul`` at
+   q/k/v/o, the FFNs and the Mamba block's in/out projections,
+   ``lora_matmul_experts`` at 128 and 16 experts) against its plain
+   version within close_16bit and layer 0's timed beside bound, plain
+   and library; the mesh prefill and decode step of qwen3, mamba2 and
+   jamba bit-equal to the single-device steps.  With four cards visible
+   (``--mesh`` on a four-card machine): the 2-layer qwen3 on (1, 4), (2,
+   2) and (2, 1, 2) against rank 0's one-card run (loss and adapters
+   within close_16bit, the counts' total equal and at most 2% of routes
+   moved, decoded tokens equal or near-ties); mamba2-780m (48 layers,
+   also prefill and 4 decode steps) and musicgen-large (48 layers, train
+   only) FULL on (2, 2) against one card, alike; qwen3 and llama3 at the
+   deepest whole-period cut the knob chooser's estimate fits on (2, 2)
+   in "batch", jamba at ``deepest_fit``'s (the card's memory less 8
+   GiB): two train steps at 4096 tokens (train_4k's batch cut to 8:
+   loss, s/step, tokens/s, peak per rank against the estimate, the
+   collectives' calls, bytes and ms), a prefill of 8 x 4096 tokens and 8
+   decode steps; every kernel call of one microbatch's forward (S =
+   4096, a row a rank) of mamba2 and musicgen (2 layers) and jamba (one
+   period) on (2, 2) against its plain version; then the kernels at (2,
+   2)'s per-rank shapes timed on rank 0;
 22. ``act_mode`` and the dry run (with 21; ``models/parallel.py``
    ``split_to`` / ``gather_from``, ``launch/dryrun.py``,
    ``launch/roofline.py``) — the dry run of each (arch, step, mesh,
@@ -300,8 +308,9 @@ nothing else of the network or the filesystem.  Phases:
    within close_16bit; the depth ``deepest_fit`` gives with the dmodel
    fallback beside phase 21's; then each dry-run pair's collective calls
    and bytes by kind equal to what the cards counted (the 2-layer qwen3
-   on (2, 2) and (1, 4), the deep runs' train, prefill and decode steps,
-   dmodel and sp), its estimated peak beside the measured one and its
+   on (2, 2) and (1, 4), mamba2 and musicgen FULL on (2, 2), the deep
+   runs' train, prefill and decode steps, dmodel and sp), its estimated
+   peak beside the measured one and its
    roofline terms beside the measured s/step and collective ms; one
    16 x 16 pair (qwen3-moe x train_4k) traced, its wall time printed;
 20. summary — a ``{"kernels": [...]}`` line, then the last line
@@ -5258,16 +5267,40 @@ def _bit_equal(torch, got, want) -> bool:
     return all(torch.equal(a, b) for a, b in zip(_leaves(got), _leaves(want)))
 
 
+def _want_calls(cfg):
+    """{backend wrapper: calls} of one forward of ``cfg``: per layer,
+    flash at an attention position, ``lora_matmul`` at each adapted
+    projection (q/k/v/o, the Mamba block's in/out, a dense or shared
+    FFN's three), the router and three expert products at an MoE
+    position."""
+    lc, m = cfg.lora, cfg.moe
+    n = cfg.num_layers // cfg.pattern_period
+    want = {}
+
+    def add(name, k):
+        if k:
+            want[name] = want.get(name, 0) + k * n
+    for j in range(cfg.pattern_period):
+        if cfg.layer_kind(j) == "attn":
+            add("flash_attention", 1)
+            add("lora_matmul", 4 * lc.target_attn)
+        else:
+            add("lora_matmul", 2 * lc.target_ssm)
+        if cfg.layer_is_moe(j):
+            add("router", 1)
+            add("lora_matmul_experts", 3 * lc.target_expert)
+            add("lora_matmul", 3 * lc.target_ffn * (m.num_shared_experts > 0))
+        elif cfg.d_ff > 0:
+            add("lora_matmul", 3 * lc.target_ffn)
+    return want
+
+
 def _mesh_call_checks(torch, cfg, calls, kc, what):
     """Every recorded kernel call of one mesh forward against its plain
     version: the router (static, exact), flash, and the two LoRA
     matmuls within close_16bit.  Returns {name: max err}."""
     from repro_torch.kernels import ref
-    want_n = {"flash_attention": cfg.num_layers,
-              "lora_matmul": cfg.num_layers * (4 if cfg.moe.enabled else 7)}
-    if cfg.moe.enabled:
-        want_n.update(router=cfg.num_layers,
-                      lora_matmul_experts=3 * cfg.num_layers)
+    want_n = _want_calls(cfg)
     names = [c[0] for c in calls]
     check(all(names.count(n) == k for n, k in want_n.items())
           and len(names) == sum(want_n.values()),
@@ -5291,10 +5324,12 @@ def _mesh_call_checks(torch, cfg, calls, kc, what):
     return worst
 
 
-def _mesh_rows(torch, calls, kc, launches, what, errs):
-    """Rows for layer 0's calls: the router, flash, the q projection's
-    ``lora_matmul`` (a dense arch: the FFN's w1 too) and the experts' w1,
-    each timed beside its bound, plain version and library call."""
+def _mesh_rows(torch, calls, kc, launches, what, errs, picks):
+    """Rows for layer 0's calls: the router, flash, the ``lora_matmul``
+    calls ``picks`` names ((label, index among the forward's LoRA
+    calls)) and the experts' w1, each timed beside its bound, plain
+    version and library call; a kernel the forward does not call has no
+    row."""
     from repro_torch.kernels import backend, ref
     t = kc["time_ms"]
     first = {}
@@ -5314,19 +5349,18 @@ def _mesh_rows(torch, calls, kc, launches, what, errs):
             t(lambda: ref.topk_router_ref(logits, k)),
             bound_ms(T * E * 2 + 2 * T * E * 4 + E * 4, 2.0 * T * E * k,
                      F32_FLOPS), None, launches["topk_router"]))
-    call = first["flash_attention"]
-    f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(torch, call, kc)
-    q, k = call[1][0], call[1][1]
-    rows.append(_row(
-        f"flash_attention ({what}, B={q.shape[0]}, S={q.shape[1]}, "
-        f"H={q.shape[2]}, KV={k.shape[2]}, D={q.shape[3]})",
-        "flash_attention.cu", "flash_attention.py:92",
-        errs["flash_attention"], f_ms, f_pl,
-        bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
-        launches["flash_attention"], f_what))
-    picks = [("q", lora[0])] + ([("w1", lora[4])] if len(lora) > 4
-                                and "router" not in first else [])
-    for name, (_, (x, w, a, b), kw, _) in picks:
+    if "flash_attention" in first:
+        call = first["flash_attention"]
+        f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(torch, call, kc)
+        q, k = call[1][0], call[1][1]
+        rows.append(_row(
+            f"flash_attention ({what}, B={q.shape[0]}, S={q.shape[1]}, "
+            f"H={q.shape[2]}, KV={k.shape[2]}, D={q.shape[3]})",
+            "flash_attention.cu", "flash_attention.py:92",
+            errs["flash_attention"], f_ms, f_pl,
+            bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
+            launches["flash_attention"], f_what))
+    for name, (_, (x, w, a, b), kw, _) in ((n, lora[i]) for n, i in picks):
         M, K = x.shape
         N, r = w.shape[1], a.shape[1]
         sc = kw["scale"]
@@ -5357,16 +5391,40 @@ def _mesh_rows(torch, calls, kc, launches, what, errs):
     return rows
 
 
+# phase 21 on one card: (arch, row tag, layers, the LoRA calls timed (label,
+# index among one forward's), whether prefill and decode run too)
+MESH_ONE = (("qwen3-moe-235b-a22b", "Q", 2, (("q", 0),), True),
+            ("llama3-405b", "L", 2, (("q", 0), ("w1", 4)), False),
+            ("mamba2-780m", "M", 2, (("in_proj", 0), ("out_proj", 1)), True),
+            ("jamba-v0.1-52b", "J", 8, (("in_proj", 0), ("out_proj", 1),
+                                        ("w1", 2)), True),
+            ("musicgen-large", "A", 2, (("q", 0), ("w1", 4)), False))
+
+
+# the (1, 1) train step's knob budget: its knobs are fixed (n_micro 2,
+# "batch") to hold it to the single-device step, and the estimate must
+# not refuse what fits: a world of one gathers nothing, yet the estimate
+# counts a period's weights thrice for FSDP gathers (jamba's 8 layers:
+# 78 GB of 85), so the budget is set past any card's memory
+MESH_ONE_BUDGET = 2 ** 40
+
+
+def _launch_names(cfg):
+    """The launch counters of the kernels one forward of ``cfg`` calls."""
+    return [{"router": "topk_router"}.get(n, n) for n in _want_calls(cfg)]
+
+
 def _mesh_one(rank, world, out_dir):
     """Phase 21 on one card: a world of one NCCL rank, mesh (1, 1).  For
-    qwen3-moe-235b-a22b and llama3-405b at full width, 2 layers: the mesh
-    train step (B = 2, S = 2048, n_micro 2) against the single-device
-    ``build_train`` on the same weights, batch and trainable tree, bit
-    for bit (loss, counts, adapters, Adam's moments); launch counts of
-    the mesh step; every kernel call of one mesh forward against its plain
-    version and layer 0's timed; for qwen3 the mesh prefill (B = 2, S =
-    512) and one decode step against a 1024-deep cache against the
-    single-device steps, bit for bit.  Writes the rows for the parent."""
+    each arch of ``MESH_ONE`` at full width (2 layers; jamba one period
+    of 8): the mesh train step (B = 2, S = 2048, n_micro 2) against the
+    single-device ``build_train`` on the same weights, batch and
+    trainable tree, bit for bit (loss, counts, adapters, Adam's
+    moments); launch counts of the mesh step; every kernel call of one
+    mesh forward against its plain version and layer 0's timed; for
+    qwen3, mamba2 and jamba the mesh prefill (B = 2, S = 512) and one
+    decode step against a 1024-deep cache against the single-device
+    steps, bit for bit.  Writes the rows for the parent."""
     import gc
 
     import torch
@@ -5385,14 +5443,14 @@ def _mesh_one(rank, world, out_dir):
         2 ** 28, dtype=torch.float32, device=dev)])
     mesh = mesh_lib.make_production_mesh(mesh_shape=(1, 1))
     rows, peaks = [], {}
-    for arch, tag in (("qwen3-moe-235b-a22b", "Q"), ("llama3-405b", "L")):
+    for arch, tag, layers, picks, serve in MESH_ONE:
         t_arch = time.perf_counter()
-        cfg = get_config(arch, "full").replace(num_layers=2)
+        cfg = get_config(arch, "full").replace(num_layers=layers)
         params, trainable = _mesh_state(torch, cfg, dev, 31)
         shape = ShapeConfig("train_2k", 2048, 2, "train")
         one = steps.build_train(cfg, shape, n_micro=2, device=dev)
         on_mesh = steps.build_train(cfg, shape, n_micro=2, device=dev,
-                                    mesh=mesh)
+                                    mesh=mesh, memory_bytes=MESH_ONE_BUDGET)
         check(on_mesh.meta["num_groups"] == one.meta["num_groups"],
               "mesh (1, 1) chose other routing groups")
         batch = synthetic_batch(cfg, shape, torch.Generator(
@@ -5417,16 +5475,14 @@ def _mesh_one(rank, world, out_dir):
                 and _bit_equal(torch, tr1, tr2)
                 and _bit_equal(torch, opt1.mu, opt2.mu)
                 and _bit_equal(torch, opt1.nu, opt2.nu))
-        print(f"mesh (1, 1) {cfg.name} 2 layers, full width: train step "
+        print(f"mesh (1, 1) {cfg.name} {layers} layers, full width: train step "
               f"(B=2, S=2048, n_micro 2) loss {float(m2['loss']):.6f} vs "
               f"single-device {float(m1['loss']):.6f}, bit-equal "
               f"(loss, counts, adapters, Adam) {same}; {dt:.3f} s; "
               f"launches {json.dumps(launches)}")
         check(same, f"mesh (1, 1) train step of {cfg.name} differs from the "
               "single-device step")
-        want = ["flash_attention", "lora_matmul"] + (
-            ["topk_router", "lora_matmul_experts"] if cfg.moe.enabled else [])
-        check(all(launches[k] > 0 for k in want),
+        check(all(launches[k] > 0 for k in _launch_names(cfg)),
               f"mesh train step launched {launches}")
         del tr1, tr2, opt1, opt2
 
@@ -5442,10 +5498,10 @@ def _mesh_one(rank, world, out_dir):
         print(f"mesh (1, 1) {cfg.name}: every kernel call of one forward "
               f"(B=1, S=2048) vs plain, max err {json.dumps(errs)}")
         rows += _mesh_rows(torch, calls, kc, launches,
-                           f"21{tag} {cfg.name} mesh (1, 1)", errs)
+                           f"21{tag} {cfg.name} mesh (1, 1)", errs, picks)
         del calls
 
-        if cfg.moe.enabled:
+        if serve:
             # prefill and one decode step: mesh (1, 1) against one device
             pshape = ShapeConfig("p", 512, 2, "prefill")
             dshape = ShapeConfig("d", 1024, 2, "decode")
@@ -5460,10 +5516,8 @@ def _mesh_one(rank, world, out_dir):
                 torch.cuda.reset_peak_memory_stats()
                 lg, cache = pre.fn(p_loc, t_loc, prompt)
                 peaks[f"{arch} prefill"] = torch.cuda.max_memory_allocated()
-                full = model_lib.init_cache(cfg, 2, 1024, device=dev)
-                for key, c in cache.items():
-                    for leaf in ("k", "v"):
-                        full[key]["attn"][leaf][:, :, :512] = c["attn"][leaf]
+                # the decode writes Mamba state in place: keep the prefill's
+                full = model_lib.grow_cache(_clone(cache), 1024)
                 nxt = lg.argmax(-1).to(torch.int32)
                 torch.cuda.reset_peak_memory_stats()
                 ld, full = srv.fn(p_loc, t_loc, full, nxt,
@@ -5505,17 +5559,20 @@ def _near_tie_tokens(torch, got, want, want_logits, got_logits):
     return int((got != want).any(dim=1).sum())
 
 
-def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
-    """One train step (B = 4, S = 1024, n_micro 2, 2 routing groups), then a
-    prefill (B = 4, S = 256) and 4 greedy decode steps (a 512-deep cache)
-    on ``mesh`` (None: one device).  Returns loss, counts, the updated
-    adapters (whole), tokens (4, 5), each step's logits (whole) and the
-    collectives by kind of the train step, the prefill and one decode
-    step (the four steps' over 4)."""
+def _compare_run(torch, cfg, params, trainable, mesh, dev, serve=True):
+    """One train step (B = 4, S = 1024, n_micro 2, 2 routing groups), then
+    with ``serve`` a prefill (B = 4, S = 256) and 4 greedy decode steps (a
+    512-deep cache) on ``mesh`` (None: one device).  Returns loss, counts,
+    the updated adapters (whole), tokens (4, 5), each step's logits
+    (whole), the collectives by kind of the train step, the prefill and
+    one decode step (the four steps' over 4) and the train step's
+    launches."""
     from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import _build
     from repro_torch.launch import sharding as shd
     from repro_torch.launch import steps
     from repro_torch.launch.train import synthetic_batch
+    from repro_torch.models import model as model_lib
     from repro_torch.models import parallel
     from repro_torch.optim import adam
     comm = {}
@@ -5536,9 +5593,14 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
         p = shd.shard_tree(params, tb.specs["params"], mesh)
         tr = shd.shard_tree(trainable, tb.specs["trainable"], mesh)
         batch = [steps.shard_batch(b, mesh, 2) for b in batch]
+    _build.reset_launches()
     new, _, m = counted("train", lambda: tb.fn(p, tr, adam.init(tr), *batch))
+    launches = dict(_build.LAUNCHES)
     if mesh is not None:
         new = shd.gather_tree(new, tb.specs["trainable"], mesh)
+    if not serve:
+        return (float(m["loss"]), m["counts"], new, None, None, comm,
+                launches)
     pre = steps.build_prefill(cfg, ShapeConfig("p", 256, 4, "prefill"),
                               mesh=mesh)
     srv = steps.build_serve(cfg, ShapeConfig("d", 512, 4, "decode"),
@@ -5549,13 +5611,7 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
     if mesh is not None:
         prompt = steps.shard_batch(prompt, mesh)
     lg, cache = counted("prefill", lambda: pre.fn(p, tr, prompt))
-
-    def pad(t):
-        out = t.new_zeros(t.shape[:2] + (512,) + t.shape[3:])
-        out[:, :, :256] = t
-        return out
-    cache = {key: {"attn": {leaf: pad(c["attn"][leaf]) for leaf in ("k", "v")}}
-             for key, c in cache.items()}
+    cache = model_lib.grow_cache(cache, 512)
     logits, toks = [lg[:, 0]], [lg.argmax(-1)]
 
     def decode():
@@ -5571,8 +5627,7 @@ def _two_layer_run(torch, cfg, params, trainable, mesh, dev):
     if mesh is not None:
         tokens = shd.gather_leaf(tokens, rows, mesh)
         logits = [shd.gather_leaf(x, rows, mesh) for x in logits]
-    counts = m["counts"]
-    return float(m["loss"]), counts, new, tokens, logits, comm
+    return float(m["loss"]), m["counts"], new, tokens, logits, comm, launches
 
 
 def _mesh_four(rank, world, out_dir):
@@ -5580,13 +5635,18 @@ def _mesh_four(rank, world, out_dir):
     layers, on (1, 4), (2, 2) and (2, 1, 2) against rank 0's one-card run
     of the same weights: loss and updated adapters within close_16bit,
     counts' total equal and at most 2% of the routes moved, tokens equal
-    or near-ties; (b) qwen3-moe-235b-a22b and llama3-405b at the deepest
-    whole-period cut the estimate fits on (2, 2): two train steps at 4096
-    tokens (batch 8), then a prefill (8 x 4096) and 8 decode steps;
+    or near-ties; mamba2-780m and musicgen-large FULL, uncut, on (2, 2)
+    against one card (:func:`_full_on_mesh`); (b) qwen3-moe-235b-a22b and
+    llama3-405b at the deepest whole-period cut the estimate fits on (2,
+    2) in "batch", jamba-v0.1-52b at ``deepest_fit``'s: two train steps
+    at 4096 tokens (batch 8), then a prefill (8 x 4096) and 8 decode
+    steps;
     phase 22 (a): both archs at those depths trained once in each
     act_mode (:func:`_act_mode_steps`) and every kernel call of a dmodel
-    and an sp forward checked (:func:`_act_mode_calls`); (c) on rank 0,
-    the kernels at (2, 2)'s per-rank shapes timed."""
+    and an sp forward checked (:func:`_act_mode_calls`); (c) every kernel
+    call of one microbatch's forward of the SSM, hybrid and codebook
+    archs on (2, 2) checked (:func:`_rank_calls`); on rank 0, the kernels
+    at (2, 2)'s per-rank shapes timed."""
     import gc
 
     import torch
@@ -5608,13 +5668,13 @@ def _mesh_four(rank, world, out_dir):
     params, trainable = _mesh_state(torch, cfg, dev, 51)
     want = None
     if rank == 0:
-        want = _two_layer_run(torch, cfg, params, trainable, None, dev)
+        want = _compare_run(torch, cfg, params, trainable, None, dev)
         log(f"one card: {cfg.name} 2 layers loss {want[0]:.6f}, tokens "
             f"row 0 {want[3][0].tolist()}")
     dist.barrier()
     for shape, axes in MESH_SHAPES:
         mesh = mesh_lib.Mesh(shape, axes)
-        got = _two_layer_run(torch, cfg, params, trainable, mesh, dev)
+        got = _compare_run(torch, cfg, params, trainable, mesh, dev)
         if rank == 0:
             # the loss is fp32 of bf16 logits: close_16bit's rule
             loss_err = abs(got[0] - want[0])
@@ -5646,19 +5706,25 @@ def _mesh_four(rank, world, out_dir):
     torch.cuda.empty_cache()
 
     mesh = mesh_lib.Mesh((2, 2), ("data", "model"))
+    for arch in FULL_ON_MESH:
+        _full_on_mesh(torch, arch, mesh, dev, kc, log, res, rank)
     base = INPUT_SHAPES["train_4k"]
     shape = ShapeConfig(base.name, base.seq_len, 8, "train")
     memory = steps.device_bytes(dev) - MESH_RESERVE
-    for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
+    for arch in DEEP_ARCHS + ("jamba-v0.1-52b",):
         t_arch = time.perf_counter()
         full = get_config(arch, "full")
-        layers = _batch_depth(steps, full, shape, mesh, memory)
+        if arch in DEEP_ARCHS:
+            layers = _batch_depth(steps, full, shape, mesh, memory)
+        else:
+            layers = steps.deepest_fit(full, shape, mesh, memory)
         check(layers > 0, f"{arch}: no depth fits (2, 2)")
         cfg = full.replace(num_layers=layers)
         log(f"deep {arch} on (2, 2): {layers} of {full.num_layers} layers "
             f"(the deepest whole-period cut the estimate fits "
-            f"{memory / 2 ** 30:.1f} GiB a card), train_4k's batch cut "
-            f"256 -> 8")
+            f"{memory / 2 ** 30:.1f} GiB a card"
+            + (" in \"batch\"" if arch in DEEP_ARCHS else "") +
+            "), train_4k's batch cut 256 -> 8")
         _build.reset_launches()
         tr = mesh_train(cfg, shape, mesh, dev, steps=2, seed=61, log=log)
         launches = dict(_build.LAUNCHES)
@@ -5705,11 +5771,120 @@ def _mesh_four(rank, world, out_dir):
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
+    rows = _rank_calls(torch, mesh, dev, kc, log, res, rank)
 
     if rank == 0:
-        rows = _mesh_rank_shape_rows(torch, dev, kc, res)
-        res["rows"] = rows
+        res["rows"] = rows + _mesh_rank_shape_rows(torch, dev, kc, res)
         (Path(out_dir) / "mesh_four.json").write_text(json.dumps(res))
+
+
+# the archs run FULL on (2, 2) against one card
+FULL_ON_MESH = ("mamba2-780m", "musicgen-large")
+# (arch, row tag, layers, the LoRA calls timed) of (2, 2)'s per-rank calls
+RANK_CALLS = (("mamba2-780m", "M", 2, (("in_proj", 0), ("out_proj", 1))),
+              ("jamba-v0.1-52b", "J", 8, (("in_proj", 0), ("out_proj", 1),
+                                          ("w1", 2))),
+              ("musicgen-large", "A", 2, (("q", 0), ("w1", 4))))
+
+
+def _full_on_mesh(torch, arch, mesh, dev, kc, log, res, rank):
+    """Phase 21, four cards: ``arch`` at full width and depth on ``mesh``
+    against rank 0's one-card run of the same weights
+    (:func:`_compare_run`): loss and updated adapters within close_16bit;
+    a text arch also prefills and decodes 4 steps, its tokens equal or
+    near-ties (an audio arch trains only, as the reference's launchers
+    run it)."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    cfg = get_config(arch, "full")
+    serve = not cfg.num_codebooks
+    params, trainable = _mesh_state(torch, cfg, dev, 53)
+    want = None
+    if rank == 0:
+        want = _compare_run(torch, cfg, params, trainable, None, dev, serve)
+    dist.barrier()
+    got = _compare_run(torch, cfg, params, trainable, mesh, dev, serve)
+    if rank == 0:
+        loss_err = abs(got[0] - want[0])
+        check(loss_err <= 1e-2 * abs(want[0]) + 1e-2,
+              f"{arch} on (2, 2): loss {got[0]} vs one card {want[0]}")
+        ad_err = max(kc["close"](a, b, f"{arch} (2, 2) adapters")
+                     for a, b in zip(_leaves(got[2]), _leaves(want[2])))
+        rec = {"layers": cfg.num_layers, "loss": got[0],
+               "loss_one_card": want[0], "adapter_err": ad_err,
+               "comm": got[5], "launches": got[6]}
+        text = ""
+        if serve:
+            rec["rows_diverged"] = _near_tie_tokens(torch, got[3], want[3],
+                                                    want[4], got[4])
+            rec["logit_err"] = max(float((a.float() - b.float()).abs().max())
+                                   for a, b in zip(got[4], want[4]))
+            text = (f", decoded rows diverged {rec['rows_diverged']} of 4 "
+                    f"(near-ties), logits max |d| {rec['logit_err']:.3e}")
+        res["meshes"][f"{arch} (2, 2)"] = rec
+        log(f"mesh (2, 2) {arch} FULL ({cfg.num_layers} layers): loss "
+            f"{got[0]:.6f} (one card {want[0]:.6f}, |d| {loss_err:.3e}), "
+            f"adapters max |d| {ad_err:.3e}{text}; train launches "
+            f"{json.dumps(got[6])}; {time.perf_counter() - t0:.1f} s")
+    dist.barrier()
+    del params, trainable, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rank_calls(torch, mesh, dev, kc, log, res, rank):
+    """Phase 21, four cards: every kernel call of one microbatch's forward
+    (B = 1 a rank, S = 4096) of each ``RANK_CALLS`` arch at full width on
+    ``mesh`` against its plain version within close_16bit, on every rank;
+    rank 0 times layer 0's calls beside the launches of the arch's run
+    on the mesh (jamba: the deep train step; mamba2, musicgen: the FULL
+    step against one card).  Returns rank 0's rows."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.models.parallel import Shard
+    rows = []
+    for arch, tag, layers, picks in RANK_CALLS:
+        cfg = get_config(arch, "full").replace(num_layers=layers)
+        params, trainable = _mesh_state(torch, cfg, dev, 31)
+        a_params = steps.abstract_params(cfg)
+        p_loc = shd.shard_tree(params, shd.param_specs(cfg, a_params, mesh),
+                               mesh)
+        t_loc = shd.shard_tree(trainable, shd.trainable_specs(
+            cfg, trainable, mesh), mesh)
+        del params, trainable
+        gen = torch.Generator(device=dev).manual_seed(92)
+        tok = torch.randint(0, cfg.vocab_size, steps.token_shape(cfg, 2, 4096),
+                            generator=gen, device=dev, dtype=torch.int32)
+        tok, lab = (steps.shard_batch(t, mesh) for t in (tok, tok.roll(-1, 1)))
+        mask = torch.ones((1, 4096), device=dev)
+        groups = steps.choose_num_groups(cfg, 2, 4096, mesh=mesh)
+        with torch.no_grad():
+            _, calls = _recorded(torch, lambda: model_lib.lm_loss(
+                cfg, p_loc, tok, lab, mask, trainable=t_loc,
+                k=cfg.moe.top_k or None, num_groups=groups,
+                shard=Shard(mesh)))
+        what = f"21{tag} {cfg.name} (2, 2) per rank"
+        errs = _mesh_call_checks(torch, cfg, calls, kc, what)
+        log(f"{what} ({layers} layers): every kernel call of one "
+            f"microbatch's forward (B=1 a rank, S=4096) vs plain, max err "
+            f"{json.dumps(errs)}")
+        if rank == 0:
+            run = (res["deep"][arch]["train_launches"] if arch in res["deep"]
+                   else res["meshes"][f"{arch} (2, 2)"]["launches"])
+            rows += _mesh_rows(torch, calls, kc, run, what, errs, picks)
+        del calls, p_loc, t_loc
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+    return rows
 
 
 def _mesh_rank_shape_rows(torch, dev, kc, res):
@@ -5788,11 +5963,6 @@ def _host(tree):
     return tree.detach().cpu()
 
 
-def _want_launches(cfg):
-    return ["flash_attention", "lora_matmul"] + (
-        ["topk_router", "lora_matmul_experts"] if cfg.moe.enabled else [])
-
-
 def _batch_depth(steps, full, shape, mesh, memory):
     """Phase 21's depth: the deepest whole-period cut at which the knob
     chooser keeps act_mode "batch" within ``memory`` a card (its own
@@ -5865,7 +6035,7 @@ def _act_mode_steps(torch, cfg, shape, mesh, dev, log, chosen):
             + ", ".join(f"{p / 2 ** 30:.2f}" for p in peaks) + "] GiB "
             f"(estimate's activations {b.meta['act_bytes'] / 2 ** 30:.2f} "
             f"GiB); collectives {kinds}; launches {json.dumps(launches)}")
-        check(all(launches[k] > 0 for k in _want_launches(cfg)),
+        check(all(launches[k] > 0 for k in _launch_names(cfg)),
               f"{cfg.name} {mode} step launched {launches}")
         del tr, opt, m
         gc.collect()
@@ -5934,14 +6104,16 @@ def _act_mode_calls(torch, mesh, dev, kc, log):
     return out
 
 
-def _dry_pairs(memory, layers=None):
+def _dry_pairs(memory, deep=None):
     """The dry-run pairs of the cards' runs: {tag: spec}, the knob
-    chooser's budget ``memory`` as on the cards.  One card (``layers``
-    None): phase 21's (1, 1) pairs.  Four (``layers``: {arch: the depth
-    the workers ran}): the 2-layer qwen3 on (2, 2) and (1, 4), the deep
-    runs' train steps in each act_mode, their prefill and decode step,
-    and one 16 x 16 pair."""
-    q, l = DEEP_ARCHS
+    chooser's budget ``memory`` as on the cards.  One card (``deep``
+    None): phase 21's (1, 1) pairs.  Four (``deep``: {arch: (the depth
+    the workers ran, the act_modes its train step ran in)}): the 2-layer
+    qwen3 on (2, 2) and (1, 4), mamba2 and musicgen FULL on (2, 2), the
+    deep runs' train steps, their prefill and decode step, and one
+    16 x 16 pair."""
+    from repro_torch.configs import get_config
+    q = DEEP_ARCHS[0]
 
     def pair(arch, shape, mesh, layers=None, card=None, **overrides):
         # card: where the cards' run keeps its counts (_card_counts)
@@ -5949,14 +6121,16 @@ def _dry_pairs(memory, layers=None):
                 "replace": {"num_layers": layers} if layers else None,
                 "overrides": overrides, "memory_bytes": memory,
                 "card": card}
-    if layers is None:
-        pairs = {f"(1, 1) {a} train": pair(a, ["train_2k", 2048, 2, "train"],
-                                           [1, 1], 2, n_micro=2)
-                 for a in DEEP_ARCHS}
-        pairs[f"(1, 1) {q} prefill"] = pair(q, ["p", 512, 2, "prefill"],
-                                            [1, 1], 2)
-        pairs[f"(1, 1) {q} decode"] = pair(q, ["d", 1024, 2, "decode"],
-                                           [1, 1], 2)
+    if deep is None:
+        pairs = {}
+        for a, _, n, _, serve in MESH_ONE:
+            pairs[f"(1, 1) {a} train"] = pair(
+                a, ["train_2k", 2048, 2, "train"], [1, 1], n, n_micro=2)
+            if serve:
+                pairs[f"(1, 1) {a} prefill"] = pair(
+                    a, ["p", 512, 2, "prefill"], [1, 1], n)
+                pairs[f"(1, 1) {a} decode"] = pair(
+                    a, ["d", 1024, 2, "decode"], [1, 1], n)
         return pairs
     pairs = {}
     for mesh in ([2, 2], [1, 4]):
@@ -5969,12 +6143,24 @@ def _dry_pairs(memory, layers=None):
                                        two + ["prefill"])
         pairs[f"{tag} decode"] = pair(q, ["d", 512, 4, "decode"], mesh, 2,
                                       two + ["decode"])
-    for arch, n in layers.items():
+    for arch in FULL_ON_MESH:
+        tag = f"(2, 2) {arch} full"
+        card = ["meshes", f"{arch} (2, 2)"]
+        pairs[f"{tag} train"] = pair(arch, ["t", 1024, 4, "train"], [2, 2],
+                                     None, card + ["train"], n_micro=2,
+                                     num_groups=2)
+        if not get_config(arch, "full").num_codebooks:
+            pairs[f"{tag} prefill"] = pair(arch, ["p", 256, 4, "prefill"],
+                                           [2, 2], None, card + ["prefill"])
+            pairs[f"{tag} decode"] = pair(arch, ["d", 512, 4, "decode"],
+                                          [2, 2], None, card + ["decode"])
+    for arch, (n, modes) in deep.items():
         tag = f"(2, 2) {arch} {n} layers"
-        for mode in ACT_MODES:
+        for mode in modes:
             pairs[f"{tag} train {mode}"] = pair(
                 arch, ["train_4k", 4096, 8, "train"], [2, 2], n,
-                ["deep", arch, mode], act_mode=mode)
+                ["deep", arch, mode if len(modes) > 1 else "batch"],
+                act_mode=mode)
         pairs[f"{tag} prefill"] = pair(arch, ["prefill", 4096, 8, "prefill"],
                                        [2, 2], n, ["deep", arch, "prefill"])
         pairs[f"{tag} decode"] = pair(arch, ["decode", 4104, 8, "decode"],
@@ -6074,7 +6260,7 @@ def _card_counts(card, res):
         return (by_kind(deep["decode_comm"], n),
                 max(deep["serve_peak_bytes"]), ms / 1e3,
                 deep["decode_comm"]["ms"] / n)
-    if what == "batch":
+    if what == "batch":          # the deep run's own step (mesh_train)
         st = deep["steps"][-1]
     else:
         st = res["act_mode"][arch][what]
@@ -6141,7 +6327,8 @@ def mesh_phase(torch):
     spawn(_mesh_one, 1, str(MESH_DIR), backend="nccl")
     rows = json.loads((MESH_DIR / "mesh_rows_1.json").read_text())
     t1 = time.perf_counter()
-    _compare_one(_finish_dry(_start_dry(_dry_pairs(memory), "one", 1)),
+    _compare_one(_finish_dry(_start_dry(_dry_pairs(MESH_ONE_BUDGET), "one",
+                                        2)),
                  json.loads((MESH_DIR / "mesh_one.json").read_text()))
     print(f"22 dry run (1, 1): {time.perf_counter() - t1:.1f} s after "
           "the card")
@@ -6151,15 +6338,17 @@ def mesh_phase(torch):
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip().splitlines()
         print("mesh phase: four cards visible (" + "; ".join(cards)
-              + "): meshes (1, 4), (2, 2), (2, 1, 2) at 2 layers, then the "
-              "deepest cuts on (2, 2)")
+              + "): meshes (1, 4), (2, 2), (2, 1, 2) at 2 layers, mamba2 and "
+              "musicgen FULL on (2, 2), then the deepest cuts on (2, 2)")
         spawn(_mesh_four, 4, str(MESH_DIR), backend="nccl")
         four = json.loads((MESH_DIR / "mesh_four.json").read_text())
         rows += four.pop("rows")
         print(f"mesh four-card results: {json.dumps(four)}")
         t1 = time.perf_counter()
-        pairs = _dry_pairs(memory, {a: four["deep"][a]["layers"]
-                                    for a in DEEP_ARCHS})
+        pairs = _dry_pairs(memory, {
+            a: (d["layers"], ACT_MODES if a in DEEP_ARCHS
+                else (d["meta"]["act_mode"],))
+            for a, d in four["deep"].items()})
         _compare_four(_finish_dry(_start_dry(pairs, "four", 4)), pairs, four)
         print(f"22 dry run: {time.perf_counter() - t1:.1f} s after the "
               "cards")

@@ -80,7 +80,6 @@ from ..models import model as model_lib
 from ..obs import MetricsRegistry, Tracer
 from ..serving import (ServingEngine, SpeculativeConfig, WorkloadConfig,
                        make_trace)
-from ..tree import tree_map
 
 
 def parse_mix(spec: str, top_k: int):
@@ -220,7 +219,8 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     trainable = shd.init_sharded_lora(cfg, mesh, seed + 1, pre.meta["k"] or 0,
                                       device)
     gen = torch.Generator(device=device).manual_seed(seed + 200)
-    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+    prompts = torch.randint(0, cfg.vocab_size,
+                            steps_lib.token_shape(cfg, batch, prompt_len),
                             generator=gen, device=device, dtype=torch.int32)
     on_card = device.type == "cuda"
 
@@ -239,11 +239,7 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     prefill_s = time.perf_counter() - t0
     prefill_comm = parallel.comm_stop()
 
-    def pad(t):
-        out = t.new_zeros(t.shape[:2] + (cache_len,) + t.shape[3:])
-        out[:, :, :t.shape[2]] = t
-        return out
-    cache = tree_map(pad, cache)
+    cache = model_lib.grow_cache(cache, cache_len)
     nxt = logits.argmax(-1).to(torch.int32)
     toks, step_ms = [nxt], []
     parallel.comm_start()
@@ -256,8 +252,9 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
         step_ms.append((time.perf_counter() - t0) * 1e3)
         toks.append(nxt)
     comm = parallel.comm_stop()
-    rows = shd.batch_spec(batch, mesh, 1)
-    tokens = shd.gather_leaf(torch.cat(toks, dim=1), rows, mesh)
+    tokens = torch.cat(toks, dim=1)
+    tokens = shd.gather_leaf(tokens, shd.batch_spec(batch, mesh,
+                                                    tokens.dim() - 1), mesh)
     peaks = rank_peaks(device) if on_card else None
     decode_s = sum(step_ms) / 1e3
     out = {"prefill_s": prefill_s, "decode_ms": step_ms, "tokens": tokens,

@@ -312,20 +312,17 @@ def init_sharded_params(cfg, mesh, seed: int, device="cuda") -> PyTree:
     """This rank's shard of a random parameter tree, made on ``device``
     with the reference's distributions (``model.init_params``): truncated
     normal ±3σ, σ = scale/sqrt(global fan_in) (router scale 0.1),
-    embeddings and head N(0, 0.02), norms one.  Each leaf's shard comes
-    from its own seeded generator, so the whole tree never exists in one
-    place; the values differ from ``init_params(seed)``'s (a whole-tree
-    draw), and depend on the mesh."""
+    embeddings and head N(0, 0.02) (one table per codebook), norms one,
+    the Mamba block's leaves as ``mamba2.mamba_leaf`` draws them.  Each
+    leaf's shard comes from its own seeded generator, so the whole tree
+    never exists in one place and a replicated leaf comes out alike on
+    every rank; the values differ from ``init_params(seed)``'s (a
+    whole-tree draw), and depend on the mesh."""
     from ..models.layers import dense_init, embed_init
+    from ..models.mamba2 import mamba_leaf
     from . import steps as steps_lib
-    if cfg.num_codebooks or any(cfg.layer_kind(j) == "ssm"
-                                for j in range(cfg.pattern_period)):
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM, hybrid and codebook archs on the mesh come "
-            "with the next multi-chip slice")
     a_params = steps_lib.abstract_params(cfg)
     specs = param_specs(cfg, a_params, mesh)
-    dt = cfg.torch_dtype
 
     def make(path, leaf):
         p = _path_str(path)
@@ -335,10 +332,13 @@ def init_sharded_params(cfg, mesh, seed: int, device="cuda") -> PyTree:
             _shard_seed(seed, p, spec, mesh))
         name = path[-1]
         if p.startswith("embed") or p.startswith("lm_head"):
-            return embed_init(shape, dt, gen, device)
+            return embed_init(shape, leaf.dtype, gen, device)
+        if "ssm" in path:
+            return mamba_leaf(name, shape, leaf.dtype, gen, device,
+                              fan_in=leaf.shape[-2])
         if "norm" in name:
-            return torch.ones(shape, dtype=dt, device=device)
-        return dense_init(shape, dt, gen, device,
+            return torch.ones(shape, dtype=leaf.dtype, device=device)
+        return dense_init(shape, leaf.dtype, gen, device,
                           scale=0.1 if name == "router" else 1.0,
                           fan_in=leaf.shape[-2])
 

@@ -200,16 +200,21 @@ def activation_bytes(cfg: ModelConfig, seq_len: int, remat_chunk: int,
         extra += 3 * cfg.n_heads * S * S * 4 // M
     if "ssm" in kinds:
         # the SSD's (H, L, L) fp32 transients and their gradients, as the
-        # reference's knob rule counts them (one layer at a time)
+        # reference's knob rule counts them (one layer at a time; a rank
+        # runs H/M heads)
         dims = ssm_mod.mamba_dims(cfg)
-        extra += 3 * S * dims["n_heads"] * min(cfg.ssm.chunk_size, S) * 4
+        extra += (3 * S * dims["n_heads"] * min(cfg.ssm.chunk_size, S) * 4
+                  // M)
     for j, kind in enumerate(kinds):
         if kind == "attn":
             acts += (S * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd // M
                      + 2 * S * d)
         else:
-            acts += S * (dims["in_dim"] + dims["conv_dim"]
-                         + 2 * dims["d_inner"]) + 2 * S * d
+            # in_proj's output whole (gathered on the mesh); the conv, the
+            # scan's output and the norm over this rank's heads
+            acts += (S * (dims["in_dim"] + (dims["conv_dim"]
+                                            + 2 * dims["d_inner"]) // M)
+                     + 2 * S * d)
         if cfg.layer_is_moe(j):
             kk = k or m.top_k
             group = min(S, 2048)

@@ -37,8 +37,8 @@ Three modes, as the reference launcher's:
     depth is ``--layers`` or the deepest whole-period cut the estimate
     fits, ``--batch`` / ``--seq-len`` cut the shape; every cut is
     printed.  On ``--device cpu`` the ranks are ``--world`` gloo
-    processes (default 2).  The SSM, hybrid and codebook archs come with
-    the next multi-chip slice.
+    processes (default 2).  Every arch of the registry runs there
+    (``jamba-v0.1-52b`` cut in whole periods of 8).
 
 All run on the CUDA kernels unless given ``--device cpu`` (their plain
 versions).  ``--variant`` defaults to the reduced smoke config, as the

@@ -130,7 +130,7 @@ def lora_expert_einsum(x: torch.Tensor, w: torch.Tensor,
 # sharded products (the card mesh: models/parallel.py)
 # --------------------------------------------------------------------------
 
-def _fsdp_weight(w: torch.Tensor, full: int, dim: int, sh) -> torch.Tensor:
+def fsdp_weight(w: torch.Tensor, full: int, dim: int, sh) -> torch.Tensor:
     """A frozen weight with its ``dim`` gathered over ``data`` when it is
     stored split there."""
     if parallel.split_dim(full, w.shape[dim], sh.D, "fsdp weight"):
@@ -138,7 +138,7 @@ def _fsdp_weight(w: torch.Tensor, full: int, dim: int, sh) -> torch.Tensor:
     return w
 
 
-def _fsdp_a(a: torch.Tensor, full: int, dim: int, sh) -> torch.Tensor:
+def fsdp_a(a: torch.Tensor, full: int, dim: int, sh) -> torch.Tensor:
     """An adapter's ``a`` whole on its input features: all-gathered over
     ``data`` where it is stored split (its backward reduce-scatters)."""
     if parallel.split_dim(full, a.shape[dim], sh.D, "adapter a"):
@@ -154,10 +154,10 @@ def col_dense(x: torch.Tensor, w: torch.Tensor, lp: Optional[dict],
     (``a`` (d_in[/data], r), ``b`` (r, d_out[/model])).  Returns this rank's
     output columns."""
     d_in = x.shape[-1]
-    w = _fsdp_weight(w, d_in, 0, sh)
+    w = fsdp_weight(w, d_in, 0, sh)
     if lp is None:
         return lora_dense(x, w, None, scale)
-    a = parallel.copy_to(_fsdp_a(lp["a"], d_in, 0, sh), sh.model)
+    a = parallel.copy_to(fsdp_a(lp["a"], d_in, 0, sh), sh.model)
     return lora_dense(x, w, {"a": a, "b": lp["b"]}, scale)
 
 
@@ -174,10 +174,10 @@ def row_dense(h: torch.Tensor, w: torch.Tensor, lp: Optional[dict],
             and sh.M > 1:
         raise NotImplementedError("a row-split product whose input features "
                                   "do not divide the model axis")
-    w = _fsdp_weight(w, d_out, 1, sh)
+    w = fsdp_weight(w, d_out, 1, sh)
     lpl = None
     if lp is not None:
-        a = parallel.copy_to(_fsdp_a(lp["a"], d_in, 0, sh), sh.model)
+        a = parallel.copy_to(fsdp_a(lp["a"], d_in, 0, sh), sh.model)
         rows = h.shape[-1]
         if sh.M > 1:
             a = a.narrow(0, sh.mi * rows, rows)
@@ -191,7 +191,7 @@ def row_dense(h: torch.Tensor, w: torch.Tensor, lp: Optional[dict],
 def expert_weight(w: torch.Tensor, d_in: int, sh) -> torch.Tensor:
     """A frozen stacked expert weight (E/model, d_in[/data], d_out) with
     its input features gathered over ``data``."""
-    return _fsdp_weight(w, d_in, 1, sh)
+    return fsdp_weight(w, d_in, 1, sh)
 
 
 def expert_adapter(lp: Optional[dict], d_in: int, sh) -> Optional[dict]:
@@ -199,7 +199,7 @@ def expert_adapter(lp: Optional[dict], d_in: int, sh) -> Optional[dict]:
     r, d_out)) with ``a`` gathered over ``data``."""
     if lp is None:
         return None
-    return {"a": _fsdp_a(lp["a"], d_in, 1, sh), "b": lp["b"]}
+    return {"a": fsdp_a(lp["a"], d_in, 1, sh), "b": lp["b"]}
 
 
 def apply_ffn(p: dict, x: torch.Tensor, lora: Optional[dict] = None,

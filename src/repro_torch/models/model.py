@@ -31,9 +31,8 @@ take ``shard`` (``models/parallel.py``): every tree is then this rank's
 shard (``launch/sharding.py``), the batch this rank's rows, and each
 layer runs its sharded path (vocabulary-split embedding and head, heads
 and FFN columns and experts split over ``model``, FSDP gathers over
-``data``) to the unsharded model's result.  Attention archs with a dense
-FFN or a routed MoE; the SSM, hybrid and codebook archs come with the
-next multi-chip slice.
+``data``, head-parallel Mamba-2 blocks: ``mamba2.apply_mamba``) to the
+unsharded model's result, for every arch of the registry.
 """
 from __future__ import annotations
 
@@ -138,42 +137,54 @@ def init_params(cfg, generator: torch.Generator,
 # embedding / head
 # ==========================================================================
 
-def _check_mesh(cfg, shard) -> None:
-    if shard is not None and (cfg.num_codebooks or not _attention_only(cfg)):
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM, hybrid and codebook archs on the mesh come "
-            "with the next multi-chip slice")
-
-
 def embed_tokens(params, cfg, tokens: torch.Tensor,
                  shard=None) -> torch.Tensor:
     """tokens (B, S) -> (B, S, D); for an audio model tokens (B, S, K) ->
     the sum of the K codebooks' lookups, added in order k = 0 ... K-1
     (MusicGen's summed input embeddings).  On the mesh each rank looks up
-    its vocabulary rows (the others zero) and the lookups are all-reduced
-    over ``model``."""
+    its vocabulary rows of each table (the others zero) and the sum is
+    all-reduced over ``model``."""
     emb = params["embed"]["tokens"]
-    if shard is not None and emb.shape[0] != cfg.vocab_size:
-        Vl = emb.shape[0]
-        rel = tokens.long() - shard.mi * Vl
+    Vl = emb.shape[-2]
+    split = shard is not None and Vl != cfg.vocab_size
+
+    def lookup(table, tok):
+        if not split:
+            return table[tok.long()]
+        rel = tok.long() - shard.mi * Vl
         mine = (rel >= 0) & (rel < Vl)
-        x = emb[rel.clamp(0, Vl - 1)] * mine[..., None].to(emb.dtype)
-        return parallel.reduce_from(x, shard.model)
+        return table[rel.clamp(0, Vl - 1)] * mine[..., None].to(table.dtype)
+
     if cfg.num_codebooks:
-        x = emb[0][tokens[..., 0].long()]
+        x = lookup(emb[0], tokens[..., 0])
         for k in range(1, cfg.num_codebooks):
-            x = x + emb[k][tokens[..., k].long()]
-        return x
-    return emb[tokens.long()]
+            x = x + lookup(emb[k], tokens[..., k])
+    else:
+        x = lookup(emb, tokens)
+    return parallel.reduce_from(x, shard.model) if split else x
 
 
 def lm_head(params, cfg, h: torch.Tensor, shard=None) -> torch.Tensor:
     """(B, S, D) -> logits (B, S, V), or (B, S, K, V) for an audio model
     (one head per codebook).  On the mesh the whole V, gathered over
     ``model`` from each rank's columns (:func:`lm_head_local`)."""
+    logits = lm_head_local(params, cfg, h)
     if shard is not None:
-        return parallel.gather(lm_head_local(params, cfg, h), shard.model,
-                               -1)
+        return parallel.gather(logits, shard.model, -1)
+    return logits
+
+
+def _vocab_cols(params, cfg) -> int:
+    """The head's vocabulary columns on this rank."""
+    if cfg.tie_embeddings:
+        return params["embed"]["tokens"].shape[-2]
+    return params["lm_head"].shape[-1]
+
+
+def lm_head_local(params, cfg, h: torch.Tensor) -> torch.Tensor:
+    """This rank's vocabulary columns of the logits (its rows of a tied
+    embedding, its columns of the head; per codebook for an audio model);
+    all of them off the mesh."""
     if cfg.tie_embeddings:
         w = params["embed"]["tokens"]
         if cfg.num_codebooks:
@@ -183,21 +194,6 @@ def lm_head(params, cfg, h: torch.Tensor, shard=None) -> torch.Tensor:
     if cfg.num_codebooks:
         return torch.einsum("bsd,kdv->bskv", h, w)
     return h @ w
-
-
-def _vocab_cols(params, cfg) -> int:
-    """The head's vocabulary columns on this rank."""
-    if cfg.tie_embeddings:
-        return params["embed"]["tokens"].shape[0]
-    return params["lm_head"].shape[-1]
-
-
-def lm_head_local(params, cfg, h: torch.Tensor) -> torch.Tensor:
-    """This rank's vocabulary columns of the logits (its rows of a tied
-    embedding, its columns of the head); all of them off the mesh."""
-    if cfg.tie_embeddings:
-        return h @ params["embed"]["tokens"].T
-    return h @ params["lm_head"]
 
 
 # ==========================================================================
@@ -236,7 +232,7 @@ def _apply_block(cfg, kind: str, p: dict, x: torch.Tensor, positions, *,
         c = (cache or {}).get("ssm")
         h, mc = ssm_mod.apply_mamba(p["ssm"], cfg, h, lora=lg.get("ssm"),
                                     lora_scale=lora_scale, cache=c,
-                                    return_cache=return_cache)
+                                    return_cache=return_cache, shard=shard)
         if c is not None and x.shape[1] == 1:
             for leaf in ("conv", "ssm"):
                 c[leaf].copy_(mc[leaf])
@@ -388,7 +384,6 @@ def forward_hidden(cfg, params, tokens: torch.Tensor, *, trainable=None,
     reference, over ``num_groups`` routing groups.  ``remat`` / ``remat_chunk``: layer
     checkpointing (:func:`_run_stack`).  ``shard``: the card mesh (the
     module docstring)."""
-    _check_mesh(cfg, shard)
     S = tokens.shape[1]
     if positions is None:
         positions = torch.arange(S, device=tokens.device)
@@ -421,7 +416,9 @@ def chunked_ce_loss(cfg, params, h: torch.Tensor, labels: torch.Tensor,
     On the mesh (``shard``) the logits are this rank's vocabulary columns
     and the NLL is ``parallel.vocab_parallel_nll``'s; the loss is the
     global masked mean: the sum and the count are each all-reduced over
-    the batch axes (not a mean of the ranks' means)."""
+    the batch axes (not a mean of the ranks' means); with codebooks each
+    codebook's NLL is vocabulary-parallel and their mean is taken as on
+    one card."""
     if shard is not None and _vocab_cols(params, cfg) != cfg.vocab_size:
         return _vocab_parallel_ce(cfg, params, h, labels, mask, chunk, shard)
     B, S, _ = h.shape
@@ -463,9 +460,12 @@ def _vocab_parallel_ce(cfg, params, h, labels, mask, chunk, sh):
     for c0 in range(0, S, chunk):
         logits = lm_head_local(params, cfg, hc[:, c0:c0 + chunk]).to(_F32)
         Vl = logits.shape[-1]
+        lab = labels[:, c0:c0 + chunk]
         nll = parallel.vocab_parallel_nll(
-            logits.reshape(-1, Vl), labels[:, c0:c0 + chunk].reshape(-1),
-            sh.mi * Vl, sh.model).reshape(B, -1)
+            logits.reshape(-1, Vl), lab.reshape(-1), sh.mi * Vl,
+            sh.model).reshape(lab.shape)              # (B, chunk[, K])
+        if nll.dim() == 3:
+            nll = nll.mean(-1)
         mm = mask[:, c0:c0 + chunk].to(_F32)
         tot = tot + (nll * mm).sum()
         cnt = cnt + mm.sum()
@@ -545,6 +545,25 @@ def _stacked(per_period: list, kind: str) -> dict:
                    for leaf in leaves}}
 
 
+def grow_cache(cache: PyTree, depth: int) -> PyTree:
+    """A contiguous decode cache with its attention leaves (n, B, Sc, KV,
+    hd) zero-padded to ``depth`` columns where shallower; Mamba state as
+    it is."""
+    out = {}
+    for key, c in cache.items():
+        if "attn" not in c:
+            out[key] = c
+            continue
+        kv = {}
+        for leaf, t in c["attn"].items():
+            if depth > t.shape[2]:
+                t = torch.cat([t, t.new_zeros(t.shape[:2] + (
+                    depth - t.shape[2],) + t.shape[3:])], dim=2)
+            kv[leaf] = t
+        out[key] = {"attn": kv}
+    return out
+
+
 def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             cache_len: Optional[int] = None, slot_mask=None,
             dispatch: str = "ragged", num_groups: int = 1, shard=None):
@@ -559,7 +578,6 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     (:func:`moe_layer.apply_moe`).  On the mesh (``shard``): this rank's
     rows and KV heads of the cache (``launch/sharding.cache_specs``), the
     logits whole."""
-    _check_mesh(cfg, shard)
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens, shard)
@@ -567,20 +585,10 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
                            k=k, return_cache=True, slot_mask=slot_mask,
                            dispatch=dispatch, num_groups=num_groups,
                            shard=shard)
-    target = cache_len_for(cfg, cache_len or S)
-    cache = {}
-    for key, per in new.items():
-        if "ssm" in per[0]:
-            cache[key] = _stacked(per, "ssm")
-            continue
-        kv = _stacked(per, "attn")["attn"]     # (n, B, Sc, KV, hd)
-        for leaf, stacked in kv.items():
-            cur = stacked.shape[2]
-            if target > cur:
-                pad = stacked.new_zeros(stacked.shape[:2] + (target - cur,)
-                                        + stacked.shape[3:])
-                kv[leaf] = torch.cat([stacked, pad], dim=2)
-        cache[key] = {"attn": kv}
+    cache = grow_cache({key: _stacked(per, "ssm" if "ssm" in per[0]
+                                      else "attn")
+                        for key, per in new.items()},
+                       cache_len_for(cfg, cache_len or S))
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.rms_eps)
     return lm_head(params, cfg, h, shard), cache
 
@@ -647,7 +655,6 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
     (logits (B,S,V), cache) [+ counts {pos{j}: (n_periods, E)}].  On the
     mesh (``shard``): the slotted cache's rows and KV heads of this rank
     (``launch/sharding.cache_specs``), a static ``k``, one-hot dispatch."""
-    _check_mesh(cfg, shard)
     x = embed_tokens(params, cfg, tokens, shard)
     B, S = x.shape[0], x.shape[1]
     if S > 1 and not _attention_only(cfg):

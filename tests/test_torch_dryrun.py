@@ -17,8 +17,9 @@
     llama3 at float32 on a fake (2, 2) world count exactly the calls and
     bytes by kind that a gloo world of 4 ranks counts on the same steps
     (train in each ``act_mode``, prefill, decode); a record carries the
-    reference's keys; an SSM arch's pair is recorded ``ok: false`` and
-    the run exits 1.
+    reference's keys; an SSM arch's pair on (2, 2) is recorded ``ok:
+    true``, and a pair whose heads do not divide the model axis
+    (``phi4-mini-3.8b`` on 16 ways) ``ok: false`` with the run exiting 1.
 """
 import json
 import os
@@ -260,14 +261,16 @@ for arch in ("qwen3-moe-235b-a22b", "llama3-405b"):
             variant="smoke", cfg_replace=cfg, keep_calls=kind == "decode")
 with open(f"{out_dir}/dry.json", "w") as f:
     json.dump(recs, f, default=str)
-try:
-    dryrun.main(["--arch", "mamba2-780m", "--shape", "decode_32k",
-                 "--mesh-shape", "2x2", "--out", f"{out_dir}/records"])
-    rc = 0
-except SystemExit as e:
-    rc = e.code
+rcs = []
+for arch, mesh in (("mamba2-780m", "2x2"), ("phi4-mini-3.8b", "1x16")):
+    try:
+        dryrun.main(["--arch", arch, "--shape", "decode_32k",
+                     "--mesh-shape", mesh, "--out", f"{out_dir}/records"])
+        rcs.append(0)
+    except SystemExit as e:
+        rcs.append(e.code)
 with open(f"{out_dir}/main_rc.json", "w") as f:
-    json.dump(rc, f)
+    json.dump(rcs, f)
 import contextlib
 from repro_torch.examples import multipod_launch
 with open(f"{out_dir}/multipod.txt", "w") as f, contextlib.redirect_stdout(f):
@@ -327,12 +330,24 @@ def test_dry_run_record_has_the_reference_keys(runs):
     assert rec["roofline"]["traced_gflops"] > 0
 
 
-def test_an_ssm_pair_is_recorded_failed(runs):
-    assert runs["rc"] == 1
+def test_an_indivisible_pair_is_recorded_failed(runs):
+    assert runs["rc"][1] == 1
     rec = json.loads((runs["records"]
-                      / "mamba2-780m__decode_32k__2x2.json").read_text())
+                      / "phi4-mini-3.8b__decode_32k__1x16.json").read_text())
     assert set(rec) == {"arch", "shape", "mesh", "ok", "error", "traceback"}
     assert rec["ok"] is False and "NotImplementedError" in rec["error"]
+    assert "24 query heads" in rec["error"]
+
+
+def test_an_ssm_pair_is_recorded_ok(runs):
+    assert runs["rc"][0] == 0
+    rec = json.loads((runs["records"]
+                      / "mamba2-780m__decode_32k__2x2.json").read_text())
+    assert rec["ok"] is True and rec["step"] == "serve_step"
+    # head-parallel decode: in_proj's columns and the conv activations
+    # are all-gathered over model, the norm's sums and out_proj's partial
+    # sums all-reduced, per layer
+    assert rec["collectives"]["execs_by_kind"]["all_gather"] >= 2 * 48
 
 
 def test_report_prints_the_table_and_the_failures(runs, capsys, monkeypatch):
@@ -344,7 +359,7 @@ def test_report_prints_the_table_and_the_failures(runs, capsys, monkeypatch):
     report.main()
     out = capsys.readouterr().out
     assert report.fmt_row(ok) in out
-    assert "FAILED (1):" in out and "mamba2-780m" in out
+    assert "FAILED (1):" in out and "phi4-mini-3.8b" in out
 
 
 def test_inspect_pair_groups_the_calls(runs):
