@@ -258,26 +258,35 @@ nothing else of the network or the filesystem.  Phases:
    ``launch/steps.py`` with ``mesh=``) — the parent frees its cached
    memory and spawns one NCCL worker a card (``launch.mesh.spawn``; a
    worker's failed check fails the phase): on one card a world of one,
-   mesh (1, 1): ``qwen3-moe-235b-a22b``, ``llama3-405b``, ``mamba2-780m``
-   and ``musicgen-large`` at full width cut to 2 layers and
-   ``jamba-v0.1-52b`` to one period of 8, the mesh train step (B = 2,
+   mesh (1, 1): ``qwen3-moe-235b-a22b``, ``llama3-405b``, ``mamba2-780m``,
+   ``musicgen-large``, ``phi4-mini-3.8b`` and ``granite-20b`` at full
+   width cut to 2 layers and ``jamba-v0.1-52b`` to one period of 8, the
+   mesh train step (B = 2,
    S = 2048, n_micro 2, the
    adapters' ``b`` off zero, rescalers at 0.7) bit-equal to the
    single-device ``build_train`` on the same weights and batch (loss,
    counts, adapters, Adam's moments), launch counts, every kernel call of
    one mesh forward (the router at E = 128, k = 8 and E = 16, k = 2,
-   flash at 64/4, 128/8, 32/8 and 32/32 heads, ``lora_matmul`` at
-   q/k/v/o, the FFNs and the Mamba block's in/out projections,
-   ``lora_matmul_experts`` at 128 and 16 experts) against its plain
-   version within close_16bit and layer 0's timed beside bound, plain
-   and library; the mesh prefill and decode step of qwen3, mamba2 and
-   jamba bit-equal to the single-device steps.  With four cards visible
-   (``--mesh`` on a four-card machine): the 2-layer qwen3 on (1, 4), (2,
-   2) and (2, 1, 2) against rank 0's one-card run (loss and adapters
-   within close_16bit, the counts' total equal and at most 2% of routes
-   moved, decoded tokens equal or near-ties); mamba2-780m (48 layers,
-   also prefill and 4 decode steps) and musicgen-large (48 layers, train
-   only) FULL on (2, 2) against one card, alike; qwen3 and llama3 at the
+   flash at 64/4, 128/8, 32/8, 32/32, 24/8 and 48/1 heads,
+   ``lora_matmul`` at q/k/v/o, the FFNs and the Mamba block's in/out
+   projections, ``lora_matmul_experts`` at 128 and 16 experts) against
+   its plain version within close_16bit and layer 0's timed beside bound,
+   plain and library; the mesh prefill and decode step of qwen3, mamba2,
+   jamba, phi4-mini and granite bit-equal to the single-device steps.
+   With four cards visible (``--mesh`` on a four-card machine): the
+   2-layer qwen3 on (1, 4), (2, 2) and (2, 1, 2) against rank 0's
+   one-card run (loss and adapters within close_16bit, the counts' total
+   equal and at most 2% of routes moved, decoded tokens equal or
+   near-ties); mamba2-780m (48 layers, also prefill and 4 decode steps)
+   and musicgen-large (48 layers, train only) FULL on (2, 2) against one
+   card, alike; phi4-mini-3.8b (32 layers: 6/2 heads a rank, its
+   prefill's own KV heads redistributed by sequence) and granite-20b (52:
+   MQA) at ``deepest_fit``'s depth served on (1, 4), the decode cache
+   split by sequence and every rank's partial softmax merged: a prefill
+   of 8 x 4096 tokens and 8 decode steps fed rank 0's one-card tokens,
+   each row's logits within 5e-2 relative L2 of the one card's (bf16's
+   rounded partial sums compound over the depth; close_16bit's verdict
+   printed) and each argmax equal or a near-tie; qwen3 and llama3 at the
    deepest whole-period cut the knob chooser's estimate fits on (2, 2)
    in "batch", jamba at ``deepest_fit``'s (the card's memory less 8
    GiB): two train steps at 4096 tokens (train_4k's batch cut to 8:
@@ -285,8 +294,11 @@ nothing else of the network or the filesystem.  Phases:
    collectives' calls, bytes and ms), a prefill of 8 x 4096 tokens and 8
    decode steps; every kernel call of one microbatch's forward (S =
    4096, a row a rank) of mamba2 and musicgen (2 layers) and jamba (one
-   period) on (2, 2) against its plain version; then the kernels at (2,
-   2)'s per-rank shapes timed on rank 0;
+   period) on (2, 2) and of phi4-mini and granite (2 layers) on (1, 4)
+   against its plain version; then the kernels at (2, 2)'s per-rank
+   shapes timed on rank 0, and at a 16-way rank's, which only the dry run
+   runs (flash at phi4-mini's 2/1 and granite's 3/1 heads, phi4-mini's q
+   from the gathered ``wq`` columns);
 22. ``act_mode`` and the dry run (with 21; ``models/parallel.py``
    ``split_to`` / ``gather_from``, ``launch/dryrun.py``,
    ``launch/roofline.py``) — the dry run of each (arch, step, mesh,
@@ -308,8 +320,9 @@ nothing else of the network or the filesystem.  Phases:
    within close_16bit; the depth ``deepest_fit`` gives with the dmodel
    fallback beside phase 21's; then each dry-run pair's collective calls
    and bytes by kind equal to what the cards counted (the 2-layer qwen3
-   on (2, 2) and (1, 4), mamba2 and musicgen FULL on (2, 2), the deep
-   runs' train, prefill and decode steps, dmodel and sp), its estimated
+   on (2, 2) and (1, 4), mamba2 and musicgen FULL on (2, 2), phi4-mini
+   and granite's (1, 4) prefill and decode steps, the deep runs' train,
+   prefill and decode steps, dmodel and sp), its estimated
    peak beside the measured one and its
    roofline terms beside the measured s/step and collective ms; one
    16 x 16 pair (qwen3-moe x train_4k) traced, its wall time printed;
@@ -5398,7 +5411,9 @@ MESH_ONE = (("qwen3-moe-235b-a22b", "Q", 2, (("q", 0),), True),
             ("mamba2-780m", "M", 2, (("in_proj", 0), ("out_proj", 1)), True),
             ("jamba-v0.1-52b", "J", 8, (("in_proj", 0), ("out_proj", 1),
                                         ("w1", 2)), True),
-            ("musicgen-large", "A", 2, (("q", 0), ("w1", 4)), False))
+            ("musicgen-large", "A", 2, (("q", 0), ("w1", 4)), False),
+            ("phi4-mini-3.8b", "P", 2, (("q", 0),), True),
+            ("granite-20b", "G", 2, (("q", 0),), True))
 
 
 # the (1, 1) train step's knob budget: its knobs are fixed (n_micro 2,
@@ -5663,6 +5678,20 @@ def _mesh_four(rank, world, out_dir):
     kc = _kernel_tools(torch, dev, [torch.empty(
         2 ** 28, dtype=torch.float32, device=dev)])
     res = {"meshes": {}, "deep": {}}
+    # one Mesh a shape for the whole run: each holds NCCL communicators
+    meshes = {shape: mesh_lib.Mesh(shape, axes)
+              for shape, axes in MESH_SHAPES}
+    base = INPUT_SHAPES["train_4k"]
+    train_4k = ShapeConfig(base.name, base.seq_len, 8, "train")
+    memory = steps.device_bytes(dev) - MESH_RESERVE
+    # served first: rank 0's one-card run of granite-20b FULL holds its
+    # whole weights (52.5 GiB) beside a prefill of 8 x 4096 tokens
+    for arch in SERVE_ON_ROW:
+        full = get_config(arch, "full")
+        layers = steps.deepest_fit(full, train_4k, meshes[(1, 4)], memory)
+        check(layers > 0, f"{arch}: no depth fits (1, 4)")
+        _serve_on_mesh(torch, arch, full.replace(num_layers=layers),
+                       meshes[(1, 4)], dev, kc, log, res, rank)
 
     cfg = get_config("qwen3-moe-235b-a22b", "full").replace(num_layers=2)
     params, trainable = _mesh_state(torch, cfg, dev, 51)
@@ -5672,8 +5701,8 @@ def _mesh_four(rank, world, out_dir):
         log(f"one card: {cfg.name} 2 layers loss {want[0]:.6f}, tokens "
             f"row 0 {want[3][0].tolist()}")
     dist.barrier()
-    for shape, axes in MESH_SHAPES:
-        mesh = mesh_lib.Mesh(shape, axes)
+    for shape, _ in MESH_SHAPES:
+        mesh = meshes[shape]
         got = _compare_run(torch, cfg, params, trainable, mesh, dev)
         if rank == 0:
             # the loss is fp32 of bf16 logits: close_16bit's rule
@@ -5705,12 +5734,10 @@ def _mesh_four(rank, world, out_dir):
     gc.collect()
     torch.cuda.empty_cache()
 
-    mesh = mesh_lib.Mesh((2, 2), ("data", "model"))
+    mesh = meshes[(2, 2)]
     for arch in FULL_ON_MESH:
         _full_on_mesh(torch, arch, mesh, dev, kc, log, res, rank)
-    base = INPUT_SHAPES["train_4k"]
-    shape = ShapeConfig(base.name, base.seq_len, 8, "train")
-    memory = steps.device_bytes(dev) - MESH_RESERVE
+    shape = train_4k
     for arch in DEEP_ARCHS + ("jamba-v0.1-52b",):
         t_arch = time.perf_counter()
         full = get_config(arch, "full")
@@ -5771,7 +5798,7 @@ def _mesh_four(rank, world, out_dir):
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
-    rows = _rank_calls(torch, mesh, dev, kc, log, res, rank)
+    rows = _rank_calls(torch, meshes, dev, kc, log, res, rank)
 
     if rank == 0:
         res["rows"] = rows + _mesh_rank_shape_rows(torch, dev, kc, res)
@@ -5780,11 +5807,185 @@ def _mesh_four(rank, world, out_dir):
 
 # the archs run FULL on (2, 2) against one card
 FULL_ON_MESH = ("mamba2-780m", "musicgen-large")
-# (arch, row tag, layers, the LoRA calls timed) of (2, 2)'s per-rank calls
-RANK_CALLS = (("mamba2-780m", "M", 2, (("in_proj", 0), ("out_proj", 1))),
+# the archs served on (1, 4) against one card, at deepest_fit's depth:
+# phi4-mini's 24/8 heads (6/2 a rank, the prefill's own KV heads
+# redistributed by sequence) and granite's MQA (its cache held whole on
+# every rank before the sequence split)
+SERVE_ON_ROW = ("phi4-mini-3.8b", "granite-20b")
+# their serving run: rows, prompt tokens, decode steps
+SERVE_SHAPE = (8, 4096, 8)
+# (arch, row tag, layers, the LoRA calls timed, mesh) of the per-rank calls
+RANK_CALLS = (("mamba2-780m", "M", 2, (("in_proj", 0), ("out_proj", 1)),
+               (2, 2)),
               ("jamba-v0.1-52b", "J", 8, (("in_proj", 0), ("out_proj", 1),
-                                          ("w1", 2))),
-              ("musicgen-large", "A", 2, (("q", 0), ("w1", 4))))
+                                          ("w1", 2)), (2, 2)),
+              ("musicgen-large", "A", 2, (("q", 0), ("w1", 4)), (2, 2)),
+              ("phi4-mini-3.8b", "P", 2, (("q", 0),), (1, 4)),
+              ("granite-20b", "G", 2, (("q", 0), ("k", 1)), (1, 4)))
+
+
+def _serve_run(torch, cfg, params, trainable, mesh, dev, feed=None):
+    """A prefill of ``SERVE_SHAPE``'s rows x prompt tokens (8 x 4096) and
+    its 8 greedy decode steps against a cache as deep as both need, on
+    ``mesh`` (None: one device), from this rank's shards of the weights;
+    with ``feed`` (rows, steps + 1) step i decodes ``feed[:, i]``
+    (teacher-forced) in place of the last argmax.  Returns the argmax
+    tokens (rows, steps + 1), each step's logits (whole), the collectives
+    by kind of the prefill and of one decode step (all steps' over their
+    number: [calls, bytes, ms]), the launches of the run, the prefill s
+    and each decode step's ms."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels import _build
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import parallel
+    B, S, n = SERVE_SHAPE
+    pre = steps.build_prefill(cfg, ShapeConfig("p", S, B, "prefill"),
+                              mesh=mesh)
+    srv = steps.build_serve(cfg, ShapeConfig("d", S + n, B, "decode"),
+                            mesh=mesh)
+    p, tr = params, trainable
+    prompt = torch.randint(0, cfg.vocab_size, (B, S),
+                           generator=torch.Generator(device=dev).manual_seed(
+                               45), device=dev, dtype=torch.int32)
+    if mesh is not None:
+        prompt = steps.shard_batch(prompt, mesh)
+        if feed is not None:
+            feed = steps.shard_batch(feed, mesh)
+    comm = {}
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    parallel.comm_start()
+    t0 = time.perf_counter()
+    lg, cache = pre.fn(p, tr, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    comm["prefill"] = parallel.comm_stop()["by_kind"]
+    if mesh is None:
+        cache = model_lib.grow_cache(cache, S + n)
+    else:
+        cache = shd.grow_cache(cache, pre.specs["cache"], srv.specs["cache"],
+                               S + n, mesh)
+    logits, toks, step_ms = [lg[:, 0]], [lg.argmax(-1)], []
+    parallel.comm_start()
+    for i in range(n):
+        nxt = toks[-1] if feed is None else feed[:, i:i + 1]
+        t0 = time.perf_counter()
+        lg, cache = srv.fn(p, tr, cache, nxt.to(torch.int32),
+                           torch.tensor(S + i, dtype=torch.int32,
+                                        device=dev))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg[:, 0])
+        toks.append(lg.argmax(-1))
+    comm["decode"] = {k: [x / n for x in v] for k, v in
+                      parallel.comm_stop()["by_kind"].items()}
+    launches = dict(_build.LAUNCHES)
+    tokens = torch.cat(toks, dim=1)
+    if mesh is not None:
+        rows = pre.specs["batch"]
+        tokens = shd.gather_leaf(tokens, rows, mesh)
+        logits = [shd.gather_leaf(x, rows, mesh) for x in logits]
+    return tokens, logits, comm, launches, prefill_s, step_ms
+
+
+# the (1, 4) serving runs' logits against one card's, row by row: bf16
+# rounds the row-split products' partial sums before their all-reduce, and
+# the difference compounds over 32-52 layers (unit roundoff 2^-8 times
+# sqrt(2 x 52) is 0.04), beyond close_16bit's one ulp, so the gate is the
+# relative L2 of each row; close_16bit's verdict is printed beside it
+SERVE_REL_L2 = 5e-2
+
+
+def _serve_on_mesh(torch, arch, cfg, mesh, dev, kc, log, res, rank):
+    """Phase 21, four cards: ``cfg`` (of ``arch``) served on ``mesh``
+    (:func:`_serve_run`) against rank 0's one-card run of the same weights
+    and depth, the mesh run fed the one card's tokens (so every step
+    compares the same inputs): every row's logits within ``SERVE_REL_L2``
+    relative L2 at every step, and each step's argmax equal to the one
+    card's or a near tie (the one card's top-2 gap no larger than the
+    row's largest |mesh - one card| logit difference)."""
+    import gc
+
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps
+    t0 = time.perf_counter()
+    params, trainable = _mesh_state(torch, cfg, dev, 57)
+    want = None
+    B, _, n = SERVE_SHAPE
+    feed = torch.empty((B, n + 1), dtype=torch.int64, device=dev)
+    if rank == 0:
+        free, total = torch.cuda.mem_get_info()
+        log(f"{arch} ({cfg.num_layers} layers): whole weights "
+            f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+            f"{free / 2 ** 30:.2f} of {total / 2 ** 30:.2f} GiB free before "
+            "the one-card run")
+        want = _serve_run(torch, cfg, params, trainable, None, dev)
+        feed.copy_(want[0])
+    dist.broadcast(feed, 0)
+    p = shd.shard_tree(params, shd.param_specs(
+        cfg, steps.abstract_params(cfg), mesh), mesh)
+    tr = shd.shard_tree(trainable, shd.trainable_specs(cfg, trainable, mesh),
+                        mesh)
+    del params, trainable
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the first collective on a group starts its NCCL communicator (seconds):
+    # outside the timed prefill
+    for axes in ("model", mesh.axis_names):
+        if mesh.group(axes) is not None:
+            dist.all_reduce(torch.zeros(1, device=dev), group=mesh.group(axes))
+    got = _serve_run(torch, cfg, p, tr, mesh, dev, feed)
+    del p, tr
+    if rank == 0:
+        key = f"{arch} {tuple(mesh.shape.values())}"
+        rel, abs_err, ok16, ties = 0.0, 0.0, True, 0
+        for j, (g, w) in enumerate(zip(got[1], want[1])):
+            g, w = g.float(), w.float()
+            d = (g - w).abs()
+            r = float(((g - w).norm(dim=-1) / w.norm(dim=-1)).max())
+            check(r <= SERVE_REL_L2, f"{key} logits step {j}: a row's "
+                  f"relative L2 {r:.3e} > {SERVE_REL_L2:g}")
+            rel, abs_err = max(rel, r), max(abs_err, float(d.max()))
+            ok16 = ok16 and bool((d <= 1e-2 * w.abs() + 1e-2).all())
+            for b_ in (got[0][:, j] != want[0][:, j]).nonzero()[:, 0].tolist():
+                top2 = w[b_].topk(2).values
+                gap = float(top2[0] - top2[1])
+                check(gap <= float(d[b_].max()), f"{key} step {j} row {b_}: "
+                      f"argmax differs, top-2 gap {gap:.4f} > max |d| "
+                      f"{float(d[b_].max()):.4f}")
+                ties += 1
+        med = sorted(got[5])[len(got[5]) // 2]
+        res["meshes"][key] = {
+            "layers": cfg.num_layers, "logit_rel_l2": rel,
+            "logit_err": abs_err, "close_16bit": ok16, "near_ties": ties,
+            "comm": {k: {kind: v[:2] for kind, v in c.items()}
+                     for k, c in got[2].items()},
+            "comm_ms": {k: {kind: v[2] for kind, v in c.items()}
+                        for k, c in got[2].items()},
+            "launches": got[3],
+            "prefill_s": got[4], "decode_ms": got[5],
+            "one_card_prefill_s": want[4], "one_card_decode_ms": want[5]}
+        kinds = "; ".join(
+            f"{what}: " + ", ".join(f"{k} {v[0]:g} calls {v[1] / 2 ** 20:.2f}"
+                                    f" MiB {v[2]:.2f} ms" for k, v in
+                                    c.items())
+            for what, c in got[2].items())
+        log(f"mesh {tuple(mesh.shape.values())} {cfg.name} ({cfg.num_layers} "
+            f"layers) served {B} x {SERVE_SHAPE[1]} + {n} decode steps fed "
+            f"the one card's tokens: logits max row relative L2 {rel:.3e} "
+            f"(gate {SERVE_REL_L2:g}), max |d| {abs_err:.3e}, within "
+            f"close_16bit {ok16}; argmax near-ties {ties} of {B * (n + 1)}; "
+            f"prefill {got[4]:.3f} s (one card {want[4]:.3f}), decode p50 "
+            f"{med:.2f} ms (one card {sorted(want[5])[n // 2]:.2f}); "
+            f"collectives {kinds}; launches "
+            f"{json.dumps(got[3])}; {time.perf_counter() - t0:.1f} s")
+    dist.barrier()
+    del want, got
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _full_on_mesh(torch, arch, mesh, dev, kc, log, res, rank):
@@ -5835,13 +6036,15 @@ def _full_on_mesh(torch, arch, mesh, dev, kc, log, res, rank):
     torch.cuda.empty_cache()
 
 
-def _rank_calls(torch, mesh, dev, kc, log, res, rank):
+def _rank_calls(torch, meshes, dev, kc, log, res, rank):
     """Phase 21, four cards: every kernel call of one microbatch's forward
     (B = 1 a rank, S = 4096) of each ``RANK_CALLS`` arch at full width on
-    ``mesh`` against its plain version within close_16bit, on every rank;
+    its mesh (of ``meshes``) against its plain version within close_16bit,
+    on every rank;
     rank 0 times layer 0's calls beside the launches of the arch's run
     on the mesh (jamba: the deep train step; mamba2, musicgen: the FULL
-    step against one card).  Returns rank 0's rows."""
+    step against one card; phi4-mini, granite: the (1, 4) serving run).
+    Returns rank 0's rows."""
     import gc
 
     import torch.distributed as dist
@@ -5851,7 +6054,8 @@ def _rank_calls(torch, mesh, dev, kc, log, res, rank):
     from repro_torch.models import model as model_lib
     from repro_torch.models.parallel import Shard
     rows = []
-    for arch, tag, layers, picks in RANK_CALLS:
+    for arch, tag, layers, picks, shape in RANK_CALLS:
+        mesh = meshes[shape]
         cfg = get_config(arch, "full").replace(num_layers=layers)
         params, trainable = _mesh_state(torch, cfg, dev, 31)
         a_params = steps.abstract_params(cfg)
@@ -5861,24 +6065,25 @@ def _rank_calls(torch, mesh, dev, kc, log, res, rank):
             cfg, trainable, mesh), mesh)
         del params, trainable
         gen = torch.Generator(device=dev).manual_seed(92)
-        tok = torch.randint(0, cfg.vocab_size, steps.token_shape(cfg, 2, 4096),
+        B = shape[0]
+        tok = torch.randint(0, cfg.vocab_size, steps.token_shape(cfg, B, 4096),
                             generator=gen, device=dev, dtype=torch.int32)
         tok, lab = (steps.shard_batch(t, mesh) for t in (tok, tok.roll(-1, 1)))
         mask = torch.ones((1, 4096), device=dev)
-        groups = steps.choose_num_groups(cfg, 2, 4096, mesh=mesh)
+        groups = steps.choose_num_groups(cfg, B, 4096, mesh=mesh)
         with torch.no_grad():
             _, calls = _recorded(torch, lambda: model_lib.lm_loss(
                 cfg, p_loc, tok, lab, mask, trainable=t_loc,
                 k=cfg.moe.top_k or None, num_groups=groups,
                 shard=Shard(mesh)))
-        what = f"21{tag} {cfg.name} (2, 2) per rank"
+        what = f"21{tag} {cfg.name} {shape} per rank"
         errs = _mesh_call_checks(torch, cfg, calls, kc, what)
         log(f"{what} ({layers} layers): every kernel call of one "
             f"microbatch's forward (B=1 a rank, S=4096) vs plain, max err "
             f"{json.dumps(errs)}")
         if rank == 0:
             run = (res["deep"][arch]["train_launches"] if arch in res["deep"]
-                   else res["meshes"][f"{arch} (2, 2)"]["launches"])
+                   else res["meshes"][f"{arch} {shape}"]["launches"])
             rows += _mesh_rows(torch, calls, kc, run, what, errs, picks)
         del calls, p_loc, t_loc
         gc.collect()
@@ -5893,7 +6098,10 @@ def _mesh_rank_shape_rows(torch, dev, kc, res):
     versions and timed: flash at qwen3's 32/2 and llama3's 64/4 heads,
     ``lora_matmul`` at qwen3's q (4096 -> 4096) and llama3's FFN w1
     (16384 -> 26624), ``lora_matmul_experts`` at 64 local experts; the
-    router as on one card (it is replicated)."""
+    router as on one card (it is replicated).  Also the shapes of a rank
+    of the production meshes' 16-way model axis, which only the dry run
+    runs: flash at phi4-mini's 2/1 and granite's 3/1 heads, phi4-mini's
+    q from the gathered ``wq`` columns (3072 -> 256)."""
     from repro_torch.kernels import backend, ref
     gen = torch.Generator(device=dev).manual_seed(81)
     t = kc["time_ms"]
@@ -5904,31 +6112,43 @@ def _mesh_rank_shape_rows(torch, dev, kc, res):
         return (torch.randn(shape, generator=gen, device=dev)
                 * scale).to(torch.bfloat16)
 
-    for arch, H, KV in (("qwen3-moe-235b-a22b", 32, 2),
-                        ("llama3-405b", 64, 4)):
-        launches = res["deep"][arch]["train_launches"]
+    # the deep runs' ranks, then a rank of the 16-way model axis, which
+    # only the dry run runs (no launch here): phi4-mini's 2 heads over one
+    # KV head (of 1.5 its own) and granite's 3 over its one
+    for what, H, KV, launches in (
+            ("21 qwen3-moe-235b-a22b (2, 2)", 32, 2,
+             res["deep"]["qwen3-moe-235b-a22b"]["train_launches"][
+                 "flash_attention"]),
+            ("21 llama3-405b (2, 2)", 64, 4,
+             res["deep"]["llama3-405b"]["train_launches"][
+                 "flash_attention"]),
+            ("phi4-mini-3.8b 16-way, dry run only", 2, 1, 0),
+            ("granite-20b 16-way, dry run only", 3, 1, 0)):
         q, k, v = randn(1, S, H, 128), randn(1, S, KV, 128), randn(1, S, KV, 128)
         kw = {"causal": True, "window": 0, "softcap": 0.0}
         err = kc["close"](backend.flash_attention(q, k, v, **kw),
                           ref.flash_attention_ref(
                               q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), **kw).transpose(1, 2),
-                          f"flash {arch} (2, 2)")
+                          f"flash {what}")
         f_ms, f_pl, f_nb, f_fl, f_lib, f_what = _time_flash(
             torch, ("flash_attention", (q, k, v), kw), kc)
         rows.append(_row(
-            f"flash_attention (21 {arch} (2, 2) per rank, B=1, S={S}, H={H}, "
+            f"flash_attention ({what} per rank, B=1, S={S}, H={H}, "
             f"KV={KV}, D=128)", "flash_attention.cu", "flash_attention.py:92",
             err, f_ms, f_pl, bound_ms(f_nb, f_fl, BF16_FLOPS), f_lib,
-            launches["flash_attention"], f_what))
+            launches, f_what))
         del q, k, v
-    for what, M, K, N, arch in (("q per rank", S, 4096, 4096,
-                                 "qwen3-moe-235b-a22b"),
-                                ("w1 per rank", S, 16384, 26624,
-                                 "llama3-405b")):
-        rows += _lora_shape_rows(
-            torch, dev, kc, f"21 {arch} (2, 2)", [(M, K, N, 16, what)],
-            res["deep"][arch]["train_launches"]["lora_matmul"], 82, 2.0)
+    for what, name, K, N, launches in (
+            ("21 qwen3-moe-235b-a22b (2, 2)", "q per rank", 4096, 4096,
+             res["deep"]["qwen3-moe-235b-a22b"]["train_launches"][
+                 "lora_matmul"]),
+            ("21 llama3-405b (2, 2)", "w1 per rank", 16384, 26624,
+             res["deep"]["llama3-405b"]["train_launches"]["lora_matmul"]),
+            ("phi4-mini-3.8b 16-way, dry run only:", "q of 2 heads from the "
+             "gathered columns", 3072, 256, 0)):
+        rows += _lora_shape_rows(torch, dev, kc, what, [(S, K, N, 16, name)],
+                                 launches, 82, 2.0)
     E, C, K, N = 64, 8 * 168, 4096, 1536
     x, w = randn(E, C, K), randn(E, K, N, scale=K ** -0.5)
     a, b = randn(E, K, 16, scale=K ** -0.5), randn(E, 16, N, scale=0.5)
@@ -6104,14 +6324,15 @@ def _act_mode_calls(torch, mesh, dev, kc, log):
     return out
 
 
-def _dry_pairs(memory, deep=None):
+def _dry_pairs(memory, deep=None, row=None):
     """The dry-run pairs of the cards' runs: {tag: spec}, the knob
     chooser's budget ``memory`` as on the cards.  One card (``deep``
     None): phase 21's (1, 1) pairs.  Four (``deep``: {arch: (the depth
-    the workers ran, the act_modes its train step ran in)}): the 2-layer
-    qwen3 on (2, 2) and (1, 4), mamba2 and musicgen FULL on (2, 2), the
-    deep runs' train steps, their prefill and decode step, and one
-    16 x 16 pair."""
+    the workers ran, the act_modes its train step ran in)}; ``row``:
+    {arch: the depth served on (1, 4)}): the 2-layer qwen3 on (2, 2) and
+    (1, 4), mamba2 and musicgen FULL on (2, 2), the (1, 4) serving runs'
+    prefill and decode step, the deep runs' train steps, their prefill
+    and decode step, and one 16 x 16 pair."""
     from repro_torch.configs import get_config
     q = DEEP_ARCHS[0]
 
@@ -6154,6 +6375,14 @@ def _dry_pairs(memory, deep=None):
                                            [2, 2], None, card + ["prefill"])
             pairs[f"{tag} decode"] = pair(arch, ["d", 512, 4, "decode"],
                                           [2, 2], None, card + ["decode"])
+    B, S, n_steps = SERVE_SHAPE
+    for arch, n in row.items():
+        tag = f"(1, 4) {arch} {n} layers"
+        card = ["meshes", f"{arch} (1, 4)"]
+        pairs[f"{tag} prefill"] = pair(arch, ["p", S, B, "prefill"],
+                                       [1, 4], n, card + ["prefill"])
+        pairs[f"{tag} decode"] = pair(arch, ["d", S + n_steps, B, "decode"],
+                                      [1, 4], n, card + ["decode"])
     for arch, (n, modes) in deep.items():
         tag = f"(2, 2) {arch} {n} layers"
         for mode in modes:
@@ -6339,7 +6568,8 @@ def mesh_phase(torch):
             check=True).stdout.strip().splitlines()
         print("mesh phase: four cards visible (" + "; ".join(cards)
               + "): meshes (1, 4), (2, 2), (2, 1, 2) at 2 layers, mamba2 and "
-              "musicgen FULL on (2, 2), then the deepest cuts on (2, 2)")
+              "musicgen FULL on (2, 2), phi4-mini and granite served on (1, "
+              "4), then the deepest cuts on (2, 2)")
         spawn(_mesh_four, 4, str(MESH_DIR), backend="nccl")
         four = json.loads((MESH_DIR / "mesh_four.json").read_text())
         rows += four.pop("rows")
@@ -6348,7 +6578,8 @@ def mesh_phase(torch):
         pairs = _dry_pairs(memory, {
             a: (d["layers"], ACT_MODES if a in DEEP_ARCHS
                 else (d["meta"]["act_mode"],))
-            for a, d in four["deep"].items()})
+            for a, d in four["deep"].items()},
+            {a: four["meshes"][f"{a} (1, 4)"]["layers"] for a in SERVE_ON_ROW})
         _compare_four(_finish_dry(_start_dry(pairs, "four", 4)), pairs, four)
         print(f"22 dry run: {time.perf_counter() - t1:.1f} s after the "
               "cards")

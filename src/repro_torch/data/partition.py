@@ -63,3 +63,12 @@ def dirichlet_partition(corpus: Corpus, num_clients: int, alpha: float,
         shards.append(Corpus(corpus.tokens[sl], corpus.labels[sl],
                              corpus.mask[sl], corpus.clusters[sl]))
     return shards
+
+
+def heterogeneity_stats(shards: List[Corpus]) -> dict:
+    """Per-client sizes and cluster histograms (clients x clusters)."""
+    n_clusters = max(int(s.clusters.max(initial=0)) for s in shards) + 1
+    hists = np.stack([np.bincount(s.clusters, minlength=n_clusters)
+                      for s in shards])
+    return {"sizes": [len(s.tokens) for s in shards],
+            "cluster_hist": hists}

@@ -30,7 +30,8 @@ gradient sum and Adam's two moments), the FSDP gathers of one period
 (``steps._mesh_knobs``) and one microbatch's activations
 (``steps.activation_bytes`` in the mode that runs); for prefill and
 decode the shards of parameters, adapters and cache
-(``sharding.cache_specs``) and one period's gathered weights.
+(``sharding.cache_specs``: a rank's rows and slice of the sequence) and
+one period's gathered weights.
 ``peak_gb`` is their sum: an estimate, not a measurement.
 
 Usage (the CPU; no card, no network):

@@ -210,10 +210,11 @@ def rank_peaks(device) -> list:
 
 def _worker(rank, fn, world, init_method, backend, args):
     init_process(rank, world, init_method, backend)
-    try:
-        fn(rank, world, *args)
-    finally:
-        dist.destroy_process_group()
+    # not in a ``finally``: a rank that raised must exit at once (``spawn``
+    # then stops the others and raises its error); tearing its group down
+    # first would wait on peers blocked in a collective it never joins
+    fn(rank, world, *args)
+    dist.destroy_process_group()
 
 
 def init_process(rank: int, world: int, init_method: str,

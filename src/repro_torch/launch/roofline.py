@@ -21,7 +21,8 @@ the bytes each rank sends in, its kind and its group's ranks.  A call's
 bytes are scaled by NCCL's bus factor for a group of n ranks (the data a
 rank puts on its link in a ring: all-reduce 2(n-1)/n of the buffer,
 all-gather (n-1) times the shard it sends, reduce-scatter (n-1)/n of the
-buffer it reduces) and charged at NVLink's rate when the group's ranks
+buffer it reduces, all-to-all the (n-1)/n of its buffer bound for other
+ranks) and charged at NVLink's rate when the group's ranks
 sit on one node, at the network's when it spans nodes.
 
 Constants (per card), NVIDIA H100 SXM5 data sheet and the HGX H100 /
@@ -58,7 +59,7 @@ def bus_bytes(kind: str, nbytes: float, n: int) -> float:
         return nbytes * 2.0 * (n - 1) / n
     if kind == "all_gather":
         return nbytes * (n - 1)
-    if kind == "reduce_scatter":
+    if kind in ("reduce_scatter", "all_to_all"):
         return nbytes * (n - 1) / n
     raise ValueError(f"unknown collective kind {kind!r}")
 

@@ -239,7 +239,8 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
     prefill_s = time.perf_counter() - t0
     prefill_comm = parallel.comm_stop()
 
-    cache = model_lib.grow_cache(cache, cache_len)
+    cache = shd.grow_cache(cache, pre.specs["cache"], srv.specs["cache"],
+                           model_lib.cache_len_for(cfg, cache_len), mesh)
     nxt = logits.argmax(-1).to(torch.int32)
     toks, step_ms = [nxt], []
     parallel.comm_start()
@@ -277,7 +278,8 @@ def mesh_serve(cfg, mesh, device, *, batch: int, prompt_len: int,
 def serve_fit(cfg, batch: int, cache_len: int, mesh, memory_bytes: int,
               reserve: int = 8 * 2 ** 30) -> int:
     """The most layers, in whole periods, whose shards and decode cache
-    fit one rank beside ``reserve`` bytes."""
+    (its rows and slice of the sequence, ``sharding.cache_specs``) fit one
+    rank beside ``reserve`` bytes."""
     from . import sharding as shd
     from . import steps as steps_lib
     P = cfg.pattern_period

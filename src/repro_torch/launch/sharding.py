@@ -20,9 +20,6 @@ In the port each rank holds its shard (:func:`shard_tree`, or
 :func:`init_sharded_params` / :func:`init_sharded_lora`, which make only
 this rank's shard) and the model's sharded path (``models/parallel.py``)
 runs the collectives itself.
-
-One departure: :func:`cache_specs` holds the decode cache by KV head on
-``model`` (see its docstring).
 """
 from __future__ import annotations
 
@@ -214,19 +211,11 @@ def activation_spec(mesh, mode: str, batch_ok: bool = True) -> Spec:
 # --------------------------------------------------------------------------
 
 def cache_specs(cfg, abstract_cache: PyTree, mesh, batch: int) -> PyTree:
-    """KV cache (np, B, Sc, KV, hd): batch on the batch axes, KV heads on
-    ``model`` where they divide it (else replicated); Mamba conv (np, B,
-    C, W-1): C on model; SSM state (np, B, H, Pd, N): H on model.
-
-    A departure from the reference, which puts the cache's *sequence* on
-    ``model`` (flash-decode style, GSPMD merging the partial softmaxes):
-    on its 16-way model axis the KV heads (4 on qwen3-moe, 8 on llama3)
-    do not divide, so it split the only long dim.  On the port's 2- and
-    4-way model axis they do, and a rank whose cache holds the KV heads of
-    its own query heads (the heads its attention already computes) decodes
-    with no softmax merge and no collective across ranks.  The global
-    cache holds the same values either way; only which rank stores which
-    slice differs."""
+    """KV cache (np, B, Sc, KV, hd): batch on the batch axes, the sequence
+    on ``model`` where it divides (else replicated); Mamba conv (np, B,
+    C, W-1): C on model; SSM state (np, B, H, Pd, N): H on model.  The
+    attention's sharded decode step (``models/attention.py``) merges the
+    ranks' partial softmaxes over the sequence slices."""
     baxes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     bsize = 1
     for a in baxes:
@@ -237,7 +226,7 @@ def cache_specs(cfg, abstract_cache: PyTree, mesh, batch: int) -> PyTree:
         p = _path_str(path)
         s = tuple(leaf.shape)
         if "/attn/" in p or p.endswith("/k") or p.endswith("/v"):
-            return (None, b_ax, None, _maybe("model", s[3], mesh), None)
+            return (None, b_ax, _maybe("model", s[2], mesh), None, None)
         if p.endswith("conv"):
             return (None, b_ax, _maybe("model", s[2], mesh), None)
         if p.endswith("ssm"):
@@ -245,6 +234,32 @@ def cache_specs(cfg, abstract_cache: PyTree, mesh, batch: int) -> PyTree:
         return (None,) * len(s)
 
     return tree_map_with_path(rule, abstract_cache)
+
+
+def grow_cache(cache: PyTree, specs: PyTree, new_specs: PyTree, depth: int,
+               mesh) -> PyTree:
+    """This rank's shard of a decode cache with its attention leaves
+    zero-padded to ``depth`` columns where shallower (``model.grow_cache``
+    of the whole cache): ``cache`` is laid out by ``specs`` (a prefill's
+    ``cache_specs``), the result by ``new_specs`` (the decode step's).
+    Each attention leaf's sequence is gathered over ``model`` one period at
+    a time, padded, and this rank's new slice taken; Mamba state is as it
+    was."""
+    def grow(t, spec, new_spec):
+        out = []
+        for i in range(t.shape[0]):
+            whole = gather_leaf(t[i], (None,) + tuple(spec[2:]), mesh)
+            if depth > whole.shape[1]:
+                whole = torch.cat([whole, whole.new_zeros(
+                    (whole.shape[0], depth - whole.shape[1])
+                    + whole.shape[2:])], dim=1)
+            out.append(shard_leaf(whole, (None,) + tuple(new_spec[2:]),
+                                  mesh))
+        return torch.stack(out)
+
+    return {key: c if "attn" not in c else {"attn": {
+        name: grow(t, specs[key]["attn"][name], new_specs[key]["attn"][name])
+        for name, t in c["attn"].items()}} for key, c in cache.items()}
 
 
 # --------------------------------------------------------------------------

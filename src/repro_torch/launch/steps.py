@@ -604,10 +604,11 @@ def _mesh_specs(cfg, shape, mesh, a_params, a_train, a_cache):
             "batch": shd.batch_spec(shape.global_batch, mesh, 1)}
 
 
-def _shard_for(mesh, batch: int):
+def _shard_for(mesh, batch: int, cache_len: Optional[int] = None):
     if mesh is None:
         return None
-    return Shard(mesh, batch_sharded=batch % _data_size(mesh) == 0)
+    return Shard(mesh, batch_sharded=batch % _data_size(mesh) == 0,
+                 cache_len=cache_len)
 
 
 def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *,
@@ -615,8 +616,9 @@ def build_prefill(cfg: ModelConfig, shape: ShapeConfig, *,
                   num_groups: Optional[int] = None, mesh=None) -> StepBundle:
     """fn(params, trainable, tokens) -> (last logits (B, 1, V), cache).
     On the ``mesh``: this rank's shards and rows (:func:`shard_batch`), the
-    logits whole, the cache this rank's rows and KV heads
-    (``sharding.cache_specs``, in ``specs["cache"]``)."""
+    logits whole, the cache this rank's rows and slice of the sequence,
+    every KV head (``sharding.cache_specs``, in ``specs["cache"]``;
+    ``sharding.grow_cache`` deepens it for :func:`build_serve`)."""
     k = k if k is not None else (cfg.moe.top_k or None)
     num_groups = (num_groups if num_groups is not None else
                   choose_num_groups(cfg, shape.global_batch, shape.seq_len,
@@ -646,9 +648,12 @@ def build_serve(cfg: ModelConfig, shape: ShapeConfig, *,
                 k: Optional[int] = None, mesh=None) -> StepBundle:
     """ONE new token with a ``seq_len``-deep cache: fn(params, trainable,
     cache, tokens (B, 1), pos) -> (logits (B, 1, V), cache), the cache
-    written in place.  On the ``mesh``: as :func:`build_prefill`'s."""
+    written in place.  On the ``mesh``: as :func:`build_prefill`'s; each
+    rank attends its slice of the cache and the ranks' partial softmaxes
+    are merged over ``model``."""
     k = k if k is not None else (cfg.moe.top_k or None)
-    shard = _shard_for(mesh, shape.global_batch)
+    shard = _shard_for(mesh, shape.global_batch,
+                       model_lib.cache_len_for(cfg, shape.seq_len))
 
     def step(params, trainable, cache, tokens, pos):
         return model_lib.decode_step(cfg, params, cache, tokens, pos,

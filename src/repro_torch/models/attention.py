@@ -41,6 +41,13 @@ take it as the reference's do.
 The suffix branch refuses a ring, as the reference's pools do (a
 ``BlockPool`` with a prefix cache needs a linear cache): it raises
 ``NotImplementedError``.
+
+On the card mesh (``shard``) the rules split ``wq``'s columns and ``wo``'s
+rows contiguously over ``model`` (:func:`kv_layout`: a rank computes the
+heads that overlap its columns, 1.5 heads a rank where 24 meet 16 ways)
+and the decode cache's sequence (``launch/sharding.cache_specs``): the
+one-token step merges every rank's partial softmax over its slice
+(:func:`decode_attention_partial`, :func:`merge_partial`).
 """
 from __future__ import annotations
 
@@ -57,6 +64,27 @@ NEG_INF = -1e30
 _F32 = torch.float32
 
 
+def _decode_scores(q: torch.Tensor, k_cache: torch.Tensor, pos, *, lo: int,
+                   Sc: int, window: int, logit_softcap: float):
+    """One-token scores (B, KV, rep, Sc') of q (B,1,H,D) against cache
+    slots ``lo .. lo + Sc'`` of an Sc-deep cache, masked to ``NEG_INF``
+    where invalid, and the validity (B, Sc')."""
+    B, Scl, KV, D = k_cache.shape
+    H = q.shape[2]
+    qh = q.reshape(B, KV, H // KV, D)
+    s = torch.einsum("bkrd,bskd->bkrs", qh.to(_F32),
+                     k_cache.to(_F32)) * D ** -0.5
+    s = softcap(s, logit_softcap)
+    idx = torch.arange(lo, lo + Scl, device=q.device)
+    posb = torch.as_tensor(pos, device=q.device).expand(B)
+    if window > 0:
+        valid = idx[None, :] < torch.clamp(posb + 1, max=Sc)[:, None]
+    else:
+        valid = idx[None, :] <= posb[:, None]
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    return s, valid
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: torch.Tensor, *,
                      window: int = 0,
@@ -67,22 +95,44 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     written slot is."""
     B, Sc, KV, D = k_cache.shape
     H = q.shape[2]
-    rep = H // KV
-    scale = D ** -0.5
-    qh = q.reshape(B, KV, rep, D)
-    s = torch.einsum("bkrd,bskd->bkrs", qh.to(_F32),
-                     k_cache.to(_F32)) * scale
-    s = softcap(s, logit_softcap)
-    idx = torch.arange(Sc, device=q.device)
-    posb = torch.as_tensor(pos, device=q.device).expand(B)
-    if window > 0:
-        valid = idx[None, :] < torch.clamp(posb + 1, max=Sc)[:, None]
-    else:
-        valid = idx[None, :] <= posb[:, None]
-    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    s, _ = _decode_scores(q, k_cache, pos, lo=0, Sc=Sc, window=window,
+                          logit_softcap=logit_softcap)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(_F32))
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def decode_attention_partial(q: torch.Tensor, k_cache: torch.Tensor,
+                             v_cache: torch.Tensor, pos, *, lo: int, Sc: int,
+                             window: int = 0, logit_softcap: float = 0.0):
+    """:func:`decode_attention` over one slice of an Sc-deep cache, the
+    slots ``lo .. lo + Sc'`` that ``k_cache``/``v_cache`` (B,Sc',KV,D)
+    hold, unnormalised, in fp32: the running max m (B,H), the sum of
+    exponentials l (B,H) and the weighted sum of values o (B,H,D).  A
+    slice with no valid slot gives m = ``NEG_INF``, l = 0, o = 0, so it
+    adds nothing to :func:`merge_partial`."""
+    B, Scl, KV, D = k_cache.shape
+    H = q.shape[2]
+    s, valid = _decode_scores(q, k_cache, pos, lo=lo, Sc=Sc, window=window,
+                              logit_softcap=logit_softcap)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None]) * valid[:, None, None, :]
+    o = torch.einsum("bkrs,bskd->bkrd", p, v_cache.to(_F32))
+    return m.reshape(B, H), p.sum(-1).reshape(B, H), o.reshape(B, H, D)
+
+
+def merge_partial(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                  group) -> torch.Tensor:
+    """The softmax-weighted output (B,H,D) fp32 from every rank of
+    ``group``'s :func:`decode_attention_partial` over its slice: one
+    all-gather of the packed (m, l, o), then each slice rescaled by
+    e^(m_r - max m) and summed."""
+    packed = torch.cat([m[..., None], l[..., None], o], dim=-1)
+    parts = parallel.gather_frozen(packed[None], group, 0)
+    m_r, l_r, o_r = parts[..., 0], parts[..., 1], parts[..., 2:]
+    w = torch.exp(m_r - m_r.amax(dim=0))
+    return ((w[..., None] * o_r).sum(0)
+            / (w * l_r).sum(0)[..., None])
 
 
 def draft_attention(q: torch.Tensor, k_win: torch.Tensor,
@@ -271,51 +321,90 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     """q, k, v (B,S,H|KV,hd) of ``x``: the projections (with adapters),
     qk-norm and RoPE at ``positions``."""
     B, S, _ = x.shape
-    hd = cfg.head_dim_
     q = lora_dense(x, p["wq"], lg.get("wq"), lora_scale)
     k = lora_dense(x, p["wk"], lg.get("wk"), lora_scale)
     v = lora_dense(x, p["wv"], lg.get("wv"), lora_scale)
-    q = q.reshape(B, S, cfg.n_heads, hd)
-    k = k.reshape(B, S, cfg.n_kv_heads, hd)
-    v = v.reshape(B, S, cfg.n_kv_heads, hd)
-    if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.rms_eps)
-        k = rms_norm(p["k_norm"], k, cfg.rms_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    return (_heads(q, cfg.n_heads, p.get("q_norm"), cfg, positions),
+            _heads(k, cfg.n_kv_heads, p.get("k_norm"), cfg, positions),
+            v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim_))
 
 
 def kv_layout(cfg, sh) -> tuple:
-    """On the mesh: (local q heads, the first and the number of KV heads
-    they read, whether K/V are split by head over ``model``).  With the KV
-    heads dividing the model axis each rank projects and caches its own
-    (KV/M of them); otherwise every rank projects all KV heads (their
-    columns gathered where the rule split them mid-head) and its query
-    heads read a slice."""
-    H, KV, M = cfg.n_heads, cfg.n_kv_heads, sh.M
-    if H % M:
-        raise NotImplementedError(f"{cfg.name}: {H} query heads do not divide "
-                                  f"a {M}-way model axis")
-    Hl, rep = H // M, H // KV
-    if KV % M == 0:
-        return Hl, sh.mi * (KV // M), KV // M, True
-    if Hl % rep and rep % Hl:
-        raise NotImplementedError(f"{cfg.name}: {Hl} query heads a rank do "
-                                  f"not align with groups of {rep}")
-    return Hl, sh.mi * Hl // rep, max(Hl // rep, 1), False
+    """On the mesh: this rank's query heads and how it reads K/V, as (h0,
+    nh, off, kv_split).  The reference's rules split ``wq``'s columns and
+    ``wo``'s rows contiguously over ``model``: rank r owns columns [r·C,
+    (r+1)·C) of the attention output, C = H·hd / M.  It computes attention
+    for the ``nh`` heads from ``h0`` that overlap them and keeps columns
+    ``off .. off + C`` of their output.  Where the heads divide the model
+    axis those are its own H/M heads (``off`` 0, its ``wq`` shard);
+    otherwise (phi4-mini's 24 heads on 16 ways: 192 columns, 1.5 heads)
+    at most ⌈H/M⌉ + 1 heads, from ``wq``'s columns gathered over
+    ``model``.  ``kv_split``: the KV heads divide the model axis, so each
+    rank projects its own KV/M (the only ones its query heads read);
+    otherwise every rank projects all KV heads."""
+    H, KV, M, hd = cfg.n_heads, cfg.n_kv_heads, sh.M, cfg.head_dim_
+    if (H * hd) % M:
+        raise NotImplementedError(f"{cfg.name}: {H * hd} query columns do "
+                                  f"not divide a {M}-way model axis")
+    C = H * hd // M
+    c0 = sh.mi * C
+    h0 = c0 // hd
+    nh = -(-(c0 + C) // hd) - h0
+    return h0, nh, c0 - h0 * hd, KV % M == 0
+
+
+def _local_kv(t: torch.Tensor, cfg, sh) -> torch.Tensor:
+    """The K or V heads this rank's query heads read, in the layout the
+    flash kernel and :func:`decode_attention` take (local query head i
+    reads head i // (nh / nkv)), of ``t`` (..., KV', hd) holding all KV
+    heads or (``kv_layout``'s kv_split) this rank's own.  Where the local
+    heads do not map so onto a run of KV heads (they start or end
+    mid-group), one KV head per query head."""
+    KV = cfg.n_kv_heads
+    if t.shape[-2] != KV:
+        return t
+    h0, nh, _, _ = kv_layout(cfg, sh)
+    rep = cfg.n_heads // KV
+    kv = [h // rep for h in range(h0, h0 + nh)]
+    n = kv[-1] - kv[0] + 1
+    if nh % n == 0 and all(g - kv[0] == i // (nh // n)
+                           for i, g in enumerate(kv)):
+        return t.narrow(-2, kv[0], n)
+    return t.index_select(-2, torch.tensor(kv, device=t.device))
+
+
+def _heads(t: torch.Tensor, n: int, norm, cfg, positions) -> torch.Tensor:
+    """(B, S, n·hd) projections as (B, S, n, hd) heads, qk-normed and
+    RoPE'd at ``positions``."""
+    t = t.reshape(t.shape[0], t.shape[1], n, cfg.head_dim_)
+    if cfg.qk_norm:
+        t = rms_norm(norm, t, cfg.rms_eps)
+    return apply_rope(t, positions, cfg.rope_theta)
 
 
 def _project_qkv_sharded(p: dict, cfg, x: torch.Tensor,
                          positions: torch.Tensor, lg: dict,
                          lora_scale: float, sh):
-    """:func:`_project_qkv` on the mesh: this rank's query heads and K/V
-    heads (all of them where they do not divide the model axis, see
-    :func:`kv_layout`), from column-split ``wq``/``wk``/``wv``."""
-    B, S, _ = x.shape
+    """:func:`_project_qkv` on the mesh for prefill and training: the
+    query heads of :func:`kv_layout` (``wq``'s columns and the adapter's
+    ``b`` gathered over ``model`` where they do not divide it) and this
+    rank's K/V heads (all of them where they do not divide the model
+    axis), from column-split ``wq``/``wk``/``wv``."""
     hd = cfg.head_dim_
-    Hl, _, _, kv_split = kv_layout(cfg, sh)
+    h0, nh, _, kv_split = kv_layout(cfg, sh)
     xc = parallel.copy_to(x, sh.model)
-    q = col_dense(xc, p["wq"], lg.get("wq"), lora_scale, sh)
+    w, lp = p["wq"], lg.get("wq")
+    if w.shape[-1] != nh * hd:
+        # uneven heads: the rank's heads from the gathered columns (b's
+        # gradient partial on each rank, as for K/V below)
+        w = parallel.gather_frozen(w, sh.model, w.dim() - 1).narrow(
+            -1, h0 * hd, nh * hd)
+        if lp is not None:
+            lp = {"a": lp["a"],
+                  "b": parallel.gather(lp["b"], sh.model,
+                                       lp["b"].dim() - 1).narrow(
+                      -1, h0 * hd, nh * hd)}
+    q = col_dense(xc, w, lp, lora_scale, sh)
     kv = []
     for name in ("wk", "wv"):
         w, lp = p[name], lg.get(name)
@@ -335,21 +424,103 @@ def _project_qkv_sharded(p: dict, cfg, x: torch.Tensor,
             lp = {"a": lp["a"], "b": parallel.copy_to(lp["b"], sh.model)}
         kv.append(col_dense(xc, w, lp, lora_scale, sh))
     k, v = kv
-    q = q.reshape(B, S, Hl, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
-    if cfg.qk_norm:
-        q = rms_norm(p["q_norm"], q, cfg.rms_eps)
-        k = rms_norm(p["k_norm"], k, cfg.rms_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    return (_heads(q, nh, p.get("q_norm"), cfg, positions),
+            _heads(k, k.shape[-1] // hd, p.get("k_norm"), cfg, positions),
+            v.reshape(v.shape[0], v.shape[1], -1, hd))
 
 
-def _local_kv(t: torch.Tensor, cfg, sh) -> torch.Tensor:
-    """The KV heads this rank's query heads read, of ``t`` (..., KV', hd)
-    holding all KV heads or this rank's own."""
-    _, kv0, nkv, kv_split = kv_layout(cfg, sh)
-    return t if kv_split else t.narrow(-2, kv0, nkv)
+def _own_columns(out: torch.Tensor, off: int, cfg, sh) -> torch.Tensor:
+    """Columns ``off .. off + H·hd/M`` of an attention output (B, S, n·hd):
+    this rank's rows of ``wo``."""
+    C = cfg.n_heads * cfg.head_dim_ // sh.M
+    return out if out.shape[-1] == C else out.narrow(-1, off, C)
+
+
+def _cache_piece(t: torch.Tensor, cfg, sh, window: int) -> torch.Tensor:
+    """This rank's slice of a prefill's K or V cache (``t``: (B,S,KV',hd),
+    all KV heads or this rank's own): :func:`_ring_piece`'s Sc columns
+    split over ``model`` where they divide it (``sharding.cache_specs``),
+    every KV head; whole on every rank where they do not.  Own heads are
+    redistributed: an all-to-all of the sequence slices (or, for a whole
+    cache, an all-gather of the heads)."""
+    t = _ring_piece(t, window)
+    if sh.model is None:
+        return t
+    M = sh.M
+    B, Sc, KVl, hd = t.shape
+    own = KVl != cfg.n_kv_heads
+    if Sc % M:
+        return parallel.gather_frozen(t, sh.model, 2) if own else t
+    Scl = Sc // M
+    if not own:
+        return t.narrow(1, sh.mi * Scl, Scl)
+    blocks = t.reshape(B, M, Scl, KVl, hd).movedim(1, 0)
+    got = parallel.all_to_all(blocks, sh.model)
+    return got.permute(1, 2, 0, 3, 4).reshape(B, Scl, M * KVl, hd)
+
+
+def _decode_sharded(p: dict, cfg, x: torch.Tensor, positions, lg: dict,
+                    lora_scale: float, cache: dict, cache_pos, sh):
+    """The one-token decode step on the mesh, out (B, 1, C): this rank's
+    columns of the attention output.  Every rank projects its columns of
+    q, k and v and gathers them over ``model`` (B·(H + 2·KV)·hd), so it
+    holds every head of the new token.  On a cache whose depth the model
+    axis splits (``sharding.cache_specs``), rank r holds slots [r·Sc/M,
+    (r+1)·Sc/M) of every KV head: it writes the rows whose slot (``pos``,
+    ``pos % Sc`` on a ring) falls there, computes every query head's
+    partial softmax over its slots (:func:`decode_attention_partial`) and
+    merges them over ``model`` (:func:`merge_partial`).  On a whole cache
+    it writes every row and attends with its :func:`kv_layout` heads."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    window, cap = cfg.attention_window, cfg.attn_logit_softcap
+    h0, nh, off, _ = kv_layout(cfg, sh)
+
+    def whole(name, n):
+        t = col_dense(x, p[name], lg.get(name), lora_scale, sh)
+        if parallel.split_dim(n * hd, t.shape[-1], sh.M, name):
+            t = parallel.gather_frozen(t, sh.model, t.dim() - 1)
+        return t
+    q = _heads(whole("wq", H), H, p.get("q_norm"), cfg, positions)
+    k = _heads(whole("wk", KV), KV, p.get("k_norm"), cfg, positions)
+    v = whole("wv", KV).reshape(B, 1, KV, hd)
+    if sh.model is not None and sh.cache_len is None:
+        raise ValueError("a sharded decode step needs the cache's depth "
+                         "(Shard.cache_len)")
+    Scl = cache["k"].shape[1]
+    split = sh.model is not None and sh.cache_len % sh.M == 0
+    Sc, lo = (sh.cache_len, sh.mi * Scl) if split else (Scl, 0)
+    _slice_write(cache, k, v, cache_pos, lo=lo, Sc=Sc, window=window)
+    if not split:
+        out = decode_attention(q.narrow(2, h0, nh),
+                               _local_kv(cache["k"], cfg, sh),
+                               _local_kv(cache["v"], cfg, sh), cache_pos,
+                               window=window, logit_softcap=cap)
+        return _own_columns(out.reshape(B, 1, nh * hd), off, cfg, sh)
+    m, l, o = decode_attention_partial(q, cache["k"], cache["v"], cache_pos,
+                                       lo=lo, Sc=Sc, window=window,
+                                       logit_softcap=cap)
+    out = merge_partial(m, l, o, sh.model).to(q.dtype)
+    return _own_columns(out.reshape(B, 1, H * hd), sh.mi * H * hd // sh.M,
+                        cfg, sh)
+
+
+def _slice_write(cache: dict, k: torch.Tensor, v: torch.Tensor, cache_pos,
+                 *, lo: int, Sc: int, window: int) -> None:
+    """The one-token write into this rank's slots ``lo .. lo + Sc'`` of an
+    Sc-deep cache, in place: a row writes only where its slot (``pos``,
+    ``pos % Sc`` on a ring) falls in them."""
+    B = k.shape[0]
+    dev = cache["k"].device
+    Scl = cache["k"].shape[1]
+    cp = torch.as_tensor(cache_pos, device=dev).expand(B).long()
+    col = (cp % Sc if window > 0 else cp) - lo
+    mine = ((col >= 0) & (col < Scl))[:, None, None]
+    col = col.clamp(0, Scl - 1)
+    rows = torch.arange(B, device=dev)
+    for leaf, t in (("k", k), ("v", v)):
+        c = cache[leaf]
+        c[rows, col] = torch.where(mine, t[:, 0].to(c.dtype), c[rows, col])
 
 
 def _apply_attention_sharded(p: dict, cfg, x: torch.Tensor,
@@ -357,9 +528,9 @@ def _apply_attention_sharded(p: dict, cfg, x: torch.Tensor,
                              cache, cache_pos, return_cache, block_table,
                              suffix_readonly, sh):
     """:func:`apply_attention` on the mesh: prefill / training (flash over
-    this rank's heads) and the slotted one-token decode step (the cache
-    holds this rank's KV heads, or all of them where they do not divide
-    the model axis); ``wo`` row-split, its output all-reduced."""
+    :func:`kv_layout`'s heads, the returned cache this rank's slice,
+    :func:`_cache_piece`) and the slotted one-token decode step
+    (:func:`_decode_sharded`); ``wo`` row-split, its output all-reduced."""
     B, S, D = x.shape
     lg = lora or {}
     if block_table is not None or suffix_readonly or (cache is not None
@@ -368,24 +539,22 @@ def _apply_attention_sharded(p: dict, cfg, x: torch.Tensor,
                                   "slotted decode step; the paged pool, "
                                   "suffix prefill and speculative verify "
                                   "stay single-card")
+    if cache is not None:
+        out = _decode_sharded(p, cfg, x, positions, lg, lora_scale, cache,
+                              cache_pos, sh)
+        return row_dense(out, p["wo"], lg.get("wo"), lora_scale, sh,
+                         D), cache
     q, k, v = _project_qkv_sharded(p, cfg, x, positions, lg, lora_scale, sh)
     window = cfg.attention_window
-    cap = cfg.attn_logit_softcap
+    _, nh, off, _ = kv_layout(cfg, sh)
+    out = kernel_backend.flash_attention(
+        q, _local_kv(k, cfg, sh), _local_kv(v, cfg, sh), causal=True,
+        window=window, softcap=cfg.attn_logit_softcap)
+    out = _own_columns(out.reshape(B, S, nh * cfg.head_dim_), off, cfg, sh)
     new_cache = None
-    if cache is None:
-        out = kernel_backend.flash_attention(
-            q, _local_kv(k, cfg, sh), _local_kv(v, cfg, sh), causal=True,
-            window=window, softcap=cap)
-        if return_cache:
-            new_cache = {"k": _ring_piece(k, window),
-                         "v": _ring_piece(v, window)}
-    else:
-        _slotted_write(cache, k, v, cache_pos, window=window)
-        out = decode_attention(q, _local_kv(cache["k"], cfg, sh),
-                               _local_kv(cache["v"], cfg, sh), cache_pos,
-                               window=window, logit_softcap=cap)
-        new_cache = cache
-    out = out.reshape(B, S, -1)
+    if return_cache:
+        new_cache = {"k": _cache_piece(k, cfg, sh, window),
+                     "v": _cache_piece(v, cfg, sh, window)}
     return row_dense(out, p["wo"], lg.get("wo"), lora_scale, sh,
                      D), new_cache
 

@@ -576,8 +576,10 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     in the model's dtype and ``ssm`` in fp32 (n_periods, B, ...).
     ``num_groups``: the one-hot dispatch modes' routing groups
     (:func:`moe_layer.apply_moe`).  On the mesh (``shard``): this rank's
-    rows and KV heads of the cache (``launch/sharding.cache_specs``), the
-    logits whole."""
+    rows and slice of the sequence of the cache, every KV head
+    (``launch/sharding.cache_specs``; ``cache_len`` is not taken there:
+    ``launch/sharding.grow_cache`` deepens a sharded cache), the logits
+    whole."""
     B, S = tokens.shape[:2]
     positions = torch.arange(S, device=tokens.device)
     x = embed_tokens(params, cfg, tokens, shard)
@@ -585,10 +587,13 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
                            k=k, return_cache=True, slot_mask=slot_mask,
                            dispatch=dispatch, num_groups=num_groups,
                            shard=shard)
-    cache = grow_cache({key: _stacked(per, "ssm" if "ssm" in per[0]
-                                      else "attn")
-                        for key, per in new.items()},
-                       cache_len_for(cfg, cache_len or S))
+    cache = {key: _stacked(per, "ssm" if "ssm" in per[0] else "attn")
+             for key, per in new.items()}
+    if shard is None:
+        cache = grow_cache(cache, cache_len_for(cfg, cache_len or S))
+    elif cache_len is not None:
+        raise ValueError("on the mesh the prefill's cache is S deep: "
+                         "launch/sharding.grow_cache deepens it")
     h = rms_norm(params["final_norm"], h[:, -1:], cfg.rms_eps)
     return lm_head(params, cfg, h, shard), cache
 
@@ -653,7 +658,8 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
     rows are per slot in both.  The cache is written in place.  ``k``:
     int or per-slot tuple; ``slot_mask``: (B,) 0/1 rows in use.  Returns
     (logits (B,S,V), cache) [+ counts {pos{j}: (n_periods, E)}].  On the
-    mesh (``shard``): the slotted cache's rows and KV heads of this rank
+    mesh (``shard``, its ``cache_len`` the cache's global depth): the
+    slotted cache's rows and slice of the sequence of this rank
     (``launch/sharding.cache_specs``), a static ``k``, one-hot dispatch."""
     x = embed_tokens(params, cfg, tokens, shard)
     B, S = x.shape[0], x.shape[1]

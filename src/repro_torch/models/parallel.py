@@ -28,9 +28,11 @@ gathers, each a no-op on an axis of one rank:
     identical copies of such a gradient.
 
 Frozen weights are gathered outside autograd (:func:`gather_frozen`):
-they carry no gradient.  Collectives use ``all_reduce``,
-``all_gather_into_tensor`` and ``reduce_scatter_tensor``, on NCCL on the
-cards and on gloo in the CPU tests; none sits inside a kernel.
+they carry no gradient; so is a prefill's cache redistributed
+(:func:`all_to_all`).  Collectives use ``all_reduce``,
+``all_gather_into_tensor``, ``reduce_scatter_tensor`` and
+``all_to_all_single``, on NCCL on the cards and on gloo in the CPU tests;
+none sits inside a kernel.
 
 :func:`comm_start` / :func:`comm_stop` count every collective of this
 module between them: calls, bytes (the tensor each rank sends in) and
@@ -59,13 +61,17 @@ ACT_MODES = ("batch", "dmodel", "sp")
 class Shard:
     """What the sharded model needs of the mesh: the groups and sizes of
     its axes, whether this step's batch is split over the batch axes (a
-    batch that does not divide them is replicated), and how the residual
+    batch that does not divide them is replicated), how the residual
     stream is held between checkpointed periods (``act_mode``, one of
     :data:`ACT_MODES`: whole on every ``model`` rank, or this rank's
-    slice of D or of S)."""
+    slice of D or of S) and, for a decode step, the global depth of the
+    cache it is handed (``cache_len``: ``sharding.cache_specs`` splits
+    that depth over ``model`` where it divides, so a rank's slice alone
+    does not tell)."""
     mesh: Any
     batch_sharded: bool = True
     act_mode: str = "batch"
+    cache_len: Optional[int] = None
 
     def __post_init__(self):
         if self.act_mode not in ACT_MODES:
@@ -309,6 +315,20 @@ def gather_from(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     if group is None:
         return x
     return _GatherFrom.apply(x, group, dim)
+
+
+@torch.no_grad()
+def all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Block ``j`` of ``x``'s dim 0 (``x.shape[0]`` = the group's size)
+    sent to rank ``j`` of ``group``; block ``j`` of the result is what rank
+    ``j`` sent this rank (no autograd)."""
+    if group is None:
+        return x
+    x = x.detach().contiguous()
+    out = torch.empty_like(x)
+    _run("all_to_all", x, lambda: dist.all_to_all_single(out, x,
+                                                         group=group), group)
+    return out
 
 
 @torch.no_grad()

@@ -15,7 +15,8 @@ on an axis is counted once.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Optional, Tuple
+import math
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,3 +108,25 @@ def _map_triples(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_triples(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+# --------------------------------------------------------------------------
+# LR schedules
+# --------------------------------------------------------------------------
+
+def cosine_schedule(base_lr: float, warmup: int, total: int
+                    ) -> Callable[[Any], torch.Tensor]:
+    """fn(step) -> the fp32 learning rate: linear warmup to ``base_lr``
+    over ``warmup`` steps, then a half cosine to 0 at ``total``.  ``step``
+    is an int or a tensor."""
+    def fn(step):
+        step = torch.as_tensor(step).to(_F32)
+        warm = base_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0, 1)
+        cos = base_lr * 0.5 * (1 + torch.cos(math.pi * frac))
+        return torch.where(step < warmup, warm, cos)
+    return fn
+
+
+def constant_schedule(base_lr: float) -> Callable[[Any], torch.Tensor]:
+    return lambda step: torch.tensor(base_lr, dtype=_F32)

@@ -134,25 +134,61 @@ def test_mesh_helpers_and_knobs_follow_the_reference():
                     jsteps.choose_num_groups(jcfg, B, S, m), (name, B, S)
 
 
-def test_cache_specs_hold_kv_heads_on_model():
-    """The port's departure: K/V by head on ``model`` where the heads
-    divide it (4 on qwen3-moe, 8 on llama3 at model = 4), else
-    replicated; the batch as the reference's."""
-    m = stub("2x2")
-    for arch, kv in (("qwen3-moe-235b-a22b", 4), ("llama3-405b", 8)):
+@functools.lru_cache(maxsize=None)
+def _caches(arch, batch, depth):
+    jcfg = jreg.get_config(arch, "full")
+    tcfg = tconfigs.get_config(arch, "full")
+    return (jcfg, jspecs.abstract_cache(jcfg, batch, depth), tcfg,
+            tsteps.abstract_cache(tcfg, batch, depth))
+
+
+@pytest.mark.parametrize("batch", [256, 32, 1])
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", jreg.list_archs())
+def test_cache_specs_equal_the_reference(arch, mesh, batch):
+    """The reference's rule: K/V's sequence on ``model`` where it divides
+    (a 30-deep cache stays whole on 4 and 16 ways), the batch on the batch
+    axes where it divides; Mamba state by channel and head."""
+    m = stub(mesh)
+    for depth in (32768, 30):
+        jcfg, jc, tcfg, tc = _caches(arch, batch, depth)
+        want = _jflat(jshd.cache_specs(jcfg, jc, m, batch))
+        assert _tflat(tshd.cache_specs(tcfg, tc, m, batch)) == want
+        assert set(want) == set(_tflat(tc))
+
+
+ATTN_ARCHS = [a for a in jreg.list_archs()
+              if tconfigs.get_config(a, "full").n_heads]
+
+
+@pytest.mark.parametrize("ways", [2, 4, 16])
+@pytest.mark.parametrize("arch", ATTN_ARCHS + ["6/2 heads", "10/5 heads"])
+def test_kv_layout_keeps_each_rank_its_columns(arch, ways):
+    """Every rank's heads cover its columns of ``wo`` (the reference's
+    contiguous split of H·hd), at most ceil(H/M) + 1 of them, and each
+    local query head reads its own KV head (h // rep) in the layout the
+    flash kernel takes (local head i reads head i // (nh / nkv))."""
+    from repro_torch.models import attention as tattn
+    if "/" in arch:
+        # 1.5 heads a rank on 4 ways; 2.5 (a rank's heads end mid-group)
+        H, KV = (int(n) for n in arch.split()[0].split("/"))
+        cfg = tconfigs.get_config("phi4-mini-3.8b", "smoke").replace(
+            n_heads=H, n_kv_heads=KV)
+    else:
         cfg = tconfigs.get_config(arch, "full")
-        cache = tsteps.abstract_cache(cfg.replace(num_layers=2), 4, 64)
-        spec = tshd.cache_specs(cfg, cache, m, 4)["pos0"]["attn"]["k"]
-        assert spec == (None, "data", None, "model", None)
-        assert cache["pos0"]["attn"]["k"].shape[3] == kv
-        jspec = jshd.cache_specs(jreg.get_config(arch, "full"), cache, m, 4)
-        # the reference: the batch alike, the sequence on model
-        assert tuple(jspec["pos0"]["attn"]["k"])[:3] == (None, "data",
-                                                         "model")
-    odd = tshd.cache_specs(None, {"pos0": {"attn": {"k": torch.empty(
-        (2, 3, 8, 2, 4), device="meta")}}}, stub("1x4"), 3)
-    # two KV heads do not divide a 4-way model axis: replicated there
-    assert odd["pos0"]["attn"]["k"] == (None, "data", None, None, None)
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    C, rep = H * hd // ways, H // KV
+    labels = torch.arange(KV, dtype=torch.float32)[:, None]
+    for r in range(ways):
+        sh = SimpleNamespace(M=ways, mi=r)
+        h0, nh, off, kv_split = tattn.kv_layout(cfg, sh)
+        assert kv_split == (KV % ways == 0)
+        assert h0 * hd + off == r * C and off + C <= nh * hd
+        assert nh <= -(-H // ways) + 1
+        got = tattn._local_kv(labels, cfg, sh)[:, 0]
+        per = nh // got.shape[0]
+        assert [int(got[i // per]) for i in range(nh)] == [
+            h // rep for h in range(h0, h0 + nh)]
 
 
 class _RankMesh:

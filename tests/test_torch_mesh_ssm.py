@@ -148,7 +148,8 @@ def _run_mesh(cfg, mesh):
         cache, pb.specs["cache"], mesh))
     sb = tsteps.build_serve(cfg, tconfigs.ShapeConfig("d", SD, BP, "decode"),
                             mesh=mesh)
-    cache = tmodel.grow_cache(cache, SD)
+    cache = tshd.grow_cache(cache, pb.specs["cache"], sb.specs["cache"], SD,
+                            mesh)
     nxt = logits.argmax(-1).to(torch.int32)
     dl, cache = sb.fn(p, tr0, cache, nxt, torch.tensor(S, dtype=torch.int32))
     out["serve_logits"] = _rows(dl, mesh)

@@ -35,7 +35,7 @@ from repro_torch.launch import sharding as tshd
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import model as tmodel
 from repro_torch.optim import adam as tadam
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import leaves
 
 ARCHS = ("qwen3-moe-235b-a22b", "llama3-405b")
 WORLDS = {2: (((1, 2), ("data", "model")), ((2, 1), ("data", "model"))),
@@ -79,14 +79,6 @@ def _batches(cfg):
     return tok, np.roll(tok, -1, axis=1), mask, prompt
 
 
-def _pad_cache(cache, depth):
-    def pad(t):
-        out = t.new_zeros(t.shape[:2] + (depth,) + t.shape[3:])
-        out[:, :, :t.shape[2]] = t
-        return out
-    return tree_map(pad, cache)
-
-
 def _rows_spec(mesh, batch):
     return tshd.batch_spec(batch, mesh, 2)
 
@@ -125,7 +117,8 @@ def _run_mesh(cfg, mesh):
     out["prefill_cache"] = tshd.gather_tree(cache, pb.specs["cache"], mesh)
     sb = tsteps.build_serve(cfg, tconfigs.ShapeConfig("d", SD, BP, "decode"),
                             mesh=mesh)
-    cache = _pad_cache(cache, SD)
+    cache = tshd.grow_cache(cache, pb.specs["cache"], sb.specs["cache"], SD,
+                            mesh)
     nxt = logits.argmax(-1).to(torch.int32)
     dl, cache = sb.fn(p, tr0, cache, nxt, torch.tensor(S, dtype=torch.int32))
     out["serve_logits"] = tshd.gather_leaf(dl, rows, mesh)
