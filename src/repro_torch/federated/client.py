@@ -17,6 +17,10 @@ trainable tree, Adam state and step counter, counts and loss — so
 skipping it is the same result.  Running sums stay on the device; the host
 reads them once per client.  :func:`cohort_update` runs a cohort of
 clients on stacked plans (:func:`stack_plans`), one member after another.
+Under the round's tracer a client's update is a span
+``client.local_update`` and each step a ``client.step`` (device markers
+under a ``torch.profiler`` session) holding ``model.lm_loss``,
+``client.backward`` (the ``autograd.grad``) and ``optim.adam``.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from ..configs.base import TrainConfig
 from ..core import lora as lora_lib
 from ..data.synthetic import Corpus, batches
 from ..models import model as model_lib
+from ..obs import trace as obs_trace
 from ..optim import adam
 from ..tree import leaves, tree_map
 
@@ -163,25 +168,33 @@ def _train_step(cfg, params, trainable, opt_state, tokens, labels, mask, *,
                 k: int, tc: TrainConfig, rescaler_trainable: bool):
     """One Adam step on the trainable tree.  Returns (trainable, opt_state,
     loss, counts)."""
-    tr = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
-    flat = list(leaves(tr))
-    loss, counts = model_lib.lm_loss(cfg, params, tokens, labels, mask,
-                                     trainable=tr, k=k)
-    grads_flat = torch.autograd.grad(loss, flat, allow_unused=True)
-    by_id = {id(t): (torch.zeros_like(t) if g is None else g)
-             for t, g in zip(flat, grads_flat)}
-    grads = tree_map(lambda t: by_id[id(t)], tr)
-    if not rescaler_trainable and "rescaler" in grads:
-        # zeroed before clipping, so s_i takes no share of the global norm
-        grads["rescaler"] = tree_map(torch.zeros_like, grads["rescaler"])
-    new_tr, new_opt = adam.update(
-        grads, opt_state, tree_map(torch.Tensor.detach, tr),
-        lr=tc.learning_rate, beta1=tc.beta1, beta2=tc.beta2, eps=tc.eps,
-        weight_decay=tc.weight_decay, grad_clip=tc.grad_clip)
-    counts = {pos: c.detach() for pos, c in counts.items()}
+    tracer = obs_trace.current()
+    with tracer.span("client.step", device=True):
+        tr = tree_map(lambda t: t.detach().requires_grad_(True), trainable)
+        flat = list(leaves(tr))
+        loss, counts = model_lib.lm_loss(cfg, params, tokens, labels, mask,
+                                         trainable=tr, k=k)
+        with tracer.span("client.backward"):
+            grads_flat = torch.autograd.grad(loss, flat, allow_unused=True)
+        by_id = {id(t): (torch.zeros_like(t) if g is None else g)
+                 for t, g in zip(flat, grads_flat)}
+        grads = tree_map(lambda t: by_id[id(t)], tr)
+        if not rescaler_trainable and "rescaler" in grads:
+            # zeroed before clipping, so s_i takes no share of the global
+            # norm
+            grads["rescaler"] = tree_map(torch.zeros_like,
+                                         grads["rescaler"])
+        with tracer.span("optim.adam"):
+            new_tr, new_opt = adam.update(
+                grads, opt_state, tree_map(torch.Tensor.detach, tr),
+                lr=tc.learning_rate, beta1=tc.beta1, beta2=tc.beta2,
+                eps=tc.eps, weight_decay=tc.weight_decay,
+                grad_clip=tc.grad_clip)
+        counts = {pos: c.detach() for pos, c in counts.items()}
     return new_tr, new_opt, loss.detach(), counts
 
 
+@obs_trace.traced("client.local_update")
 def local_update(cfg, params: PyTree, trainable: PyTree, tokens, labels,
                  mask, valid, *, k: int, tc: TrainConfig,
                  rescaler_trainable: bool):

@@ -48,10 +48,23 @@ Round drivers (``fed.round_driver``):
 round spans on the federated track: ``round N`` enclosing ``distribute``
 → ``local_train`` (looped) or ``cohort_update`` (batched) per client or
 cohort, then ``aggregate``; ``run(trace_to=...)`` writes them as Chrome
-trace-event JSON.  The spans read the host clock and add no device sync.
-On the device driver each ``round N`` span is the segment's wall clock
-amortised evenly over its rounds (``args``: ``driver: "device"``,
-``amortized: True``), as the reference's.
+trace-event JSON.  The spans read the tracer's clock (``time.time_ns``,
+the clock ``torch.profiler`` stamps with) and add no device sync.  The
+port adds its layer spans beneath them: per cohort
+``agg.flame_acc_update`` and ``server.readback`` (the cohort's losses and
+frequencies brought to the host: the round's waits), and the client
+step's spans (:mod:`.client`); ``round N`` and its descendants carry
+``round``, ``local_train`` its ``client``, ``cohort_update`` its
+``clients``.  On the device driver each ``round N`` span is the
+segment's wall clock amortised evenly over its rounds (``args``:
+``driver: "device"``, ``amortized: True``), as the reference's; the
+segment's work is a ``segment`` span on track (3, 1).  With
+``tracer=None`` the tracer is resolved at each round (or segment) by
+:func:`repro_torch.obs.trace.active`: while a ``torch.profiler`` session
+records, the process's session tracer, under which ``distribute``,
+``agg.*`` and ``aggregate`` also take their device time from CUDA event
+markers (``dev_ms``, read when the session is read) and the host syncs
+are counted; else none.
 """
 from __future__ import annotations
 
@@ -65,6 +78,7 @@ from ..checkpoint import io as ckpt_io
 from ..configs.base import FederatedConfig, TrainConfig
 from ..core import aggregation as agg
 from ..core import lora as lora_lib
+from ..obs import trace as obs_trace
 from ..obs.expert_load import ActivationDriftTracker
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import NULL_TRACER, PID_FEDERATED, Tracer
@@ -120,10 +134,17 @@ class FederatedServer:
         self._set_tracer(tracer)
 
     def _set_tracer(self, tracer: Optional[Tracer]) -> None:
+        self._tracer_arg = tracer
         self._tracer = tracer if tracer is not None else NULL_TRACER
-        if self._tracer.enabled:
-            self._tracer.process_name(PID_FEDERATED, "federated")
-            self._tracer.thread_name(PID_FEDERATED, 0, "rounds")
+
+    def _resolve_tracer(self):
+        """The round's tracer (:func:`repro_torch.obs.trace.active`), its
+        tracks named."""
+        tr = self._tracer = obs_trace.active(self._tracer_arg)
+        if tr.enabled:
+            tr.process_name(PID_FEDERATED, "federated")
+            tr.thread_name(PID_FEDERATED, 0, "rounds")
+        return tr
 
     @property
     def device(self) -> torch.device:
@@ -182,18 +203,17 @@ class FederatedServer:
                       .tolist())
 
     def run_round(self, round_idx: int) -> RoundResult:
-        tr = self._tracer
-        t0 = tr.now()
-        if self.fed.round_engine == "looped":
-            res = self._run_round_looped(round_idx)
-        else:
-            res = self._run_round_batched(round_idx)
-        res.activation_drift = self._round_drift(res)
-        if tr.enabled:
-            tr.complete(f"round {round_idx}", t0, tr.now(),
-                        pid=PID_FEDERATED, cat="federated",
-                        args={"participants": len(res.participating),
-                              "method": self.fed.method})
+        tr = self._resolve_tracer()
+        with obs_trace.use(tr), tr.span(
+                f"round {round_idx}", pid=PID_FEDERATED, tid=0,
+                cat="federated", round=round_idx) as sp:
+            if self.fed.round_engine == "looped":
+                res = self._run_round_looped(round_idx)
+            else:
+                res = self._run_round_batched(round_idx)
+            res.activation_drift = self._round_drift(res)
+            sp.note(participants=len(res.participating),
+                    method=self.fed.method)
         self._emit_round_metrics(res)
         return res
 
@@ -229,10 +249,10 @@ class FederatedServer:
         for i in parts:
             c = self.clients[i]
             with tr.span("distribute", pid=PID_FEDERATED, cat="federated",
-                         args={"client": i}):
+                         args={"client": i}, device=True, client=i):
                 dist = self._distribute(c)
             with tr.span("local_train", pid=PID_FEDERATED, cat="federated",
-                         args={"client": i, "k": c.k}):
+                         args={"client": i, "k": c.k}, client=i):
                 trained, f, _, info = client_lib.local_train(
                     self.cfg, self.params, dist, c, self.tc,
                     round_seed=self.fed.seed * 1000 + round_idx)
@@ -241,7 +261,7 @@ class FederatedServer:
             sizes.append(float(c.dataset_size))
             losses.append(info["mean_loss"])
         with tr.span("aggregate", pid=PID_FEDERATED, cat="federated",
-                     args={"method": self.fed.method}):
+                     args={"method": self.fed.method}, device=True):
             self.global_lora = self._aggregate(loras, freqs, sizes, parts)
         res = RoundResult(round_idx, losses, freqs, parts)
         self.history.append(res)
@@ -269,8 +289,10 @@ class FederatedServer:
         tr = self._tracer
         for ci, co in enumerate(cohorts):
             members = [part_clients[i] for i in co.members]
+            ids = [c.client_id for c in members]
             with tr.span("distribute", pid=PID_FEDERATED, cat="federated",
-                         args={"cohort": ci, "clients": len(members)}):
+                         args={"cohort": ci, "clients": len(members)},
+                         device=True, clients=ids):
                 stacked_tr = lora_lib.stack_adapters(
                     [lora_lib.make_trainable(self._distribute(c), c.rescaler)
                      for c in members])
@@ -280,7 +302,7 @@ class FederatedServer:
             with tr.span("cohort_update", pid=PID_FEDERATED,
                          cat="federated",
                          args={"cohort": ci, "k": co.k,
-                               "clients": len(members)}):
+                               "clients": len(members)}, clients=ids):
                 out_tr, counts, tok, loss_sum, n_valid = \
                     client_lib.cohort_update(
                         self.cfg, self.params, stacked_tr, plan.tokens,
@@ -300,21 +322,24 @@ class FederatedServer:
                     c.rescaler = tree_map(torch.clone, r)   # s_i stays local
 
             # nan (not 0.0) for a zero-valid-step client, as local_train
-            n_valid_np = n_valid.cpu().numpy()
-            loss_means = np.where(
-                n_valid_np > 0,
-                loss_sum.cpu().numpy() / np.maximum(n_valid_np, 1.0),
-                np.nan)
-            for j, pos in enumerate(co.members):
-                losses_by_pos[pos] = float(loss_means[j])
-                freqs_by_pos[pos] = {p: f[j].cpu().numpy()
-                                     for p, f in freqs.items()}
+            with tr.span("server.readback", clients=ids):
+                n_valid_np = n_valid.cpu().numpy()
+                loss_means = np.where(
+                    n_valid_np > 0,
+                    loss_sum.cpu().numpy() / np.maximum(n_valid_np, 1.0),
+                    np.nan)
+                for j, pos in enumerate(co.members):
+                    losses_by_pos[pos] = float(loss_means[j])
+                    freqs_by_pos[pos] = {p: f[j].cpu().numpy()
+                                         for p, f in freqs.items()}
 
             if flame:
-                flame_acc = agg.flame_acc_update(
-                    flame_acc, out_tr["lora"], freqs,
-                    [sizes[pos] for pos in co.members],
-                    self.fed.temperature)
+                with tr.span("agg.flame_acc_update", device=True,
+                             clients=ids):
+                    flame_acc = agg.flame_acc_update(
+                        flame_acc, out_tr["lora"], freqs,
+                        [sizes[pos] for pos in co.members],
+                        self.fed.temperature)
             else:
                 for pos, tree in zip(co.members, lora_lib.unstack_adapters(
                         out_tr["lora"], len(members))):
@@ -323,7 +348,7 @@ class FederatedServer:
 
         n = len(parts)
         with tr.span("aggregate", pid=PID_FEDERATED, cat="federated",
-                     args={"method": self.fed.method}):
+                     args={"method": self.fed.method}, device=True):
             if flame:
                 self.global_lora = agg.flame_acc_finalize(
                     flame_acc, prev_lora=self.global_lora)
@@ -499,9 +524,11 @@ class FederatedServer:
                          bank, out_tr["rescaler"])
             denom = torch.clamp(tok, min=1.0)[:, None, None]
             freqs = {pos: c / denom for pos, c in counts.items()}
-            accs.append(agg.flame_acc_update(
-                agg.flame_acc_init(gl), out_tr["lora"], freqs, xk["size"],
-                self.fed.temperature))
+            with obs_trace.current().span("agg.flame_acc_update",
+                                          device=True):
+                accs.append(agg.flame_acc_update(
+                    agg.flame_acc_init(gl), out_tr["lora"], freqs,
+                    xk["size"], self.fed.temperature))
             outs.append({"loss_sum": loss_sum, "n_valid": n_valid,
                          "freqs": freqs})
             del out_tr
@@ -550,22 +577,27 @@ class FederatedServer:
         n_rounds = self.fed.rounds - start
         seg_len = (min(self.fed.checkpoint_every, n_rounds)
                    if checkpoint_to else n_rounds)
-        tr = self._tracer
         out: List[RoundResult] = []
         for a in range(start, self.fed.rounds, seg_len):
             b = min(a + seg_len, self.fed.rounds)
             n_seg = b - a
+            tr = self._resolve_tracer()
+            if tr.enabled:
+                tr.thread_name(PID_FEDERATED, 1, "device-driver segments")
             xseg = self._upload_segment(xs, slice(a - start, b - start))
             t0 = tr.now()
             seg_outs = []
-            for j, xr in enumerate(xseg):
-                gl, outs = self._device_round(keys, caps, gl, bank, xr,
-                                              meta[a - start + j])
-                seg_outs.append(outs)
-            # the segment's host reads, after its last round: every
-            # round's sums
-            host = [[tree_map(lambda t: t.cpu().numpy(), o) for o in outs]
-                    for outs in seg_outs]
+            with obs_trace.use(tr), tr.span("segment", pid=PID_FEDERATED,
+                                            tid=1, round=a):
+                for j, xr in enumerate(xseg):
+                    gl, outs = self._device_round(keys, caps, gl, bank, xr,
+                                                  meta[a - start + j])
+                    seg_outs.append(outs)
+                # the segment's host reads, after its last round: every
+                # round's sums
+                with tr.span("server.readback"):
+                    host = [[tree_map(lambda t: t.cpu().numpy(), o)
+                             for o in outs] for outs in seg_outs]
             t1 = tr.now()
             del xseg, seg_outs
 
@@ -650,7 +682,7 @@ class FederatedServer:
         finish; each creates its object when the server has none."""
         if metrics_to and self._metrics is None:
             self._metrics = MetricsRegistry()
-        if trace_to and not self._tracer.enabled:
+        if trace_to and self._tracer_arg is None:
             self._set_tracer(Tracer())
         start = self.restore_checkpoint(resume_from) if resume_from else 0
         if self.fed.round_driver == "device":

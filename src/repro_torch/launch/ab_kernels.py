@@ -14,8 +14,8 @@ this, other, ... for:
   generated tokens/s, the decode step's p50, the prefill call's p50 and
   TTFT p50 per run.  Only where the other build has every C entry point
   the serving path calls (a build without ``rt_adaptive_topk_router``
-  cannot serve this Python; ``launch/ab_serve.py`` alternates whole
-  checkouts instead);
+  cannot serve this Python; compare whole checkouts with the
+  benchmark, ``portbench/run.py``, instead);
 - the router's static entry (``topk_router``, bf16 logits, E = 64) at
   each prefill group's shape (T = 128, 256 tokens at k = 8, 4, 2, 1),
   5 pairs;

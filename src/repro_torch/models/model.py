@@ -33,6 +33,11 @@ layer runs its sharded path (vocabulary-split embedding and head, heads
 and FFN columns and experts split over ``model``, FSDP gathers over
 ``data``, head-parallel Mamba-2 blocks: ``mamba2.apply_mamba``) to the
 unsharded model's result, for every arch of the registry.
+
+The training and serving entry points (``lm_loss``, ``prefill``,
+``prefill_suffix``, ``decode_step``) are spans ``model.<name>`` of the
+tracer of the run or round in progress (``repro_torch.obs.trace``), with
+device markers under a ``torch.profiler`` session.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from typing import Any, Optional
 import torch
 import torch.utils.checkpoint
 
+from ..obs import trace as obs_trace
 from . import attention as attn_mod
 from . import mamba2 as ssm_mod
 from . import moe_layer as moe_mod
@@ -474,6 +480,7 @@ def _vocab_parallel_ce(cfg, params, h, labels, mask, chunk, sh):
     return tot / torch.clamp(cnt, min=1.0)
 
 
+@obs_trace.traced("model.lm_loss", device=True)
 def lm_loss(cfg, params, tokens, labels, mask=None, *, trainable=None,
             k=None, dispatch=None, remat=False, remat_chunk=0, num_groups=1,
             shard=None):
@@ -564,6 +571,7 @@ def grow_cache(cache: PyTree, depth: int) -> PyTree:
     return out
 
 
+@obs_trace.traced("model.prefill", device=True)
 def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
             cache_len: Optional[int] = None, slot_mask=None,
             dispatch: str = "ragged", num_groups: int = 1, shard=None):
@@ -598,6 +606,7 @@ def prefill(cfg, params, tokens: torch.Tensor, *, trainable=None, k=None,
     return lm_head(params, cfg, h, shard), cache
 
 
+@obs_trace.traced("model.prefill_suffix", device=True)
 def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
                    suffix_len, cache, block_table: torch.Tensor, *,
                    page_span: int, trainable=None, k=None, slot_mask=None,
@@ -642,6 +651,7 @@ def prefill_suffix(cfg, params, tokens: torch.Tensor, prefix_len,
     return lm_head(params, cfg, h), piece
 
 
+@obs_trace.traced("model.decode_step", device=True)
 def decode_step(cfg, params, cache, tokens: torch.Tensor, pos, *,
                 trainable=None, k=None, slot_mask=None, block_table=None,
                 page_span=None, dispatch: str = "ragged",

@@ -55,8 +55,22 @@ Production traffic controls:
 Observability (all opt-in; the defaults cost one attribute check per
 event site): ``tracer`` (a :class:`repro_torch.obs.Tracer`) records
 request-lifecycle spans (queued / prefill / decode, swap instants) and
-engine-loop spans on the host clock with no device sync of its own, and is
-flight-dumped if ``run`` raises; ``metrics`` (a ``MetricsRegistry``) gets
+engine-loop spans with no device sync of its own, and is flight-dumped if
+``run`` raises.  The loop's spans are on the tracer's clock
+(``time.time_ns``, the clock ``torch.profiler`` stamps with; the
+request-lifecycle spans map the engine-relative ``Completion`` times onto
+it): one ``engine.iter`` per working loop iteration (an idle poll before
+the next arrival leaves none), ``admit``, a ``prefill`` per group
+(``rids``: its requests; parent of ``model.prefill``, ``pool.write`` and
+``engine.readback``, the wait in the step's one host copy),
+``engine.emit``, ``decode_step`` (parent of ``pool.prepare_decode`` and
+``model.decode_step``); the pool counts the decode step's K/V rows
+gathered against live (``kv.rows_gathered``, ``kv.rows_live``).  With
+``tracer=None`` the tracer is resolved at each ``run`` by
+:func:`repro_torch.obs.trace.active`: while a ``torch.profiler`` session
+records, the process's session tracer, which also takes each model
+call's device time (``dev_ms``) and counts its host syncs; else none.
+``metrics`` (a ``MetricsRegistry``) gets
 the engine's counters, the pool and scheduler as snapshot sources and the
 run's step histograms; ``expert_telemetry=True`` makes each decode step
 return its per-expert counts, brought to the host in the same transfer as
@@ -95,6 +109,7 @@ import torch
 
 from ..models import model as model_lib
 from ..models.moe_layer import resolve_dispatch
+from ..obs import trace as obs_trace
 from ..obs.expert_load import ExpertLoadTracker
 from ..obs.metrics import Histogram, MetricsRegistry
 from ..obs.trace import NULL_TRACER, PID_ENGINE, PID_REQUESTS, Tracer
@@ -401,6 +416,7 @@ class ServingEngine:
         self._active: List[Optional[_ActiveSlot]] = [None] * num_slots
         self._last_tok = np.zeros((num_slots, 1), np.int64)
 
+        self._tracer_arg = tracer
         self._tracer = tracer if tracer is not None else NULL_TRACER
         self._metrics = metrics
         self._expert_tracker = (ExpertLoadTracker(cfg.moe.num_experts)
@@ -412,10 +428,6 @@ class ServingEngine:
             self._ctr_tokens = metrics.counter("serving.gen_tokens")
             self._ctr_admitted = metrics.counter("serving.admitted")
             self._ctr_preempt = metrics.counter("serving.preemptions")
-        if self._tracer.enabled:
-            self._tracer.process_name(PID_ENGINE, "serving-engine")
-            self._tracer.thread_name(PID_ENGINE, 0, "engine loop")
-            self._tracer.process_name(PID_REQUESTS, "requests")
         self._spec = (SpeculativeDecoder(self, speculative)
                       if speculative is not None else None)
 
@@ -473,26 +485,26 @@ class ServingEngine:
         """One admission round: a packing pass, then (with preemption)
         swap out lenient-deadline victims while a waiter is past its TTFT
         deadline and another pass can seat it."""
-        t0 = self._now()
-        n = self._admit_pass(report)
-        if self._preemption:
-            for _ in range(self.num_slots):
-                victim = self._pick_victim()
-                if victim is None:
-                    break
-                self._preempt(victim, report)
-                got = self._admit_pass(report)
-                n += got
-                if got == 0:
-                    # the freed blocks alone did not seat the waiter: stop
-                    # rather than strip the pool in one round
-                    break
-        if n:
-            if self._tracer.enabled:
-                self._tracer.complete("admit", t0, self._now(), cat="engine",
-                                      args={"admitted": n})
-            if self._metrics is not None:
-                self._ctr_admitted.inc(n)
+        with self._tracer.span("admit", cat="engine") as sp:
+            n = self._admit_pass(report)
+            if self._preemption:
+                for _ in range(self.num_slots):
+                    victim = self._pick_victim()
+                    if victim is None:
+                        break
+                    self._preempt(victim, report)
+                    got = self._admit_pass(report)
+                    n += got
+                    if got == 0:
+                        # the freed blocks alone did not seat the waiter:
+                        # stop rather than strip the pool in one round
+                        break
+            if n:
+                sp.note(admitted=n)
+            else:
+                sp.drop()
+        if n and self._metrics is not None:
+            self._ctr_admitted.inc(n)
         return n
 
     def _pick_victim(self) -> Optional[int]:
@@ -615,7 +627,7 @@ class ServingEngine:
                     now = self._now()
                     self._tracer.complete(
                         "swapped_out", a.swap_t, now, pid=PID_REQUESTS,
-                        tid=req.rid, cat="preempt")
+                        tid=req.rid, cat="preempt", rid=req.rid)
                     self._tracer.instant("swap_in", now, pid=PID_REQUESTS,
                                          tid=req.rid, cat="preempt",
                                          args={"slot": slot})
@@ -638,66 +650,70 @@ class ServingEngine:
                 groups.setdefault(("full", req.prompt_len, self.slot_k[slot]),
                                   []).append((req, slot, 0, 0))
 
+        tr = self._tracer
         for (kind, width, kk), items in groups.items():
             nb = len(items)
             slots = [s for _, s, _, _ in items]
-            admitted = self._now()
-            if kind == "suffix":
-                logits = self._prefill_suffix_group(items, kk)
-                report.prefill_tokens += sum(
-                    r.prompt_len - st for r, _, st, _ in items)
-                targs = {"batch": nb, "suffix_bucket": width}
-            else:
-                prompts = np.stack([r.prompt for r, _, _, _ in items])
-                real = self._capacity_rows(nb)
-                if real is not None:
-                    # the reference's bucket rows (copies of the first
-                    # prompt, routed nowhere)
-                    prompts = np.concatenate(
-                        [prompts, np.repeat(prompts[:1], len(real) - nb, 0)])
-                    real = torch.as_tensor(real, device=self.device)
-                # only the first L columns are scattered, so the prefill
-                # cache needs no padding to slot_len
-                logits, cache = model_lib.prefill(
-                    self.cfg, self.params,
-                    torch.as_tensor(prompts, dtype=torch.int64,
-                                    device=self.device),
-                    trainable=self._prefill_trainable(kk), k=kk,
-                    slot_mask=real, dispatch=self.dispatch,
-                    num_groups=self._groups(len(prompts)))
-                logits = logits[:nb, 0].float()
-                # under suffix prefill the match/attach/alloc already ran:
-                # scatter past the matched span only (a same-pass duplicate
-                # recomputes its prompt but must not rewrite the shared
-                # blocks it attached); a hybrid model's pool matches,
-                # attaches and indexes the prompts itself
-                if self._use_suffix:
-                    self.pool.write(slots, cache, [width] * nb,
-                                    starts=[cov for _, _, _, cov in items])
+            with tr.span("prefill", cat="engine",
+                         rids=[r.rid for r, _, _, _ in items]) as sp:
+                admitted = self._now()
+                if kind == "suffix":
+                    logits = self._prefill_suffix_group(items, kk)
+                    report.prefill_tokens += sum(
+                        r.prompt_len - st for r, _, st, _ in items)
+                    targs = {"batch": nb, "suffix_bucket": width}
                 else:
-                    self.pool.write(
-                        slots, cache, [width] * nb,
-                        tokens=([r.prompt for r, _, _, _ in items]
-                                if self.prefix_cache else None),
-                        salt=_tier_salt(kk))
-                report.prefill_tokens += nb * width
-                targs = {"batch": nb, "prompt_len": width}
-            actives = [_ActiveSlot(req=req, tokens=[], nll=0.0,
-                                   admitted=admitted, first_token=0.0,
-                                   max_new=self._max_new(req))
-                       for req, _, _, _ in items]
-            logits_np, drawn = self._select(logits, actives)   # waits
-            tft = self._now()
-            report.prefill_s.append(tft - admitted)
-            report.prefill_hist.observe((tft - admitted) * 1e3)
-            if self._tracer.enabled:
-                targs["k"] = kk if kk is not None else 0
-                self._tracer.complete("prefill", admitted, tft, cat="engine",
-                                      args=targs)
-            for j, (a, slot) in enumerate(zip(actives, slots)):
-                a.first_token = tft
-                self._active[slot] = a
-                self._emit(slot, a, logits_np[j], drawn[j], report)
+                    prompts = np.stack([r.prompt for r, _, _, _ in items])
+                    real = self._capacity_rows(nb)
+                    if real is not None:
+                        # the reference's bucket rows (copies of the first
+                        # prompt, routed nowhere)
+                        prompts = np.concatenate(
+                            [prompts,
+                             np.repeat(prompts[:1], len(real) - nb, 0)])
+                        real = torch.as_tensor(real, device=self.device)
+                    # only the first L columns are scattered, so the
+                    # prefill cache needs no padding to slot_len
+                    logits, cache = model_lib.prefill(
+                        self.cfg, self.params,
+                        torch.as_tensor(prompts, dtype=torch.int64,
+                                        device=self.device),
+                        trainable=self._prefill_trainable(kk), k=kk,
+                        slot_mask=real, dispatch=self.dispatch,
+                        num_groups=self._groups(len(prompts)))
+                    logits = logits[:nb, 0].float()
+                    # under suffix prefill the match/attach/alloc already
+                    # ran: scatter past the matched span only (a same-pass
+                    # duplicate recomputes its prompt but must not rewrite
+                    # the shared blocks it attached); a hybrid model's pool
+                    # matches, attaches and indexes the prompts itself
+                    with tr.span("pool.write"):
+                        if self._use_suffix:
+                            self.pool.write(
+                                slots, cache, [width] * nb,
+                                starts=[cov for _, _, _, cov in items])
+                        else:
+                            self.pool.write(
+                                slots, cache, [width] * nb,
+                                tokens=([r.prompt for r, _, _, _ in items]
+                                        if self.prefix_cache else None),
+                                salt=_tier_salt(kk))
+                    report.prefill_tokens += nb * width
+                    targs = {"batch": nb, "prompt_len": width}
+                actives = [_ActiveSlot(req=req, tokens=[], nll=0.0,
+                                       admitted=admitted, first_token=0.0,
+                                       max_new=self._max_new(req))
+                           for req, _, _, _ in items]
+                logits_np, drawn = self._select(logits, actives)   # waits
+                tft = self._now()
+                report.prefill_s.append(tft - admitted)
+                report.prefill_hist.observe((tft - admitted) * 1e3)
+                sp.note(**targs, k=kk if kk is not None else 0)
+            with tr.span("engine.emit"):
+                for j, (a, slot) in enumerate(zip(actives, slots)):
+                    a.first_token = tft
+                    self._active[slot] = a
+                    self._emit(slot, a, logits_np[j], drawn[j], report)
         return len(assignments)
 
     def _capacity_rows(self, nb: int) -> Optional[np.ndarray]:
@@ -755,10 +771,11 @@ class ServingEngine:
             page_span=span_b * self.pool.block_size,
             trainable=self._prefill_trainable(kk), k=k, slot_mask=mask,
             dispatch=self.dispatch, num_groups=self._groups(rows))
-        self.pool.write([s for _, s, _, _ in items], piece,
-                        [r.prompt_len for r, _, _, _ in items],
-                        starts=[cov for _, _, _, cov in items],
-                        piece_col0=pref[:nb].tolist())
+        with self._tracer.span("pool.write"):
+            self.pool.write([s for _, s, _, _ in items], piece,
+                            [r.prompt_len for r, _, _, _ in items],
+                            starts=[cov for _, _, _, cov in items],
+                            piece_col0=pref[:nb].tolist())
         return logits[:nb, 0].float()
 
     # --------------------------------------------------------------- sampling
@@ -786,7 +803,9 @@ class ServingEngine:
                 logits.device, non_blocking=True), self._sampler)
             parts.append(tok.to(logits.dtype))     # ids < 2^24: exact
         parts += [t.float().reshape(-1) for t in extra]
-        host = torch.cat(parts).cpu().numpy()
+        host = torch.cat(parts)
+        with self._tracer.span("engine.readback"):
+            host = host.cpu().numpy()
         pieces = np.split(host, np.cumsum([t.numel() for t in parts])[:-1])
         logits_np = pieces[0].reshape(logits.shape)
         drawn = (pieces[1].astype(np.int64) if sampled
@@ -815,43 +834,46 @@ class ServingEngine:
 
     # ----------------------------------------------------------------- decode
     def _decode_once(self, report: ServingReport) -> None:
-        t_start = time.perf_counter()
-        active = [s for s, a in enumerate(self._active) if a is not None]
-        active_mask = torch.as_tensor(
-            [a is not None for a in self._active], dtype=torch.float32,
-            device=self.device)
-        paged = {}
-        if self.paged:
-            self.pool.prepare_decode(active)
-            paged = dict(block_table=self.pool.tables(),
-                         page_span=self.pool.attn_len)
-        telemetry = self._expert_tracker is not None
-        out = model_lib.decode_step(
-            self.cfg, self.params, self.pool.cache,
-            torch.as_tensor(self._last_tok, device=self.device),
-            self.pool.positions(), trainable=self._decode_trainable,
-            k=self._moe_k,
-            slot_mask=active_mask if self.cfg.moe.enabled else None,
-            dispatch=self.dispatch, return_counts=telemetry, **paged)
-        # the expert counts ride in the logits' transfer: one wait, one copy
-        keys = sorted(out[2]) if telemetry else []
-        logits_np, drawn, *counts = self._select(
-            out[0][:, 0].float(), self._active,
-            *[out[2][p] for p in keys])
-        dt = time.perf_counter() - t_start
-        report.decode_step_s.append(dt)
-        report.decode_hist.observe(dt * 1e3)
-        if telemetry:
-            self._expert_tracker.observe_step(
-                {p: c.reshape(out[2][p].shape) for p, c in zip(keys, counts)})
-        if self._tracer.enabled:
-            end = self._now()
-            self._tracer.complete("decode_step", end - dt, end, cat="engine",
-                                  args={"active": len(active)})
-        self.pool.advance(active)
-        for slot in active:
-            self._emit(slot, self._active[slot], logits_np[slot], drawn[slot],
-                       report)
+        tr = self._tracer
+        with tr.span("decode_step", cat="engine") as sp:
+            t_start = time.perf_counter()
+            active = [s for s, a in enumerate(self._active) if a is not None]
+            active_mask = torch.as_tensor(
+                [a is not None for a in self._active], dtype=torch.float32,
+                device=self.device)
+            paged = {}
+            if self.paged:
+                with tr.span("pool.prepare_decode"):
+                    self.pool.prepare_decode(active)
+                    paged = dict(block_table=self.pool.tables(),
+                                 page_span=self.pool.attn_len)
+            telemetry = self._expert_tracker is not None
+            out = model_lib.decode_step(
+                self.cfg, self.params, self.pool.cache,
+                torch.as_tensor(self._last_tok, device=self.device),
+                self.pool.positions(), trainable=self._decode_trainable,
+                k=self._moe_k,
+                slot_mask=active_mask if self.cfg.moe.enabled else None,
+                dispatch=self.dispatch, return_counts=telemetry, **paged)
+            # the expert counts ride in the logits' transfer: one wait, one
+            # copy
+            keys = sorted(out[2]) if telemetry else []
+            logits_np, drawn, *counts = self._select(
+                out[0][:, 0].float(), self._active,
+                *[out[2][p] for p in keys])
+            dt = time.perf_counter() - t_start
+            report.decode_step_s.append(dt)
+            report.decode_hist.observe(dt * 1e3)
+            if telemetry:
+                self._expert_tracker.observe_step(
+                    {p: c.reshape(out[2][p].shape)
+                     for p, c in zip(keys, counts)})
+            sp.note(active=len(active))
+        with tr.span("engine.emit"):
+            self.pool.advance(active)
+            for slot in active:
+                self._emit(slot, self._active[slot], logits_np[slot],
+                           drawn[slot], report)
 
     def _finish(self, slot: int, report: ServingReport) -> None:
         a = self._active[slot]
@@ -874,13 +896,13 @@ class ServingEngine:
                     "gen_tokens": c.n_generated,
                     "preemptions": c.preemptions}
             tr.complete("request", c.arrival, c.finished, pid=PID_REQUESTS,
-                        tid=tid, cat="request", args=args)
+                        tid=tid, cat="request", args=args, rid=tid)
             tr.complete("queued", c.arrival, c.admitted, pid=PID_REQUESTS,
-                        tid=tid, cat="request")
+                        tid=tid, cat="request", rid=tid)
             tr.complete("prefill", c.admitted, c.first_token,
-                        pid=PID_REQUESTS, tid=tid, cat="request")
+                        pid=PID_REQUESTS, tid=tid, cat="request", rid=tid)
             tr.complete("decode", c.first_token, c.finished,
-                        pid=PID_REQUESTS, tid=tid, cat="request")
+                        pid=PID_REQUESTS, tid=tid, cat="request", rid=tid)
         if self._metrics is not None:
             self._ctr_completions.inc()
             self._ctr_tokens.inc(c.n_generated)
@@ -934,38 +956,49 @@ class ServingEngine:
                                        report.verify_hist)
         if self._expert_tracker is not None:
             self._expert_tracker.reset()
+        tr = self._tracer = obs_trace.active(self._tracer_arg)
+        if tr.enabled:
+            tr.process_name(PID_ENGINE, "serving-engine")
+            tr.thread_name(PID_ENGINE, 0, "engine loop")
+            tr.process_name(PID_REQUESTS, "requests")
         self._t0 = time.perf_counter()
-        tr = self._tracer
         if tr.enabled:
             tr.anchor(0.0)           # tracer time == engine-relative time
         steps = 0
         try:
-            while pending or len(self.scheduler) or self.n_active:
-                now = self._now()
-                while pending and pending[0].arrival <= now:
-                    self.scheduler.add(pending.pop(0))
-                admitted = self._admit(report)
-                if tr.enabled:
-                    tr.counter("engine", self._now(),
-                               {"active_slots": self.n_active,
-                                "queue_depth": len(self.scheduler)})
-                if self.n_active:
-                    if self._spec is not None:
-                        self._spec.round(report)
-                    else:
-                        self._decode_once(report)
-                    steps += 1
-                    if max_steps is not None and steps >= max_steps:
-                        break
-                elif not admitted:
-                    if pending:              # idle until the next arrival
-                        time.sleep(max(0.0, min(
-                            pending[0].arrival - self._now(), 0.01)))
-                    elif len(self.scheduler):
-                        stuck = [r.rid for r in self.scheduler.queue]
-                        raise RuntimeError(
-                            f"requests {stuck} match no slot tier "
-                            f"(slot_k={self.slot_k})")
+            with obs_trace.use(tr):
+                while pending or len(self.scheduler) or self.n_active:
+                    with tr.span("engine.iter", pid=PID_ENGINE,
+                                 tid=0) as it:
+                        now = self._now()
+                        while pending and pending[0].arrival <= now:
+                            self.scheduler.add(pending.pop(0))
+                        admitted = self._admit(report)
+                        if tr.enabled:
+                            tr.counter("engine", self._now(),
+                                       {"active_slots": self.n_active,
+                                        "queue_depth": len(self.scheduler)})
+                        busy = self.n_active
+                        if busy:
+                            if self._spec is not None:
+                                self._spec.round(report)
+                            else:
+                                self._decode_once(report)
+                            steps += 1
+                        elif not admitted:
+                            it.drop()
+                    if busy:
+                        if max_steps is not None and steps >= max_steps:
+                            break
+                    elif not admitted:
+                        if pending:          # idle until the next arrival
+                            time.sleep(max(0.0, min(
+                                pending[0].arrival - self._now(), 0.01)))
+                        elif len(self.scheduler):
+                            stuck = [r.rid for r in self.scheduler.queue]
+                            raise RuntimeError(
+                                f"requests {stuck} match no slot tier "
+                                f"(slot_k={self.slot_k})")
         except Exception:
             # flight recorder: leave the last trace events on disk for a
             # postmortem, then re-raise

@@ -57,6 +57,7 @@ import numpy as np
 import torch
 
 from ..models import model as model_lib
+from ..obs import trace as obs_trace
 
 PyTree = Any
 
@@ -260,6 +261,8 @@ class BlockPool(_RowPool):
             cfg, num_slots, num_blocks, block_size, device=self.device)
         self.block_table = np.zeros((num_slots, self.blocks_per_slot),
                                     np.int32)
+        self._attn_layers = sum(next(iter(c["attn"].values())).shape[0]
+                                for c in self.cache.values() if "attn" in c)
         self._free_blocks: List[int] = list(range(1, num_blocks + 1))
         self._reserved = np.zeros((num_slots,), np.int64)
         self._nalloc = np.zeros((num_slots,), np.int64)
@@ -289,7 +292,21 @@ class BlockPool(_RowPool):
         self.swap_ins = 0
 
     def tables(self) -> torch.Tensor:
-        """Per-row block tables as a device tensor for the decode step."""
+        """Per-row block tables as a device tensor for the decode step.
+        The run's tracer counts, from host integers, the K/V rows the
+        step's paged gather copies (every row's ``attn_len`` page span in
+        each attention layer: ``kv.rows_gathered``) against the live ones
+        (each taken row's positions up to the one it decodes:
+        ``kv.rows_live``)."""
+        tr = obs_trace.current()
+        if tr.enabled:
+            taken = np.ones(self.num_slots, bool)
+            taken[self._free] = False
+            live = np.minimum(self.cache_pos[taken].astype(np.int64) + 1,
+                              self.attn_len).sum()
+            tr.add("kv.rows_gathered",
+                   self.num_slots * self.attn_len * self._attn_layers)
+            tr.add("kv.rows_live", int(live) * self._attn_layers)
         return torch.as_tensor(self.block_table, device=self.device)
 
     # ----------------------------------------------------- block bookkeeping

@@ -176,64 +176,65 @@ class SpeculativeDecoder:
         pos0_d = torch.as_tensor(pos0, dtype=torch.int64).to(
             dev, non_blocking=True)
 
+        tr = eng._tracer
         # ---- draft: W read-only steps at draft_k, tokens picked on the
         # device, one host copy at the end ----
-        t0 = time.perf_counter()
-        paged = {}
-        if eng.paged:
-            # the draft writes no page, but verify writes positions
-            # pos0 .. pos0+W: their blocks come out of the reservation now
-            for _ in range(W):
-                pool.prepare_decode(active)
-                pool.advance(active)
-            paged = dict(block_table=pool.tables(), page_span=pool.attn_len)
-        else:
-            for _ in range(W):
-                pool.advance(active)
-        qs, toks = model_lib.draft_window(
-            eng.cfg, eng.params, pool.cache,
-            torch.as_tensor(first).to(dev, non_blocking=True), pos0_d,
-            self._draws(active, W, 1).T, sample_fn=self._sample_fn,
-            window=W, trainable=self._draft_trainable, k=self.draft_k,
-            dispatch=eng.dispatch, **paged)
-        d_toks = toks.T.cpu().numpy()                              # (B, W)
-        dt = time.perf_counter() - t0
-        report.draft_step_s.append(dt)
-        report.draft_hist.observe(dt * 1e3)
-        if eng._tracer.enabled:
-            end = eng._now()
-            eng._tracer.complete("draft", end - dt, end, cat="engine",
-                                 args={"window": W, "active": len(active)})
+        with tr.span("draft", cat="engine") as sp:
+            t0 = time.perf_counter()
+            paged = {}
+            if eng.paged:
+                # the draft writes no page, but verify writes positions
+                # pos0 .. pos0+W: their blocks come out of the reservation
+                # now
+                for _ in range(W):
+                    pool.prepare_decode(active)
+                    pool.advance(active)
+                paged = dict(block_table=pool.tables(),
+                             page_span=pool.attn_len)
+            else:
+                for _ in range(W):
+                    pool.advance(active)
+            qs, toks = model_lib.draft_window(
+                eng.cfg, eng.params, pool.cache,
+                torch.as_tensor(first).to(dev, non_blocking=True), pos0_d,
+                self._draws(active, W, 1).T, sample_fn=self._sample_fn,
+                window=W, trainable=self._draft_trainable, k=self.draft_k,
+                dispatch=eng.dispatch, **paged)
+            d_toks = toks.T.cpu().numpy()                          # (B, W)
+            dt = time.perf_counter() - t0
+            report.draft_step_s.append(dt)
+            report.draft_hist.observe(dt * 1e3)
+            sp.note(window=W, active=len(active))
 
         # ---- verify + reject: one full-k step over the W+1 window tokens,
         # the rule over all slots, one host copy ----
-        t0 = time.perf_counter()
-        if eng.paged:
-            pool.prepare_decode(active)                            # pos0 + W
-            paged = dict(block_table=pool.tables(), page_span=pool.attn_len)
-        active_mask = torch.as_tensor(
-            [a is not None for a in eng._active], dtype=torch.float32).to(
-                dev, non_blocking=True)
-        verify_in = torch.as_tensor(np.concatenate([first, d_toks], axis=1))
-        lv, _ = model_lib.decode_step(
-            eng.cfg, eng.params, pool.cache,
-            verify_in.to(dev, non_blocking=True), pos0_d,
-            trainable=eng._decode_trainable, k=eng._moe_k,
-            slot_mask=active_mask, dispatch=eng.dispatch, **paged)
-        u = self._draws(active, 1, W + 1)
-        out, n_emit, n_acc = verify_window(
-            toks.T, qs.transpose(0, 1), lv.float(), eng._sampler,
-            u[:, :W], u[:, W])
-        host = torch.cat([out, n_emit[:, None], n_acc[:, None]],
-                         dim=1).cpu().numpy()
-        out_toks, n_emit, n_acc = host[:, :-2], host[:, -2], host[:, -1]
-        dt = time.perf_counter() - t0
-        report.verify_step_s.append(dt)
-        report.verify_hist.observe(dt * 1e3)
-        if eng._tracer.enabled:
-            end = eng._now()
-            eng._tracer.complete("verify", end - dt, end, cat="engine",
-                                 args={"window": W})
+        with tr.span("verify", cat="engine") as sp:
+            t0 = time.perf_counter()
+            if eng.paged:
+                pool.prepare_decode(active)                        # pos0 + W
+                paged = dict(block_table=pool.tables(),
+                             page_span=pool.attn_len)
+            active_mask = torch.as_tensor(
+                [a is not None for a in eng._active],
+                dtype=torch.float32).to(dev, non_blocking=True)
+            verify_in = torch.as_tensor(np.concatenate([first, d_toks],
+                                                       axis=1))
+            lv, _ = model_lib.decode_step(
+                eng.cfg, eng.params, pool.cache,
+                verify_in.to(dev, non_blocking=True), pos0_d,
+                trainable=eng._decode_trainable, k=eng._moe_k,
+                slot_mask=active_mask, dispatch=eng.dispatch, **paged)
+            u = self._draws(active, 1, W + 1)
+            out, n_emit, n_acc = verify_window(
+                toks.T, qs.transpose(0, 1), lv.float(), eng._sampler,
+                u[:, :W], u[:, W])
+            host = torch.cat([out, n_emit[:, None], n_acc[:, None]],
+                             dim=1).cpu().numpy()
+            out_toks, n_emit, n_acc = host[:, :-2], host[:, -2], host[:, -1]
+            dt = time.perf_counter() - t0
+            report.verify_step_s.append(dt)
+            report.verify_hist.observe(dt * 1e3)
+            sp.note(window=W)
 
         for s in active:
             a = eng._active[s]

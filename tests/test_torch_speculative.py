@@ -430,8 +430,10 @@ def test_spec_spans_and_metrics_match_jax(greedy_runs):
     names = {}
     for side in ("jax", "port"):
         trace = obs[side]["tracer"].to_dict()
+        # the reference's spans (the port's layer spans left out)
         names[side] = sorted(e["name"] for e in trace["traceEvents"]
-                             if e["ph"] == "X" and e["pid"] == 1)
+                             if e["ph"] == "X" and e["pid"] == 1
+                             and e.get("cat") != "layer")
     assert names["port"] == names["jax"]
     assert names["port"].count("draft") == names["port"].count(
         "verify") == rounds

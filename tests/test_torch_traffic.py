@@ -82,8 +82,12 @@ def _assert_same_tokens(want, got):
 
 
 def _events(tracer_dict, pid):
+    """The reference's events on track ``pid``: the port's own layer
+    spans (``cat: "layer"``, which the reference does not record) are
+    left out."""
     return [e for e in tracer_dict["traceEvents"]
-            if e["ph"] != "M" and e["pid"] == pid]
+            if e["ph"] != "M" and e["pid"] == pid
+            and e.get("cat") != "layer"]
 
 
 # ==========================================================================
@@ -674,7 +678,9 @@ def test_federated_round_spans_match_reference(engine, experiments,
         server.run(trace_to=path)
         trace = json.load(open(path))
         assert validate_chrome_trace(trace) == []
-        events = sorted(trace["traceEvents"], key=lambda e: (
+        # the reference's spans (the port's layer spans left out)
+        events = sorted((e for e in trace["traceEvents"]
+                         if e.get("cat") != "layer"), key=lambda e: (
             e["ph"] != "M", e["ts"] + e.get("dur", 0)))
         spans[name] = [(e["name"], e["ph"], e["pid"], e["tid"],
                         e.get("args")) for e in events]
